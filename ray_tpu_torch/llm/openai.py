@@ -1,0 +1,147 @@
+"""OpenAI-compatible serving surface for the port's continuous-batching
+engine.
+
+Counterpart: ray_tpu/llm/openai.py. `OpenAIServer.__call__` serves
+/v1/models, /v1/completions and /v1/chat/completions (with SSE-style
+streaming as a generator of chunk dicts) for any request object with
+`.path` and `.json()`. Prompts are strings (byte-level tokenizer) or raw
+token lists. `build_openai_app` waits for the port's own serve runtime.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+from ray_tpu_torch.llm import LLMConfig
+from ray_tpu_torch.llm.engine import ContinuousEngine, GenStream, SamplingParams
+
+
+class ByteTokenizer:
+    """Byte-level tokenizer: token = byte value; BOS=256, EOS=257. Needs
+    vocab_size >= 258."""
+
+    BOS = 256
+    EOS = 257
+    vocab_size = 258
+
+    def encode(self, text: str, *, bos: bool = True) -> list[int]:
+        toks = list(text.encode("utf-8"))
+        return ([self.BOS] if bos else []) + toks
+
+    def decode(self, tokens) -> str:
+        data = bytes(t for t in tokens if 0 <= t < 256)
+        return data.decode("utf-8", "replace")
+
+
+def _sampling_from_body(body: dict, default_max: int) -> SamplingParams:
+    return SamplingParams(
+        temperature=float(body.get("temperature", 1.0)),
+        top_k=int(body.get("top_k", 0)),
+        top_p=float(body.get("top_p", 1.0)),
+        max_tokens=int(body.get("max_tokens", default_max)),
+        stop_token=body.get("stop_token"),
+        seed=int(body.get("seed", 0)),
+    )
+
+
+class OpenAIServer:
+    """Callable serving the OpenAI routes from one local engine. `device`
+    defaults to "cuda" and raises without it."""
+
+    def __init__(self, cfg: LLMConfig, model_id: str = "ray-tpu-llm",
+                 max_batch: int = 8, decode_chunk: int = 8,
+                 default_max_tokens: int = 64, device="cuda"):
+        self.cfg = cfg
+        self.model_id = model_id
+        self.default_max_tokens = default_max_tokens
+        self.tok = ByteTokenizer()
+        self.engine = ContinuousEngine(
+            cfg, max_batch=max_batch, decode_chunk=decode_chunk,
+            device=device)
+
+    # ------------------------------------------------------------ helpers
+    def _encode_prompt(self, body: dict) -> list[int]:
+        if "messages" in body:  # chat form
+            text = "".join(
+                f"<{m.get('role', 'user')}>{m.get('content', '')}"
+                for m in body["messages"])
+            return self.tok.encode(text)
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, list):
+            return [int(t) for t in prompt]  # raw token ids
+        return self.tok.encode(str(prompt))
+
+    def _completion_body(self, req_id: str, text: str, tokens: list[int],
+                         finish: Optional[str], chat: bool,
+                         stream_delta: bool = False) -> dict:
+        if chat:
+            key = "delta" if stream_delta else "message"
+            choice = {"index": 0, key: {"role": "assistant", "content": text},
+                      "finish_reason": finish}
+            obj = ("chat.completion.chunk" if stream_delta
+                   else "chat.completion")
+        else:
+            choice = {"index": 0, "text": text, "finish_reason": finish}
+            obj = "text_completion"
+        return {"id": req_id, "object": obj, "created": int(time.time()),
+                "model": self.model_id, "choices": [choice],
+                "token_ids": tokens}
+
+    # ------------------------------------------------------------- routes
+    def __call__(self, request):
+        path = request.path
+        if path.endswith("/v1/models") or path.endswith("/models"):
+            return {"object": "list",
+                    "data": [{"id": self.model_id, "object": "model",
+                              "owned_by": "ray_tpu_torch"}]}
+        if path.endswith("/v1/stats") or path.endswith("/stats"):
+            return {"pid": os.getpid(), "active": self.engine.num_active,
+                    "running": self.engine._running}
+        body = request.json() or {}
+        chat = "chat" in path or "messages" in body
+        prompt = self._encode_prompt(body)
+        sampling = _sampling_from_body(body, self.default_max_tokens)
+        req_id = f"cmpl-{int(time.time() * 1e6):x}"
+        stream = self.engine.submit(prompt, sampling)
+        if body.get("stream"):
+            return self._stream_chunks(req_id, stream, chat)
+        toks = stream.tokens()
+        return self._completion_body(
+            req_id, self.tok.decode(toks), toks, stream.finish_reason, chat)
+
+    def _stream_chunks(self, req_id: str, stream: GenStream, chat: bool):
+        """Generator of OpenAI SSE chunk dicts — one per token batch
+        (GenStream.next_batch drains every token available per wakeup)."""
+        def gen():
+            try:
+                while True:
+                    try:
+                        toks = stream.next_batch()
+                    except StopIteration:
+                        break
+                    yield self._completion_body(
+                        req_id, self.tok.decode(toks), toks, None, chat,
+                        stream_delta=True)
+                yield self._completion_body(
+                    req_id, "", [], stream.finish_reason or "length", chat,
+                    stream_delta=True)
+            finally:
+                # Consumer gone: free the engine slot instead of decoding
+                # to max_tokens for nobody.
+                stream.close()
+        return gen()
+
+    def check_health(self):
+        if not self.engine._running:
+            raise RuntimeError("llm engine stopped")
+
+    def shutdown(self):
+        self.engine.shutdown()
+
+    def __del__(self):
+        try:
+            self.engine.shutdown()
+        except Exception:
+            pass
