@@ -14,7 +14,12 @@ from the root of a checkout. Phases, each of which raises on failure
    tolerance, median time over CUDA events with L2 flushed, the plain
    version's time, the least time the card could take (bound), and the
    time of one PyTorch call computing the same function (timed only; the
-   port never calls it).
+   port never calls it): `scaled_dot_product_attention` pinned to a named
+   backend (flash for unmasked or causal cases, memory-efficient where a
+   mask is needed; the next that runs if one refuses, printed), timed in
+   turns with the kernel (kernel, library, library, kernel). The card's
+   SM clock, power draw and temperature are sampled with nvidia-smi
+   while the phase runs.
 3. Golden parity: the tiny float32 model of tests/data/torch_port_golden.npz
    (weights, logits and greedy tokens of the JAX package) through the
    kernels, TF32 off: logits within 1e-4, greedy tokens equal.
@@ -37,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -54,6 +60,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # output may then round to the neighbouring bf16 value (one ulp: 1/128 of
 # the magnitude's power of two), so bf16 is held to 2e-2 * max(1, |ref|).
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+# The library yardstick's SDPA backends, in order of preference
+# (torch.nn.attention.SDPBackend names).
+UNMASKED_SDPA = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+MASKED_SDPA = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SERVE = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
@@ -94,6 +106,71 @@ def _timed_ms(fn, flush, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _timed_in_turns(kernel_fn, library_fn, backends, flush):
+    """Kernel and library call timed in turns (kernel, library, library,
+    kernel), the library pinned to the first of `backends` that runs it.
+    Returns (kernel ms, library ms, backend name), each the median over
+    both of its runs."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (getattr(SDPBackend, name) for name in backends):
+        try:
+            with sdpa_kernel(backend):
+                library_fn()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        break
+    else:
+        raise AssertionError(f"no SDPA backend of {backends} runs the case")
+    kernel_ms, library_ms = [], []
+    for kind in ("kernel", "library", "library", "kernel"):
+        if kind == "kernel":
+            kernel_ms.append(_timed_ms(kernel_fn, flush))
+        else:
+            with sdpa_kernel(backend):
+                library_ms.append(_timed_ms(library_fn, flush))
+    return (statistics.median(kernel_ms), statistics.median(library_ms),
+            backend.name)
+
+
+@contextlib.contextmanager
+def _smi_sampler(period_ms: int = 200):
+    """Sample the card's SM clock, power draw, power limit and temperature
+    with nvidia-smi while the block runs; yields a dict that holds their
+    min / median / max once the block ends. The sampler is stopped on the
+    way out, also when the block raises."""
+    proc = subprocess.Popen(
+        ["nvidia-smi",
+         "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader,nounits", f"-lms={period_ms}"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    summary: dict = {}
+    try:
+        yield summary
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    rows = [r for r in rows if len(r) == 4]
+    summary["samples"] = len(rows)
+    for i, name in enumerate(("sm_clock_mhz", "power_draw_w", "power_limit_w",
+                              "temperature_c")):
+        col = sorted(r[i] for r in rows)
+        if col:
+            summary[name] = [col[0], statistics.median(col), col[-1]]
 
 
 def _max_err(out, ref, dtype_name: str) -> float:
@@ -141,16 +218,18 @@ def _decode_case(name, b, hq, kv, d, s, dtype, lengths, flush, gen):
     elem = torch.finfo(dt).bits // 8
     nbytes = (2 * b * hq * d + 2 * rows * kv * d) * elem + 4 * b
     flops = 4 * rows * hq * d
+    ms, library_ms, backend = _timed_in_turns(
+        lambda: decode_attention_cuda(q, k, v, lens), lib, MASKED_SDPA, flush)
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
     rec = {
-        "case": name, "max_abs_err": err, "tol": TOL[dtype],
-        "ms": _timed_ms(lambda: decode_attention_cuda(q, k, v, lens), flush),
+        "case": name, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
         "plain_ms": _timed_ms(
             lambda: _reference_decode_attention(q, k, v, lens), flush),
-        "library_ms": _timed_ms(lib, flush),
-        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                              flops / PEAK_FLOPS[dtype]),
+        "library_ms": library_ms, "library_backend": backend,
+        "bound_ms": bound_ms,
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      >= flops / PEAK_FLOPS[dtype] else "operations"),
+        "gb_per_s": nbytes / ms / 1e6, "share_of_bound": bound_ms / ms,
     }
     log("decode " + json.dumps(rec))
     return rec
@@ -179,6 +258,7 @@ def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     gqa = {"enable_gqa": True} if hq != hkv else {}
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None, **gqa)
+    backends = MASKED_SDPA if mask is not None else UNMASKED_SDPA
     if causal:  # visible (row, key) pairs: key j <= i + sk - sq, j < sk
         i = np.arange(sq)
         pairs = int(np.clip(i + sk - sq + 1, 0, sk).sum())
@@ -187,16 +267,18 @@ def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     elem = torch.finfo(dt).bits // 8
     nbytes = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * elem
     flops = 4 * b * hq * d * pairs
+    ms, library_ms, backend = _timed_in_turns(
+        lambda: flash_attention_cuda(q, k, v, causal), lib, backends, flush)
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
     rec = {
-        "case": name, "max_abs_err": err, "tol": TOL[dtype],
-        "ms": _timed_ms(lambda: flash_attention_cuda(q, k, v, causal), flush),
+        "case": name, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
         "plain_ms": _timed_ms(
             lambda: _reference_flash_attention(q, k, v, causal), flush),
-        "library_ms": _timed_ms(lib, flush),
-        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                              flops / PEAK_FLOPS[dtype]),
+        "library_ms": library_ms, "library_backend": backend,
+        "bound_ms": bound_ms,
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      >= flops / PEAK_FLOPS[dtype] else "operations"),
+        "tflop_per_s": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
     }
     log("flash " + json.dumps(rec))
     return rec
@@ -204,6 +286,13 @@ def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
 
 def phase_kernels():
     """Returns the record of each kernel at the main path's shape."""
+    with _smi_sampler() as card:
+        recs = _kernel_cases()
+    log("card during phase 2 (min, median, max) " + json.dumps(card))
+    return recs
+
+
+def _kernel_cases():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -479,6 +568,27 @@ def phase_forward(model, kernels) -> dict:
     return rec
 
 
+def _ptxas_summary(build_log: str) -> list[str]:
+    """One line per kernel instance from nvcc -Xptxas -v: its name and
+    template arguments, registers, shared memory and spills, plus any
+    performance warning."""
+    out, name, spill = [], "?", ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)I(\w+?)EEv",
+                      line)
+        if m:
+            args = [a or ("f32" if f else "bf16") for f, _, a in re.findall(
+                r"(?<![a-z_])(f)(?=L|E)|(13__nv_bfloat16)|Li(\d+)E", m.group(2))]
+            name = f"{m.group(1)}<{','.join(args)}>"
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+        elif "Performance Loss" in line or "setmaxnreg" in line:
+            out.append(line.split(":", 1)[1].strip()[:160])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -504,9 +614,8 @@ def main() -> int:
         f"{build_s:.1f} s")
     for k in kernels.KERNELS:
         if k.build_log.exists():
-            for line in k.build_log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"ptxas {k.name}: {line.strip()}")
+            for line in _ptxas_summary(k.build_log.read_text()):
+                log(f"ptxas {k.name}: {line}")
 
     decode_rec, flash_rec = phase_kernels()
     phase_golden(os.path.join(REPO, "tests", "data", "torch_port_golden.npz"))

@@ -136,8 +136,9 @@ _I = ctypes.c_int
 
 DECODE_ATTENTION = Kernel(
     "decode_attention", "decode_attention.cu", "rt_decode_attention",
-    # q, k, v, lengths, out, B, Hq, KV, S, D, dtype, stream
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    # q, k, v, lengths, out, ws, counters, B, Hq, KV, S, D, dtype, group,
+    # chunk, n_splits, stream
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 FLASH_ATTENTION = Kernel(
     "flash_attention", "flash_attention.cu", "rt_flash_attention",
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, dtype, stream

@@ -1,5 +1,5 @@
 // Helpers shared by the port's CUDA kernels: 16-byte vector loads of
-// float32 or bfloat16 rows into f32 registers, and stores back.
+// float32 or bfloat16 rows (raw, or into f32 registers), and stores back.
 
 #pragma once
 
@@ -14,13 +14,14 @@ template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
 template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+// 16 loaded bytes as Vec<T>::N floats.
+__device__ __forceinline__ void unpack(const uint4& raw, const float*, float* out) {
+  out[0] = __uint_as_float(raw.x); out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z); out[3] = __uint_as_float(raw.w);
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack(const uint4& raw, const __nv_bfloat16*,
+                                       float* out) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -28,6 +29,16 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  unpack(load_raw(p), p, out);
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }

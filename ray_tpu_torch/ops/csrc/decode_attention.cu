@@ -10,18 +10,43 @@
 // Bound on the H100: memory bandwidth. Each step must read the K and V rows
 // below each sequence's length once (2 * sum(len) * KV * D * elem bytes)
 // over 3.35 TB/s; the arithmetic is 4 flops per cache element, far under
-// the card's operations-per-byte ridge.
+// the card's operations-per-byte ridge. At the serving width the whole
+// cache of a step is a few MB, so the time is set by how many loads are in
+// flight across the card, not by one block's walk.
 //
-// Design: one block per (b, kv_head, group of up to 8 query heads), so a
-// KV head's cache is read once for all the query heads that share it. The
-// block's threads split into workers of D / VEC lanes, each lane holding
-// one 16-byte slice of a row; workers stride over rows [0, len) and never
-// touch rows at or past len. A worker keeps its own f32 (max, denom, acc)
-// for each query head and loads several rows before it uses any, so many
-// 16-byte loads are in flight per SM. Workers in a warp merge by shuffles,
-// warps merge through shared memory. The TPU kernel's sequential grid over
-// cache blocks, its 8-row q padding and its (rep, 128) scratch have no
-// counterpart here.
+// Design: split-K ("flash-decoding") with the merge in the same launch.
+// - The grid is (B * KV * q-head groups, splits). The cache axis is cut
+//   into chunks of `chunk` rows, chosen on the host (ops/decode_attention.py,
+//   split_plan) as whole rounds of loads, at least two: at the serving shape
+//   (B8, KV16, S1024) 128-row chunks and 8 splits, which give 544 active
+//   blocks of 128 threads on the ragged lengths of the smoke run, about
+//   four for each of the 132 SMs. A block whose chunk starts at or past its
+//   sequence's length exits at once; the highest splits are issued first,
+//   so those empty blocks retire before the full ones start.
+// - A block serves up to `group` (1, 2, 4 or 8) query heads of one KV
+//   head, so the chunk is read once for all of them. Its threads split into
+//   workers of D / VEC lanes, each lane holding one 16-byte slice of a row;
+//   workers stride over the chunk's rows below the length and load several
+//   rows before they use any. Each worker keeps f32 (max, denominator,
+//   accumulator) per query head; workers merge by shuffles, warps through
+//   shared memory.
+// - A sequence covered by one chunk writes its output directly. Otherwise
+//   each block writes its f32 partials to a workspace, then takes a ticket
+//   on an int counter of its (batch, KV head, group) with one acq_rel
+//   atomic after a block barrier.
+//   The block that draws the last ticket (ceil(len / chunk) active chunks)
+//   merges the partials (one online pass over the splits, several loads
+//   in flight per thread), writes the output and sets the counter back to 0,
+//   so no memset launch is ever needed: one launch per layer per step.
+//   Calls that share a counter buffer must be ordered on one stream.
+//
+// Resources (nvcc 12.9 -Xptxas -v, sm_90a), for groups of 1 / 2 / 4 / 8
+// query heads: bf16 D=64 77 / 107 / 128 / 225 registers and 1,060 /
+// 2,116 / 8,452 / 16,900 bytes of static shared memory; bf16 D=128 77 /
+// 108 / 127 / 225 registers and 2,084 / 4,164 / 16,644 / 33,284 bytes;
+// f32 64 to 149 registers; no instance spills.
+// The TPU kernel's sequential grid over cache blocks, its 8-row q padding
+// and its (rep, 128) scratch have no counterpart here.
 
 #include <math.h>
 
@@ -29,12 +54,26 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRep = 8;
+// Threads of a block: 128, or 256 for groups of 4 or 8 query heads, whose
+// merge has more outputs. ops/decode_attention.py (rows_per_round) sizes
+// the chunks from these and from kUnroll below.
+template <int REP>
+__host__ __device__ constexpr int threads() {
+  return REP >= 4 ? 256 : 128;
+}
 
-using rt::load_vec;
+// Blocks per SM the register budget must allow, so that no variant
+// spills: one query head at D=64 fits in 80 registers a thread (6 blocks
+// of 128), two heads or D=128 in 128; groups of 4 (256 threads) in 128 and
+// groups of 8 in up to 255.
+template <int D, int REP>
+__host__ __device__ constexpr int min_blocks() {
+  return REP >= 4 ? (REP == 4 ? 2 : 1) : (REP * D <= 64 ? 6 : 4);
+}
+
+using rt::load_raw;
 using rt::store;
+using rt::unpack;
 using rt::Vec;
 
 // exp(m - m_new) with exp(-inf - x) = 0, also for x = -inf.
@@ -43,11 +82,15 @@ __device__ __forceinline__ float rescale(float m, float m_new) {
 }
 
 template <typename T, int D, int REP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads<REP>(), (min_blocks<D, REP>()))
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths, T* __restrict__ out,
-                        int S, int Hq, int KV, int rep, float scale) {
+                        float* __restrict__ ws, int* __restrict__ counters,
+                        int S, int Hq, int KV, int rep, int n_groups,
+                        int chunk, int n_splits, float scale) {
+  constexpr int kThreads = threads<REP>();
+  constexpr int kWarps = kThreads / 32;
   constexpr int VEC = Vec<T>::N;
   constexpr int TPR = D / VEC;        // lanes that hold one cache row
   constexpr int RPW = 32 / TPR;       // rows one warp reads at once
@@ -57,30 +100,39 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float sm_m[kWarps][REP];
   __shared__ float sm_l[kWarps][REP];
   __shared__ float sm_acc[kWarps][REP][D];
+  __shared__ int sm_last;
 
-  const int b = blockIdx.x / KV;
-  const int kvh = blockIdx.x % KV;
-  const int r0 = blockIdx.y * REP;
+  const int item = blockIdx.x;  // (batch, KV head, group of query heads)
+  // Highest split first: those are empty for all but the longest
+  // sequences, so they retire at once and the rest follow in one wave.
+  const int split = n_splits - 1 - blockIdx.y;
+  const int b = item / (KV * n_groups);
+  const int kvh = (item / n_groups) % KV;
+  const int r0 = (item % n_groups) * REP;
   const int nrep = min(REP, rep - r0);
+  const size_t q_row0 = (size_t)b * Hq + (size_t)kvh * rep + r0;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int sub = lane / TPR;
   const int part = lane % TPR;
-  const int len = max(0, min(lengths[b], S));
 
-  const size_t q_row0 = (size_t)b * Hq + (size_t)kvh * rep + r0;
-  float qv[REP][VEC];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (r < nrep) {
-      load_vec(q + (q_row0 + r) * D + part * VEC, qv[r]);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) qv[r][i] *= scale;
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) qv[r][i] = 0.f;
-    }
+  const int len = max(0, min(__ldg(lengths + b), S));
+  const int row_begin = split * chunk;
+  if (row_begin >= len) {
+    if (split == 0)  // length 0: zeros
+      for (int idx = threadIdx.x; idx < nrep * D; idx += kThreads)
+        store(out + (q_row0 + idx / D) * D + idx % D, 0.f);
+    return;
   }
+  // q as loaded; it is unpacked after the first rows' loads are issued,
+  // so its load and theirs are in flight together.
+  uint4 q_raw[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+    q_raw[r] = r < nrep ? load_raw(q + (q_row0 + r) * D + part * VEC)
+                        : make_uint4(0, 0, 0, 0);
+  const int row_end = min(row_begin + chunk, len);
+  const int n_active = (len + chunk - 1) / chunk;
 
   float m[REP], l[REP], acc[REP][VEC];
 #pragma unroll
@@ -97,39 +149,68 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + base_off;
 
   // `base` is uniform across the warp, so every lane reaches the shuffles.
-  for (int base = warp * RPW; base < len; base += kWorkers * kUnroll) {
-    float kr[kUnroll][VEC], vr[kUnroll][VEC];
+  for (int base = row_begin + warp * RPW; base < row_end;
+       base += kWorkers * kUnroll) {
+    // Rows stay as loaded (16 bytes) until used: half the registers of
+    // f32 for bf16.
+    uint4 kr[kUnroll], vr[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + sub + u * kWorkers;
-      if (t < len) {
-        load_vec(kb + (size_t)t * row_stride, kr[u]);
-        load_vec(vb + (size_t)t * row_stride, vr[u]);
+      if (t < row_end) {
+        kr[u] = load_raw(kb + (size_t)t * row_stride);
+        vr[u] = load_raw(vb + (size_t)t * row_stride);
       } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) kr[u][i] = vr[u][i] = 0.f;
+        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
       }
     }
+    float qv[REP][VEC];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      unpack(q_raw[r], q, qv[r]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qv[r][i] *= scale;
+    }
+    // Scores of the rows in flight, then one rescale of the state for all
+    // of them.
+    float sc[kUnroll][REP];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + sub + u * kWorkers;
+      const bool valid = base + sub + u * kWorkers < row_end;
+      float kf[VEC];
+      unpack(kr[u], kb, kf);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) s += qv[r][i] * kr[u][i];
+        for (int i = 0; i < VEC; ++i) s += qv[r][i] * kf[i];
 #pragma unroll
         for (int off = TPR / 2; off > 0; off >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (t < len) {
-          const float m_new = fmaxf(m[r], s);
-          const float alpha = rescale(m[r], m_new);
-          const float p = expf(s - m_new);
-          l[r] = l[r] * alpha + p;
+        sc[u][r] = valid ? s : -INFINITY;
+      }
+    }
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[r][i] = acc[r][i] * alpha + p * vr[u][i];
-          m[r] = m_new;
-        }
+    for (int r = 0; r < REP; ++r) {
+      float m_new = m[r];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) m_new = fmaxf(m_new, sc[u][r]);
+      const float alpha = rescale(m[r], m_new);
+      l[r] *= alpha;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[r][i] *= alpha;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float vf[VEC];
+      unpack(vr[u], vb, vf);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float p = rescale(sc[u][r], m[r]);  // 0 for rows past the chunk
+        l[r] += p;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[r][i] += p * vf[i];
       }
     }
   }
@@ -167,66 +248,145 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // Merge the warps; a row that saw no key (len == 0) comes out as zeros.
+  // Merge the warps into this chunk's (max, denominator, accumulator); the
+  // chunk holds at least one row, so the max is finite. Partials are laid
+  // out [item][split][REP] with D accumulator floats, then (max, denom).
+  const size_t slot0 = ((size_t)item * n_splits + split) * REP;
+  float* ws_acc = ws;
+  float* ws_ml = ws + (size_t)gridDim.x * n_splits * REP * D;
   for (int idx = threadIdx.x; idx < nrep * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx % D;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
-    float o = 0.f;
-    if (mx != -INFINITY) {
-      float den = 0.f, num = 0.f;
+    float den = 0.f, num = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float c = rescale(sm_m[w][r], mx);
-        den += sm_l[w][r] * c;
-        num += sm_acc[w][r][d] * c;
-      }
-      o = num / den;
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = rescale(sm_m[w][r], mx);
+      den += sm_l[w][r] * c;
+      num += sm_acc[w][r][d] * c;
     }
-    store(out + (q_row0 + r) * D + d, o);
+    if (n_active == 1) {
+      store(out + (q_row0 + r) * D + d, num / den);
+    } else {
+      ws_acc[(slot0 + r) * D + d] = num;
+      if (d == 0) {
+        ws_ml[2 * (slot0 + r)] = mx;
+        ws_ml[2 * (slot0 + r) + 1] = den;
+      }
+    }
   }
+  if (n_active == 1) return;
+
+  // Ticket: the last of the n_active blocks of this item merges. The
+  // barrier orders the block's partial writes before thread 0's ticket,
+  // whose release publishes them at GPU scope and whose acquire makes the
+  // other blocks' partials visible to this one (one fenced atomic instead
+  // of a fence in every thread).
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int ticket;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(ticket)
+                 : "l"(counters + item)
+                 : "memory");
+    sm_last = ticket == n_active - 1;
+  }
+  __syncthreads();
+  if (!sm_last) return;
+  // One pass over the splits' partials, online as in the loop above; each
+  // thread keeps the (max, denominator, numerator) of its outputs and loads
+  // several splits before it uses any.
+  const size_t item0 = (size_t)item * n_splits * REP;
+  constexpr int kOut = (REP * D + kThreads - 1) / kThreads;  // outputs a thread
+  float mo[kOut], lo[kOut], no[kOut];
+#pragma unroll
+  for (int o = 0; o < kOut; ++o) {
+    mo[o] = -INFINITY;
+    lo[o] = no[o] = 0.f;
+  }
+#pragma unroll 8
+  for (int sp = 0; sp < n_active; ++sp) {
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) {
+      const int idx = threadIdx.x + o * kThreads;
+      const int r = idx / D;
+      if (r < nrep) {
+        const size_t slot = item0 + sp * REP + r;
+        const float m_s = __ldcg(ws_ml + 2 * slot);
+        const float l_s = __ldcg(ws_ml + 2 * slot + 1);
+        const float a_s = __ldcg(ws_acc + slot * D + idx % D);
+        const float m_new = fmaxf(mo[o], m_s);
+        const float c_old = rescale(mo[o], m_new);
+        const float c_s = expf(m_s - m_new);
+        lo[o] = lo[o] * c_old + l_s * c_s;
+        no[o] = no[o] * c_old + a_s * c_s;
+        mo[o] = m_new;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kOut; ++o) {
+    const int idx = threadIdx.x + o * kThreads;
+    if (idx / D < nrep) store(out + q_row0 * D + idx, no[o] / lo[o]);
+  }
+  if (threadIdx.x == 0) counters[item] = 0;  // ready for the next launch
 }
 
 template <typename T, int D, int REP>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, int B, int Hq, int KV,
-                   int S, cudaStream_t stream) {
+                   const void* lengths, void* out, void* ws, void* counters,
+                   int B, int Hq, int KV, int S, int chunk, int n_splits,
+                   cudaStream_t stream) {
   const int rep = Hq / KV;
-  const dim3 grid(B * KV, (rep + REP - 1) / REP);
+  const int n_groups = (rep + REP - 1) / REP;
+  const dim3 grid(B * KV * n_groups, n_splits);
   const float scale = 1.0f / sqrtf((float)D);
-  decode_attention_kernel<T, D, REP><<<grid, kThreads, 0, stream>>>(
+  decode_attention_kernel<T, D, REP><<<grid, threads<REP>(), 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), S, Hq, KV, rep, scale);
+      static_cast<T*>(out), static_cast<float*>(ws),
+      static_cast<int*>(counters), S, Hq, KV, rep, n_groups, chunk, n_splits,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t by_rep(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, int B, int Hq, int KV,
-                   int S, cudaStream_t stream) {
-  const int rep = Hq / KV;
-  if (rep <= 1) return launch<T, D, 1>(q, k, v, lengths, out, B, Hq, KV, S, stream);
-  if (rep <= 2) return launch<T, D, 2>(q, k, v, lengths, out, B, Hq, KV, S, stream);
-  if (rep <= 4) return launch<T, D, 4>(q, k, v, lengths, out, B, Hq, KV, S, stream);
-  return launch<T, D, kMaxRep>(q, k, v, lengths, out, B, Hq, KV, S, stream);
+cudaError_t by_group(const void* q, const void* k, const void* v,
+                     const void* lengths, void* out, void* ws, void* counters,
+                     int B, int Hq, int KV, int S, int group, int chunk,
+                     int n_splits, cudaStream_t stream) {
+  switch (group) {
+    case 1: return launch<T, D, 1>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, stream);
+    case 2: return launch<T, D, 2>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, stream);
+    case 4: return launch<T, D, 4>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, stream);
+    case 8: return launch<T, D, 8>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. `group` query heads per block (1, 2,
+// 4 or 8), cache chunks of `chunk` rows, n_splits * chunk >= S; `ws`
+// holds B * KV * ceil(rep / group) * n_splits * group * (D + 2) floats and
+// `counters` B * KV * ceil(rep / group) zeroed ints. Returns the
+// cudaError_t of the launch.
 extern "C" int rt_decode_attention(const void* q, const void* k,
                                    const void* v, const void* lengths,
-                                   void* out, int B, int Hq, int KV, int S,
-                                   int D, int dtype, void* stream) {
-  if (B <= 0 || KV <= 0 || Hq % KV != 0) return (int)cudaErrorInvalidValue;
+                                   void* out, void* ws, void* counters, int B,
+                                   int Hq, int KV, int S, int D, int dtype,
+                                   int group, int chunk, int n_splits,
+                                   void* stream) {
+  if (B <= 0 || KV <= 0 || Hq % KV != 0 || chunk <= 0 || n_splits <= 0 ||
+      (long long)chunk * n_splits < S)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return (int)by_rep<float, 64>(q, k, v, lengths, out, B, Hq, KV, S, s);
-  if (dtype == 0 && D == 128) return (int)by_rep<float, 128>(q, k, v, lengths, out, B, Hq, KV, S, s);
-  if (dtype == 1 && D == 64) return (int)by_rep<__nv_bfloat16, 64>(q, k, v, lengths, out, B, Hq, KV, S, s);
-  if (dtype == 1 && D == 128) return (int)by_rep<__nv_bfloat16, 128>(q, k, v, lengths, out, B, Hq, KV, S, s);
+  if (dtype == 0 && D == 64) return (int)by_group<float, 64>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
+  if (dtype == 0 && D == 128) return (int)by_group<float, 128>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
+  if (dtype == 1 && D == 64) return (int)by_group<__nv_bfloat16, 64>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
+  if (dtype == 1 && D == 128) return (int)by_group<__nv_bfloat16, 128>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,17 +7,97 @@ CUDA tensor `decode_attention` launches the hand-written kernel
 `_reference_decode_attention`. There is no size threshold and no fallback:
 a CUDA input the kernel does not take raises.
 
+The kernel is split-K: `split_plan` (here, not in the kernel) chooses how
+many query heads a block serves and how many cache rows one block reads,
+and the wrapper hands the kernel a workspace for the partial results and a
+buffer of zeroed int counters, both kept per device and stream. The kernel
+merges the partials in the same launch and leaves the counters at zero.
+
 Counterpart: ray_tpu/ops/decode_attention.py (`decode_attention_pallas`,
 `_xla_decode_attention`, `decode_attention`).
 """
 
 from __future__ import annotations
 
+import math
+import threading
+from typing import NamedTuple
+
 import torch
 
 from ray_tpu_torch._private import kernels
 
 SUPPORTED_HEAD_DIMS = (64, 128)
+# Query heads one block serves (the kernel is built for these).
+GROUP_SIZES = (1, 2, 4, 8)
+# Blocks the grid should hold when every sequence fills the cache: about
+# sixteen for each of the H100's 132 SMs. Longer caches get longer chunks
+# rather than more blocks.
+TARGET_BLOCKS = 2048
+# A block reads at least this many rounds of loads: below that its fixed
+# costs (the length, q, the ticket, the merge) outweigh its rows.
+MIN_ROUNDS = 2
+
+
+def rows_per_round(group: int, d: int, elem_bytes: int) -> int:
+    """Cache rows a block of the kernel loads at once: its workers (D /
+    (16 / elem_bytes) lanes each) times the rows each keeps in flight. The
+    kernel runs 128 threads with 4 rows in flight per worker, or 256 threads
+    with 2 for groups of 4 or 8 query heads."""
+    threads, unroll = (256, 2) if group >= 4 else (128, 4)
+    return threads * 16 // (d * elem_bytes) * unroll
+
+
+class SplitPlan(NamedTuple):
+    """How the kernel cuts one call: `group` query heads per block,
+    `n_groups` blocks across a KV head's heads, `items` = B * KV * n_groups
+    merge targets, cache chunks of `chunk` rows and `n_splits` of them
+    (n_splits * chunk >= S). A block (item, split) reads rows
+    [split * chunk, min((split + 1) * chunk, len)) and is active when that
+    range is not empty, so ceil(len / chunk) blocks of an item are."""
+    group: int
+    n_groups: int
+    items: int
+    chunk: int
+    n_splits: int
+
+
+def split_plan(b: int, hq: int, kv: int, s: int, d: int,
+               elem_bytes: int) -> SplitPlan:
+    """Whole rounds of loads per chunk, at least MIN_ROUNDS of them, and
+    no more than about TARGET_BLOCKS blocks for a full cache. At the
+    serving width (B8, KV16, S1024, D64, bf16) that is 128-row chunks and
+    8 splits: 544 active blocks on the smoke run's ragged lengths, four for
+    each of the 132 SMs."""
+    rep = hq // kv
+    group = next(g for g in GROUP_SIZES if g >= min(rep, GROUP_SIZES[-1]))
+    n_groups = -(-rep // group)
+    items = b * kv * n_groups
+    rows = rows_per_round(group, d, elem_bytes)
+    rounds = max(MIN_ROUNDS, math.ceil(s * items / TARGET_BLOCKS / rows),
+                 math.ceil(s / 65535 / rows))  # the grid's y limit
+    chunk = rows * rounds
+    return SplitPlan(group, n_groups, items, chunk, max(1, -(-s // chunk)))
+
+
+_scratch: dict = {}
+_scratch_lock = threading.Lock()
+
+
+def _workspace(device, stream: int, n_floats: int, n_counters: int):
+    """The (workspace, counters) pair of one device and stream, grown as
+    needed. Counters start at zero and every launch leaves them at zero;
+    calls on one stream are ordered, so they can share the pair."""
+    key = (device, stream)
+    with _scratch_lock:
+        ws, counters = _scratch.get(key, (None, None))
+        if ws is None or ws.numel() < n_floats:
+            ws = torch.empty(n_floats, dtype=torch.float32, device=device)
+        if counters is None or counters.numel() < n_counters:
+            counters = torch.zeros(n_counters, dtype=torch.int32,
+                                   device=device)
+        _scratch[key] = (ws, counters)
+    return ws, counters
 
 
 def _reference_decode_attention(q, k_cache, v_cache, lengths):
@@ -76,12 +156,18 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
                for t in tensors):
         raise ValueError("decode attention inputs must be contiguous and "
                          "16-byte aligned")
+    plan = split_plan(b, hq, kv, s, d, q.element_size())
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        ws, counters = _workspace(
+            q.device, stream,
+            plan.items * plan.n_splits * plan.group * (d + 2), plan.items)
         kernels.DECODE_ATTENTION.launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, hq, kv, s, d, code, stream)
+            lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), b, hq, kv, s, d, code, plan.group,
+            plan.chunk, plan.n_splits, stream)
     return out
 
 

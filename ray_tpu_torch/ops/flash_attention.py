@@ -51,10 +51,10 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
             f"equal [B, Sk, Hkv, D]")
     b, sq, hq, d = q.shape
     kb, sk, hkv, kd = k.shape
-    if kb != b or kd != d or hq % hkv:
+    if kb != b or kd != d or hq % hkv or sk == 0:
         raise ValueError(
             f"flash attention shapes disagree: q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)} (need equal B and D, Hq % Hkv == 0)")
+            f"{tuple(k.shape)} (need equal B and D, Hq % Hkv == 0, Sk > 0)")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
             f"flash attention kernel takes head dims {SUPPORTED_HEAD_DIMS}; "

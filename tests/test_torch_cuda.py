@@ -15,7 +15,8 @@ import torch
 
 from ray_tpu_torch._private import kernels
 from ray_tpu_torch.ops.decode_attention import (_reference_decode_attention,
-                                                decode_attention_cuda)
+                                                decode_attention_cuda,
+                                                split_plan)
 from ray_tpu_torch.ops.flash_attention import (_reference_flash_attention,
                                                flash_attention_cuda)
 
@@ -40,17 +41,48 @@ def _randn(gen, *shape, dtype):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,kv,d", [(4, 4, 64), (8, 2, 128), (24, 2, 64)])
-def test_decode_kernel_matches_plain(gen, dtype, hq, kv, d):
-    b, s = 3, 300
+def _edge_lengths(b, hq, kv, d, s, dtype):
+    """0, 1, chunk - 1, chunk, chunk + 1 and S for the split plan's chunk."""
+    elem = torch.finfo(dtype).bits // 8
+    chunk = split_plan(b, hq, kv, s, d, elem).chunk
+    return sorted({n for n in (0, 1, chunk - 1, chunk, chunk + 1, s)
+                   if 0 <= n <= s})
+
+
+def _decode_and_check(gen, dtype, b, hq, kv, d, s):
     q = _randn(gen, b, hq, d, dtype=dtype)
     k, v = (_randn(gen, b, s, kv, d, dtype=dtype) for _ in range(2))
-    lens = torch.tensor([1, 300, 129], dtype=torch.int32, device="cuda")
+    lens = _edge_lengths(b, hq, kv, d, s, dtype)
+    lens = torch.tensor((lens * b)[:b], dtype=torch.int32, device="cuda")
     before = kernels.DECODE_ATTENTION.launches
     out = decode_attention_cuda(q, k, v, lens)
     assert kernels.DECODE_ATTENTION.launches == before + 1
-    _check(out, _reference_decode_attention(q, k, v, lens), dtype)
+    live = lens > 0  # the plain version gives NaN at length 0
+    assert torch.all(out[~live] == 0)
+    _check(out[live], _reference_decode_attention(q, k, v, lens)[live], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kv,d,s", [
+    (4, 4, 64, 300), (8, 2, 128, 300), (24, 2, 64, 300),  # rep 1, 4, 12
+    (16, 16, 64, 1024),                                   # serving heads
+    (16, 8, 64, 600), (32, 4, 128, 600), (32, 2, 128, 600),  # rep 2, 8, 16
+])
+def test_decode_kernel_matches_plain(gen, dtype, hq, kv, d, s):
+    """Lengths 0, 1, chunk - 1, chunk, chunk + 1 and S, with S = 600 not a
+    multiple of the chunk."""
+    b = len(_edge_lengths(6, hq, kv, d, s, dtype))
+    _decode_and_check(gen, dtype, b, hq, kv, d, s)
+
+
+def test_decode_kernel_counters_reset_between_calls(gen):
+    """Calls in a row, on the same and on other shapes, each equal the
+    plain version: every launch leaves its ticket counters at zero."""
+    shapes = [(8, 16, 16, 64, 1024), (8, 16, 16, 64, 1024),
+              (4, 32, 2, 128, 600), (8, 16, 16, 64, 1024),
+              (3, 8, 8, 64, 300)]
+    for b, hq, kv, d, s in shapes:
+        _decode_and_check(gen, torch.bfloat16, b, hq, kv, d, s)
 
 
 def test_decode_kernel_zero_length_gives_zeros(gen):
@@ -67,6 +99,22 @@ def test_decode_kernel_zero_length_gives_zeros(gen):
     (1, 77, 300, 8, 2, 128, True),     # GQA, Sq < Sk, ragged tiles
     (1, 130, 70, 2, 2, 64, True),      # Sq > Sk: rows without keys
     (2, 64, 190, 4, 1, 128, False),
+    # edges of the 128-row tiles: Sq, Sk in {1, 63, 64, 65, 127, 128, 129,
+    # 1000, 2048}
+    (2, 1, 1, 2, 2, 64, True),
+    (1, 1, 1000, 4, 2, 128, True),     # one query row, Sq < Sk
+    (1, 63, 63, 2, 1, 128, True),
+    (2, 64, 64, 2, 2, 64, False),
+    (1, 65, 129, 4, 2, 64, True),
+    (1, 127, 128, 2, 2, 128, True),
+    (1, 128, 128, 2, 2, 64, True),
+    (1, 129, 127, 2, 2, 128, True),    # Sq > Sk: one row without keys
+    (1, 129, 65, 4, 4, 64, False),
+    (1, 1000, 1000, 4, 1, 64, True),
+    (1, 2048, 2048, 2, 2, 128, True),
+    (1, 2048, 1000, 2, 2, 64, True),   # Sq > Sk: 1048 rows without keys
+    (1, 65, 2048, 8, 2, 128, False),
+    (1, 1000, 63, 2, 2, 128, False),
 ])
 def test_flash_kernel_matches_plain(gen, dtype, b, sq, sk, hq, hkv, d,
                                     causal):
