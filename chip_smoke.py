@@ -11,18 +11,25 @@ from the root of a checkout. Phases, each of which raises on failure
    source, started together) into build/ray_tpu_torch/.
 2. Kernels against their plain PyTorch versions on the same inputs, at the
    main path's shapes and a few others: max abs error within the stated
-   tolerance, median time over CUDA events with L2 flushed, the plain
+   tolerance, median device time over CUDA events with L2 flushed (a spin
+   kernel covers the host's dispatch of the call), the plain
    version's time, the least time the card could take (bound), and the
    time of one PyTorch call computing the same function (timed only; the
    port never calls it): `scaled_dot_product_attention` pinned to a named
    backend (flash for unmasked or causal cases, memory-efficient where a
    mask is needed; the next that runs if one refuses, printed), timed in
-   turns with the kernel (kernel, library, library, kernel). The card's
-   SM clock, power draw and temperature are sampled with nvidia-smi
-   while the phase runs.
+   turns with the kernel (kernel, library, library, kernel). The flash
+   forward is also timed with its logsumexp written (the training path).
+   The flash backward kernel is held to the plain backward on the same o,
+   dO and logsumexp, and its library yardstick is the backward alone of
+   `scaled_dot_product_attention` (`torch.autograd.grad` of its output).
+   The card's SM clock, power draw and temperature are sampled with
+   nvidia-smi while the phase runs.
 3. Golden parity: the tiny float32 model of tests/data/torch_port_golden.npz
-   (weights, logits and greedy tokens of the JAX package) through the
-   kernels, TF32 off: logits within 1e-4, greedy tokens equal.
+   (weights, logits, greedy tokens and one step's loss and gradients of the
+   JAX package) through the kernels, TF32 off: logits within 1e-4, greedy
+   tokens equal, loss within 1e-5 and every gradient within
+   1e-4 * max(1, |ref|).
 4. Serving at full width (vocab 32000, d_model 1024, 8 layers, 16 heads,
    max_seq 1024, bf16, max_batch 8, decode_chunk 16, seeded random
    weights): OpenAIServer answers concurrent completions, a stream, a chat
@@ -31,6 +38,19 @@ from the root of a checkout. Phases, each of which raises on failure
 5. Full-sequence forward at full width (B4 x S1024, bf16) through the flash
    kernel, once per layer, against the same model on the plain attention
    path.
+6. Training at full width: the serving widths (8 layers) with a fresh
+   seeded model, f32 params, bf16 compute, one fixed batch [4, 1025] and
+   torch.optim.Adam(lr=1e-3). The first step's gradients against the same
+   model on the plain attention path (relative norm per parameter tensor),
+   then 10 timed steps (CUDA events): losses finite and falling, the flash
+   forward and backward kernels launched once per layer per step. One
+   profiled step gives the device's busy share and the shares of device
+   time of the two flash kernels and the products. Then the MoE variant
+   (4 experts, 2 layers) for 2 steps.
+
+Launch counts: the decode kernel's from phase 4, the flash forward's from
+phases 5 and 6, the flash backward's from phase 6, each path's counts set
+to 0 just before it and read just after.
 
 It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`, one JSON line {"kernels": [...]}, and last
@@ -48,6 +68,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -59,6 +80,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # Both keep softmax state in f32 and differ in summation order; a bf16
 # output may then round to the neighbouring bf16 value (one ulp: 1/128 of
 # the magnitude's power of two), so bf16 is held to 2e-2 * max(1, |ref|).
+# The backward's dq, dk and dv are held to the same: the plain backward
+# rounds P and dS to bf16 where the kernel does and takes Delta from the
+# same returned O, so the two differ by f32 summation order, by exp2 against
+# exp (which can move a rounded P or dS to its neighbouring bf16 value) and
+# by the final rounding to bf16.
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 # The library yardstick's SDPA backends, in order of preference
@@ -70,6 +96,20 @@ MASKED_SDPA = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SERVE = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
              max_seq=1024, dtype="bfloat16", seed=0)
+TRAIN_STEPS = 10
+# About 1 ms at the H100's 1980 MHz: longer than the host takes to enqueue
+# any call phase 2 times.
+SPIN_CYCLES = 2_000_000
+# Phase 6: the first step's gradient of each parameter tensor against the
+# plain attention path, as ||g - g_ref|| / ||g_ref||. Both paths compute in
+# bf16 and differ only in attention's rounding: the kernels round P to bf16
+# for the PV product and P and dS for the backward's products, the plain
+# path keeps them in f32. On an NVIDIA H100 80GB HBM3 (700 W) the worst
+# tensor read 2.7%, and SDPA's flash backend, whose bf16 kernels round P
+# too, read the same 2.7% against the same plain path on the same step
+# (phase 6 prints both). 5e-2 leaves room for other seeds while a gradient
+# term dropped or misrouted (tens of percent) still fails.
+TRAIN_GRAD_REL_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -89,7 +129,11 @@ class _Request:
 
 def _timed_ms(fn, flush, reps: int = 20) -> float:
     """Median milliseconds of fn() over CUDA events, L2 flushed before each
-    launch (the serving path finds each layer's cache cold)."""
+    launch (the serving path finds each layer's cache cold). A spin kernel
+    of SPIN_CYCLES between the flush and the start event keeps the card
+    busy while the host enqueues fn's launches, so the events time the
+    device's work and not the host's dispatch (an autograd call's can
+    outlast the flush)."""
     import torch
 
     for _ in range(3):
@@ -98,6 +142,7 @@ def _timed_ms(fn, flush, reps: int = 20) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -108,9 +153,10 @@ def _timed_ms(fn, flush, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _timed_in_turns(kernel_fn, library_fn, backends, flush):
+def _timed_in_turns(kernel_fn, make_library, backends, flush):
     """Kernel and library call timed in turns (kernel, library, library,
-    kernel), the library pinned to the first of `backends` that runs it.
+    kernel), the library pinned to the first of `backends` that runs it:
+    `make_library()`, called under that backend, returns the call to time.
     Returns (kernel ms, library ms, backend name), each the median over
     both of its runs."""
     import torch
@@ -118,7 +164,9 @@ def _timed_in_turns(kernel_fn, library_fn, backends, flush):
 
     for backend in (getattr(SDPBackend, name) for name in backends):
         try:
-            with sdpa_kernel(backend):
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # why a backend refuses
+                library_fn = make_library()
                 library_fn()
                 torch.cuda.synchronize()
         except RuntimeError:
@@ -219,7 +267,8 @@ def _decode_case(name, b, hq, kv, d, s, dtype, lengths, flush, gen):
     nbytes = (2 * b * hq * d + 2 * rows * kv * d) * elem + 4 * b
     flops = 4 * rows * hq * d
     ms, library_ms, backend = _timed_in_turns(
-        lambda: decode_attention_cuda(q, k, v, lens), lib, MASKED_SDPA, flush)
+        lambda: decode_attention_cuda(q, k, v, lens), lambda: lib,
+        MASKED_SDPA, flush)
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
     rec = {
         "case": name, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
@@ -237,7 +286,6 @@ def _decode_case(name, b, hq, kv, d, s, dtype, lengths, flush, gen):
 
 def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     import torch
-    import torch.nn.functional as F
 
     from ray_tpu_torch.ops.flash_attention import (
         _reference_flash_attention, flash_attention_cuda)
@@ -250,28 +298,20 @@ def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     ref = _reference_flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     err = _max_err(out, ref, dtype)
-    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    mask = None
-    if causal and sq != sk:  # SDPA's is_causal aligns top-left
-        mask = torch.ones(sq, sk, dtype=torch.bool,
-                          device="cuda").tril(diagonal=sk - sq)
-    gqa = {"enable_gqa": True} if hq != hkv else {}
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None, **gqa)
-    backends = MASKED_SDPA if mask is not None else UNMASKED_SDPA
-    if causal:  # visible (row, key) pairs: key j <= i + sk - sq, j < sk
-        i = np.arange(sq)
-        pairs = int(np.clip(i + sk - sq + 1, 0, sk).sum())
-    else:
-        pairs = sq * sk
+    sdpa, backends = _sdpa_call(q, k, v, causal)
+    pairs = _visible_pairs(sq, sk, causal)
     elem = torch.finfo(dt).bits // 8
     nbytes = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * elem
     flops = 4 * b * hq * d * pairs
     ms, library_ms, backend = _timed_in_turns(
-        lambda: flash_attention_cuda(q, k, v, causal), lib, backends, flush)
+        lambda: flash_attention_cuda(q, k, v, causal), lambda: sdpa,
+        backends, flush)
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
     rec = {
         "case": name, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
+        "ms_with_lse": _timed_ms(
+            lambda: flash_attention_cuda(q, k, v, causal, with_lse=True),
+            flush),
         "plain_ms": _timed_ms(
             lambda: _reference_flash_attention(q, k, v, causal), flush),
         "library_ms": library_ms, "library_backend": backend,
@@ -281,6 +321,98 @@ def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
         "tflop_per_s": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
     }
     log("flash " + json.dumps(rec))
+    return rec
+
+
+def _visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(row, key) pairs the function computes: key j <= i + sk - sq, j < sk
+    when causal."""
+    if not causal:
+        return sq * sk
+    return int(np.clip(np.arange(sq) + sk - sq + 1, 0, sk).sum())
+
+
+def _sdpa_call(q, k, v, causal):
+    """A call of scaled_dot_product_attention computing the port's function
+    over [B, H, S, D] views of its [B, S, H, D] tensors, and the SDPA
+    backends to try: SDPA's is_causal aligns top-left, so an Sk - Sq offset
+    needs a mask, which the flash backend refuses."""
+    import torch
+    import torch.nn.functional as F
+
+    sq, sk = q.shape[1], k.shape[1]
+    mask = None
+    if causal and sq != sk:
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+    kwargs = {"attn_mask": mask, "is_causal": causal and mask is None}
+    if q.shape[2] != k.shape[2]:
+        kwargs["enable_gqa"] = True
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    return (lambda: F.scaled_dot_product_attention(*args, **kwargs),
+            MASKED_SDPA if mask is not None else UNMASKED_SDPA)
+
+
+def _flash_bwd_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
+    """The backward kernel against the plain backward on the same o, dO and
+    logsumexp. Bound: the 5 products the gradient needs (S, dP, dV, dK, dQ:
+    10 * B * Hq * D flops per visible pair; the kernel recomputes S and dP
+    for 7), against reading q, k, v, o, dO and lse once and writing dq, dk
+    and dv once. Library: the backward alone of SDPA, torch.autograd.grad of
+    its output (the forward runs once, outside the timing)."""
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import (
+        _reference_flash_attention_backward, flash_attention_backward_cuda,
+        flash_attention_cuda)
+
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dt)
+    dout = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dt)
+    out, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+
+    def kernel():
+        return flash_attention_backward_cuda(q, k, v, out, dout, lse, causal)
+
+    def plain():
+        return _reference_flash_attention_backward(q, k, v, out, dout, lse,
+                                                   causal)
+
+    grads, refs = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max(_max_err(g, r, dtype) for g, r in zip(grads, refs))
+    if causal and sq > sk and not bool((grads[0][:, :sq - sk] == 0).all()):
+        raise AssertionError("rows without a visible key got dq != 0")
+
+    def make_library():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = _sdpa_call(*leaves, causal)[0]()
+        do = dout.transpose(1, 2)
+        return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    backends = _sdpa_call(q, k, v, causal)[1]
+    ms, library_ms, backend = _timed_in_turns(kernel, make_library, backends,
+                                              flush)
+    pairs = _visible_pairs(sq, sk, causal)
+    elem = torch.finfo(dt).bits // 8
+    nbytes = (4 * b * sq * hq * d + 4 * b * sk * hkv * d) * elem \
+        + 4 * b * hq * sq
+    flops = 10 * b * hq * d * pairs
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
+    rec = {
+        "case": name, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
+        "plain_ms": _timed_ms(plain, flush),
+        "library_ms": library_ms, "library_backend": backend,
+        "library_call": "torch.autograd.grad of SDPA's output",
+        "bound_ms": bound_ms,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / PEAK_FLOPS[dtype] else "operations"),
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        "tflop_per_s": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
+    }
+    log("flash_bwd " + json.dumps(rec))
     return rec
 
 
@@ -319,8 +451,23 @@ def _kernel_cases():
                 64, "bfloat16", True, flush, gen)
     _flash_case("f32 s256 h4 d64 causal", 1, 256, 256, 4, 4, 64, "float32",
                 True, flush, gen)
+    bwd_main = _flash_bwd_case("backward B4 S1024 H16 D64 bf16 causal",
+                               4, 1024, 1024, 16, 16, 64, "bfloat16", True,
+                               flush, gen)
+    for causal in (True, False):
+        _flash_bwd_case(f"backward bench b4 s2048 h8 d128 bf16 causal="
+                        f"{causal}", 4, 2048, 2048, 8, 8, 128, "bfloat16",
+                        causal, flush, gen)
+    _flash_bwd_case("backward GQA Hq16 Hkv4 Sq512 < Sk1024 d64 bf16 causal",
+                    2, 512, 1024, 16, 4, 64, "bfloat16", True, flush, gen)
+    _flash_bwd_case("backward ragged Sq=Sk=1000 h8 d64 bf16 causal", 2, 1000,
+                    1000, 8, 8, 64, "bfloat16", True, flush, gen)
+    _flash_bwd_case("backward f32 s256 h4 d64 causal", 1, 256, 256, 4, 4, 64,
+                    "float32", True, flush, gen)
+    _flash_bwd_case("backward Sq1024 > Sk512 h8 d64 bf16 causal", 1, 1024,
+                    512, 8, 8, 64, "bfloat16", True, flush, gen)
     del flush
-    return decode_main, flash_main
+    return decode_main, flash_main, bwd_main
 
 
 # ------------------------------------------------------------- phase 3
@@ -331,20 +478,24 @@ def phase_golden(path: str) -> None:
     from ray_tpu_torch.llm.engine import (ContinuousEngine, SamplingParams,
                                           model_config)
     from ray_tpu_torch.models.convert import params_from_flax
-    from ray_tpu_torch.models.transformer import Transformer
+    from ray_tpu_torch.models.transformer import Transformer, loss_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with np.load(path) as f:
         g = {k: f[k] for k in f.files}
-    tree: dict = {}
-    for key, arr in g.items():
-        if key.startswith("params/"):
-            node = tree
-            *parents, leaf = key.split("/")[1:]
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = arr
+    def subtree(prefix):
+        tree: dict = {}
+        for key, arr in g.items():
+            if key.startswith(prefix):
+                node = tree
+                *parents, leaf = key[len(prefix):].split("/")
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = arr
+        return tree
+
+    tree = subtree("params/")
     vocab, d_model, n_layers, n_heads, max_seq = (int(x) for x in g["config"])
     lcfg = LLMConfig(vocab_size=vocab, d_model=d_model, n_layers=n_layers,
                      n_heads=n_heads, max_seq=max_seq, dtype="float32",
@@ -369,6 +520,21 @@ def phase_golden(path: str) -> None:
         raise AssertionError(f"golden greedy tokens differ:\n{greedy}\n"
                              f"{g['greedy']}")
     log(f"golden greedy tokens equal ({greedy.size} tokens)")
+
+    loss = loss_fn(model, torch.from_numpy(g["train_tokens"]).long().cuda())
+    loss.backward()
+    loss_err = abs(loss.item() - float(g["train_loss"]))
+    ref = params_from_flax(subtree("grad/"))
+    worst, worst_name = 0.0, ""
+    for name, p in model.named_parameters():
+        r = ref[name].cuda()
+        e = float(((p.grad - r).abs() / r.abs().clamp(min=1.0)).max())
+        if e > worst:
+            worst, worst_name = e, name
+    log(f"golden training step: loss err {loss_err} (tol 1e-5), worst "
+        f"gradient err {worst} at {worst_name} (tol 1e-4 * max(1, |ref|))")
+    if not (loss_err <= 1e-5 and worst <= 1e-4):
+        raise AssertionError("golden loss or gradients differ from JAX's")
 
 
 # ------------------------------------------------------------- phase 4
@@ -489,13 +655,7 @@ def _profile_decode(call, prompt, eng) -> dict:
             t.join(timeout=600)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name: dict = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-            n_kernels += 1
+    by_name, n_kernels = _kernel_times_us(prof)
     kernel_us = sum(by_name.values())
     steps = max(eng.decode_steps - steps0, 1)
     if kernel_us == 0.0:
@@ -527,6 +687,30 @@ def _plain_attention():
                                                                  causal))
     try:
         yield
+    finally:
+        transformer.dot_product_attention = saved
+
+
+@contextlib.contextmanager
+def _library_attention():
+    """The model's attention swapped for SDPA pinned to its flash backend
+    (for the yardstick of phase 6's gradient comparison only; the port
+    never calls it)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from ray_tpu_torch.models import transformer
+
+    def sdpa(q, k, v, causal=True):  # Sq == Sk in the model
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal).transpose(1, 2)
+
+    saved = transformer.dot_product_attention
+    transformer.dot_product_attention = sdpa
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            yield
     finally:
         transformer.dot_product_attention = saved
 
@@ -568,14 +752,200 @@ def phase_forward(model, kernels) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 6
+def _kernel_times_us(prof) -> tuple[dict, int]:
+    """Device time of each kernel name in a torch.profiler run, and the
+    number of kernels. Annotations on the device's timeline (the optimizer's
+    step range, for one) span kernels and are not counted."""
+    import torch
+
+    by_name: dict = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+            n_kernels += 1
+    return by_name, n_kernels
+
+
+PRODUCT_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "Gemm")
+
+
+def _profile_train_step(step) -> dict:
+    """One training step under torch.profiler: the device's busy share of
+    the step's wall time, and the shares of device time of the flash
+    backward kernels (delta, dK/dV and dQ), the flash forward kernel and
+    the products (cuBLAS)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name, n_kernels = _kernel_times_us(prof)
+    kernel_us = sum(by_name.values())
+    if kernel_us == 0.0:
+        return {"profiled_device_busy_share": "not measured"}
+
+    def share(pred):
+        return sum(t for n, t in by_name.items() if pred(n)) / kernel_us
+
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "profiled_wall_ms": wall_us / 1e3,
+        "profiled_device_ms": kernel_us / 1e3,
+        "profiled_device_busy_share": kernel_us / wall_us,
+        "profiled_kernels": n_kernels,
+        "flash_bwd_share_of_device": share(lambda n: "flash_bwd" in n),
+        "flash_fwd_share_of_device": share(
+            lambda n: "flash_attention_wgmma_kernel" in n),
+        "products_share_of_device": share(
+            lambda n: any(p in n for p in PRODUCT_KERNELS)),
+        "top_kernels_share": [[n[:80], t / kernel_us] for n, t in top]}
+
+
+def phase_train(kernels) -> dict:
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import model_config
+    from ray_tpu_torch.models.transformer import Transformer, loss_fn
+
+    cfg = model_config(LLMConfig(**SERVE))
+    n_layers = cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1025),
+                           generator=torch.Generator().manual_seed(2)).cuda()
+    model = Transformer(cfg, device="cuda", seed=1)
+
+    def backward_with(context):
+        model.zero_grad(set_to_none=True)
+        with context():
+            loss_fn(model, tokens).backward()
+
+    def rel_errs(ref):
+        return {n: float((p.grad - ref[n]).norm() / ref[n].norm())
+                for n, p in model.named_parameters()}
+
+    backward_with(_plain_attention)
+    ref = {n: p.grad.clone() for n, p in model.named_parameters()}
+    backward_with(_library_attention)
+    library_rel = rel_errs(ref)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    # first step (the warm-up): its gradients against the plain path
+    opt.zero_grad(set_to_none=True)
+    kernels.reset_launch_counts()
+    loss0 = loss_fn(model, tokens)
+    loss0.backward()
+    torch.cuda.synchronize()
+    first_counts = kernels.launch_counts()
+    rel = rel_errs(ref)
+    worst_name = max(rel, key=rel.get)
+    lib_worst = max(library_rel, key=library_rel.get)
+
+    def by_kind(errs):  # worst relative error per kind of parameter
+        out: dict = {}
+        for n, e in errs.items():
+            kind = n.split(".")[-1] if n.startswith("layers.") else n
+            out[kind] = max(out.get(kind, 0.0), e)
+        return out
+
+    opt.step()
+    del ref
+
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        starts[i].record()
+        losses.append(step())
+        ends[i].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    step_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    losses = [loss0.item()] + [x.item() for x in losses]
+    profile = _profile_train_step(step)
+    ms = statistics.median(step_ms)
+    rec = {"steps": TRAIN_STEPS, "ms_per_step": ms,
+           "ms_per_step_min_max": [min(step_ms), max(step_ms)],
+           "tokens_per_s": tokens[:, 1:].numel() / ms * 1e3,
+           "wall_s_timed_steps": wall_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses,
+           "flash_launches": counts["flash_attention"],
+           "flash_bwd_launches": counts["flash_attention_bwd"],
+           "first_step_launches": first_counts,
+           "worst_grad_rel_err_vs_plain": [worst_name, rel[worst_name]],
+           "grad_rel_err_vs_plain_by_kind": by_kind(rel),
+           "library_worst_grad_rel_err_vs_plain": [
+               lib_worst, library_rel[lib_worst]],
+           "library_grad_rel_err_vs_plain_by_kind": by_kind(library_rel),
+           **profile}
+    log("train " + json.dumps(rec))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    want = n_layers * TRAIN_STEPS
+    if counts["flash_attention"] != want or \
+            counts["flash_attention_bwd"] != want or \
+            first_counts["flash_attention_bwd"] != n_layers:
+        raise AssertionError(f"flash kernels not launched once per layer "
+                             f"per step: {counts} over {TRAIN_STEPS} steps")
+    if not rel[worst_name] <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"gradient of {worst_name} differs from the "
+                             f"plain path by {rel[worst_name]}")
+    del model, opt
+
+    moe_cfg = dataclasses.replace(cfg, n_layers=2, moe_experts=4)
+    moe = Transformer(moe_cfg, device="cuda", seed=2)
+    moe_opt = torch.optim.Adam(moe.parameters(), lr=1e-3)
+    kernels.reset_launch_counts()
+    moe_losses = []
+    for _ in range(2):
+        moe_opt.zero_grad(set_to_none=True)
+        loss = loss_fn(moe, tokens)
+        loss.backward()
+        moe_opt.step()
+        moe_losses.append(loss.item())
+    torch.cuda.synchronize()
+    moe_counts = kernels.launch_counts()
+    rec_moe = {"moe_losses": moe_losses, "moe_launches": moe_counts}
+    log("train_moe " + json.dumps(rec_moe))
+    if not all(np.isfinite(moe_losses)) or \
+            moe_counts["flash_attention"] != 4 or \
+            moe_counts["flash_attention_bwd"] != 4:
+        raise AssertionError(f"MoE training failed: {rec_moe}")
+    return rec
+
+
 def _ptxas_summary(build_log: str) -> list[str]:
     """One line per kernel instance from nvcc -Xptxas -v: its name and
     template arguments, registers, shared memory and spills, plus any
     performance warning."""
     out, name, spill = [], "?", ""
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)I(\w+?)EEv",
-                      line)
+        m = re.search(
+            r"Compiling entry function '\w*?\d+([a-z_][a-z0-9_]*_kernel)I(\w+?)EEv",
+            line)
         if m:
             args = [a or ("f32" if f else "bf16") for f, _, a in re.findall(
                 r"(?<![a-z_])(f)(?=L|E)|(13__nv_bfloat16)|Li(\d+)E", m.group(2))]
@@ -617,7 +987,7 @@ def main() -> int:
             for line in _ptxas_summary(k.build_log.read_text()):
                 log(f"ptxas {k.name}: {line}")
 
-    decode_rec, flash_rec = phase_kernels()
+    decode_rec, flash_rec, bwd_rec = phase_kernels()
     phase_golden(os.path.join(REPO, "tests", "data", "torch_port_golden.npz"))
 
     server = OpenAIServer(LLMConfig(**SERVE), max_batch=8, decode_chunk=16,
@@ -627,7 +997,11 @@ def main() -> int:
         forward_rec = phase_forward(server.engine.model, kernels)
     finally:
         server.shutdown()
-    if serve_rec["decode_launches"] == 0 or forward_rec["flash_launches"] == 0:
+    del server
+    torch.cuda.empty_cache()
+    train_rec = phase_train(kernels)
+    if serve_rec["decode_launches"] == 0 or forward_rec["flash_launches"] == 0 \
+            or train_rec["flash_bwd_launches"] == 0:
         raise AssertionError("a kernel of the main path never launched")
 
     def line(kernel, rec, launches, replaces):
@@ -644,8 +1018,12 @@ def main() -> int:
              serve_rec["decode_launches"],
              "ray_tpu/ops/decode_attention.py:33"),
         line(kernels.FLASH_ATTENTION, flash_rec,
-             forward_rec["flash_launches"],
+             forward_rec["flash_launches"] + train_rec["flash_launches"],
              "ray_tpu/ops/flash_attention.py:74"),
+        line(kernels.FLASH_ATTENTION_BWD, bwd_rec,
+             train_rec["flash_bwd_launches"],
+             "gradient of ray_tpu/ops/flash_attention.py:74 (no Pallas "
+             "counterpart)"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -141,9 +141,16 @@ DECODE_ATTENTION = Kernel(
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 FLASH_ATTENTION = Kernel(
     "flash_attention", "flash_attention.cu", "rt_flash_attention",
-    # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, dtype, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
-KERNELS = (DECODE_ATTENTION, FLASH_ATTENTION)
+    # q, k, v, out, lse (or None), B, Sq, Sk, Hq, Hkv, D, causal, dtype,
+    # stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+FLASH_ATTENTION_BWD = Kernel(
+    "flash_attention_bwd", "flash_attention_bwd.cu", "rt_flash_attention_bwd",
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
+    # causal, dtype, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+     _P])
+KERNELS = (DECODE_ATTENTION, FLASH_ATTENTION, FLASH_ATTENTION_BWD)
 
 
 def build_all() -> None:

@@ -16,13 +16,21 @@ JAX weights across by renaming alone.
   the card; S > 1 (prefill) is the reference's dense masked attention.
 - Params are f32 by default and cast to `dtype` at use; RMSNorm and RoPE
   compute in f32 and cast back; dense products are torch.matmul.
+- `moe_experts > 0` swaps each block's SwiGLU for `MoE`, the reference's
+  top-2 dense-dispatch mixture of SwiGLU experts (router in f32, experts
+  in the compute dtype; expert weights [E, d, ff] / [E, ff, d]).
+- `loss_fn(model, tokens)` is the reference's next-token cross entropy.
+  Training is autograd through the model; on the card the full-sequence
+  attention's gradient is the flash backward kernel. A training step is
+  `loss_fn(...).backward()` and `torch.optim.Adam(lr=1e-3).step()`, the
+  update of `optax.adam(1e-3)` in the reference's step.
 
-Not ported yet: MoE (`moe_experts > 0` raises), the TP/SP sharding rules
-(`param_specs`, `_seq_shard`) and `loss_fn`.
+Not ported yet: the TP/SP/EP sharding rules (`param_specs`, `_seq_shard`).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -45,7 +53,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
-    #: >0 selects the MoE MLP, which this port does not have yet.
+    #: >0 switches the MLP to a top-2 MoE with this many experts.
     moe_experts: int = 0
 
     @property
@@ -162,27 +170,60 @@ class SwiGLU(nn.Module):
         return torch.matmul(gate * up, self.w_down.to(dt))
 
 
+class MoE(nn.Module):
+    """Top-2 mixture-of-experts SwiGLU with dense dispatch: every expert
+    runs over every token and the combine weights the top-k experts' outputs
+    by their renormalised router probabilities (no capacity, no dropping).
+    The reference's expert-parallel sharding is not ported."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e, d, ff, pd = cfg.moe_experts, cfg.d_model, cfg.d_ff, cfg.param_dtype
+        self.router = _param((d, e), torch.float32, device)
+        self.w_gate = _param((e, d, ff), pd, device)
+        self.w_up = _param((e, d, ff), pd, device)
+        self.w_down = _param((e, ff, d), pd, device)
+
+    def forward(self, x):
+        dt = self.cfg.dtype
+        probs = torch.softmax(x.to(torch.float32) @ self.router, dim=-1)
+        k = min(2, self.cfg.moe_experts)  # top-1 when there is one expert
+        kth = torch.topk(probs, k, dim=-1).values[..., -1:]
+        gates = torch.where(probs >= kth, probs, 0.0)
+        gates = gates / gates.sum(dim=-1, keepdim=True)  # renormalise top-k
+        xc = x.to(dt)
+        gate_h = F.silu(torch.einsum("bsd,edf->ebsf", xc, self.w_gate.to(dt)))
+        up_h = torch.einsum("bsd,edf->ebsf", xc, self.w_up.to(dt))
+        expert_out = torch.einsum("ebsf,efd->ebsd", gate_h * up_h,
+                                  self.w_down.to(dt))
+        return torch.einsum("ebsd,bse->bsd", expert_out, gates.to(dt))
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "MoE blocks are not ported to ray_tpu_torch yet")
         self.attn_norm = RMSNorm(cfg.d_model, device=device)
         self.attn = Attention(cfg, device=device)
         self.mlp_norm = RMSNorm(cfg.d_model, device=device)
-        self.mlp = SwiGLU(cfg, device=device)
+        # named as the flax modules are, so state_dict keys follow the tree
+        if cfg.moe_experts:
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.mlp = SwiGLU(cfg, device=device)
 
     def forward(self, x, positions, cache=None):
         x = x + self.attn(self.attn_norm(x), positions, cache=cache)
-        return x + self.mlp(self.mlp_norm(x))
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return x + ffn(self.mlp_norm(x))
 
 
 class Transformer(nn.Module):
     """tokens [B, S] -> logits [B, S, vocab] (f32).
 
-    Weights start random from `seed` (normal(0.02) embedding, lecun-normal
-    kernels, unit norms; the same on every device) and are replaced by `load_state_dict`, e.g. with
+    Weights start random from `seed` (normal(0.02) embedding and router,
+    lecun-normal kernels, unit norms; the same on every device) and are
+    replaced by `load_state_dict`, e.g. with
     `convert.params_from_flax`'s output. `device` defaults to "cuda" and
     raises where there is no CUDA."""
 
@@ -207,11 +248,17 @@ class Transformer(nn.Module):
             if name.endswith("scale"):
                 p.fill_(1.0)
                 continue
-            # normal(0.02) embedding; lecun normal over the contracted
-            # (input) axes for the kernels
-            std = 0.02 if name == "tok_emb" else (
-                p.shape[0] * (p.shape[1] if name.endswith("wo") else 1)
-            ) ** -0.5
+            # normal(0.02) embedding and router; lecun normal for the
+            # kernels, with flax's fan-in: the input axis of wq/wk/wv
+            # [d, H, hd], every axis but the last of the others ([in, out],
+            # wo [H, hd, d], and the experts [E, in, out], whose E counts
+            # into the fan-in as in flax's lecun_normal)
+            if name == "tok_emb" or name.endswith("router"):
+                std = 0.02
+            elif name.endswith(("wq", "wk", "wv")):
+                std = p.shape[0] ** -0.5
+            else:
+                std = math.prod(p.shape[:-1]) ** -0.5
             p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(
                 0.0, std, generator=gen))
 
@@ -239,3 +286,11 @@ class Transformer(nn.Module):
         x = self.final_norm(x)
         # Tied output head.
         return torch.matmul(x, self.tok_emb.to(cfg.dtype).t()).to(torch.float32)
+
+
+def loss_fn(model: Transformer, tokens):
+    """Next-token cross entropy, mean over all positions: the logits of
+    tokens[:, :-1] against tokens[:, 1:]."""
+    logits = model(tokens[:, :-1])
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           tokens[:, 1:].reshape(-1))

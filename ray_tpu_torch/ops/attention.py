@@ -1,9 +1,10 @@
 """Attention entry point of the models.
 
 `dot_product_attention` sends a CUDA tensor to the flash kernel
-(ops/flash_attention.py) and a CPU tensor to `_reference_attention`, the
-plain version. Nothing is caught: a CUDA shape the kernel does not take
-raises instead of running the plain version on the card.
+(ops/flash_attention.py), differentiable through its backward kernel, and a
+CPU tensor to `_reference_attention`, the plain version, differentiable by
+autograd. Nothing is caught: a CUDA shape the kernel does not take raises
+instead of running the plain version on the card.
 
 Counterpart: ray_tpu/ops/attention.py (`dot_product_attention`,
 `_xla_attention`).

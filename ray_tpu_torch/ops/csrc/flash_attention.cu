@@ -8,6 +8,12 @@
 // Rule for a query row that sees no key (only when causal and Sq > Sk):
 // its output is zeros.
 //
+// Logsumexp for the backward (flash_attention_bwd.cu): given a non-null
+// `lse`, both instances also write f32 [B, Hq, Sq] in natural log,
+// lse[b, h, i] = log sum_j exp(D^-0.5 q_i . k_j) over the keys row i sees,
+// and -inf for a row that sees none. Inference passes nullptr and writes
+// nothing more.
+//
 // Bound on the H100: operations. The products need 4 * B * Hq * Sq * Sk * D
 // flops (about half of that when causal) against reading q, k, v and
 // writing the output once; at the main path's shapes that is hundreds of
@@ -45,7 +51,8 @@
 // 80 bytes of static shared memory (the mbarriers) and 82,944 (D=64) or
 // 164,864 (D=128) bytes of dynamic shared memory (Q, two K and two V tiles
 // and 1 KB of alignment slack), no spills; the f32 kernel 64 (D=64) or
-// 102 (D=128) registers, no spills.
+// 102 (D=128) registers, no spills. The logsumexp store leaves all of
+// these unchanged and adds no serialised wgmma.
 // The TPU kernel's (8, 128) tile rule and its (block_q, 128) scratch have
 // no counterpart here.
 
@@ -74,8 +81,9 @@ constexpr size_t smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int Hq, int Hkv, float scale, int causal) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                       float scale, int causal) {
   constexpr int VEC = Vec<T>::N;
   constexpr int VPR = D / VEC;  // 16-byte vectors per row
   constexpr int NJ = D / 16;    // output columns per thread
@@ -245,11 +253,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) store(orow + tx + 16 * j, acc[i][j] * inv);
   }
+  if (lse != nullptr && threadIdx.x < kBQ && q0 + threadIdx.x < Sq) {
+    const float den = row_l[threadIdx.x];
+    lse[((size_t)b * Hq + h) * Sq + q0 + threadIdx.x] =
+        den > 0.f ? row_m[threadIdx.x] + logf(den) : -INFINITY;
+  }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                   float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
                    cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   static bool configured = false;
@@ -264,8 +277,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const float scale = 1.0f / sqrtf((float)D);
   flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv,
+      scale, causal);
   return cudaGetLastError();
 }
 
@@ -570,8 +583,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
-                             __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                             int Hq, int Hkv, float scale_log2, int causal) {
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int Sq, int Sk, int Hq,
+                             int Hkv, float scale_log2, int causal) {
   using L = Smem<D>;
   extern __shared__ unsigned char ws_smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
@@ -754,6 +768,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;  // no visible key: zeros
     const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    // m is the running max in the scaled log2 domain, so the natural-log
+    // logsumexp of a row is (m + log2 l) ln 2. After every wgmma of the
+    // block, so the branch costs the products nothing.
+    if (lse != nullptr && t == 0) {
+      float* lrow = lse + ((size_t)b * Hq + h) * Sq;
+      if (row0 < Sq) lrow[row0] = l0 > 0.f ? (m0 + log2f(l0)) * 0.6931471805599453f : -INFINITY;
+      if (row1 < Sq) lrow[row1] = l1 > 0.f ? (m1 + log2f(l1)) * 0.6931471805599453f : -INFINITY;
+    }
 
     // Stage O as bf16 in this warpgroup's own rows of the Q tile (same
     // swizzle, so the 4-byte stores of a warp hit 32 banks), then write
@@ -830,8 +852,8 @@ bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D) 
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                         int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                         cudaStream_t stream) {
+                         float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
+                         int causal, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   if (!encode_bshd(&q_map, q, B, Sq, Hq, D) || !encode_bshd(&k_map, k, B, Sk, Hkv, D) ||
       !encode_bshd(&v_map, v, B, Sk, Hkv, D))
@@ -848,25 +870,27 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(Hq, B, (Sq + kTile - 1) / kTile);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   flash_attention_wgmma_kernel<D><<<grid, kWsThreads, bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv,
-      scale_log2, causal);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq,
+      Hkv, scale_log2, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. `lse` is nullptr or f32 [B, Hq, Sq].
+// Returns the cudaError_t of the launch.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* out, int B, int Sq, int Sk, int Hq,
-                                  int Hkv, int D, int causal, int dtype,
+                                  void* out, void* lse, int B, int Sq, int Sk,
+                                  int Hq, int Hkv, int D, int causal, int dtype,
                                   void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return (int)launch<float, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 0 && D == 128) return (int)launch<float, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 1 && D == 64) return (int)launch_wgmma<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 1 && D == 128) return (int)launch_wgmma<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, s);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0 && D == 64) return (int)launch<float, 64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (dtype == 0 && D == 128) return (int)launch<float, 128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (dtype == 1 && D == 64) return (int)launch_wgmma<64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (dtype == 1 && D == 128) return (int)launch_wgmma<128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

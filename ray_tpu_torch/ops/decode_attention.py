@@ -5,7 +5,9 @@ against fixed [B, S, KV, D] caches with per-sequence valid lengths. On a
 CUDA tensor `decode_attention` launches the hand-written kernel
 (`csrc/decode_attention.cu`); on a CPU tensor it runs the plain version,
 `_reference_decode_attention`. There is no size threshold and no fallback:
-a CUDA input the kernel does not take raises.
+a CUDA input the kernel does not take raises, and so does an input that
+requires grad with grad mode on (the kernel has no backward; the engine
+calls it under `torch.no_grad()`).
 
 The kernel is split-K: `split_plan` (here, not in the kernel) chooses how
 many query heads a block serves and how many cache rows one block reads,
@@ -124,7 +126,16 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """Launch the CUDA kernel on the current stream, without synchronising.
     q [B, Hq, D]; caches [B, S, KV, D] of q's dtype (float32 or bfloat16);
     lengths [B] int32 on the same card (rows [0, len) valid, including the
-    token just written). Returns [B, Hq, D]."""
+    token just written). Returns [B, Hq, D]. The kernel has no backward:
+    with grad mode on, an input that requires grad raises RuntimeError
+    rather than giving a result cut from the graph."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_cache, v_cache)):
+        raise RuntimeError(
+            "decode attention has no gradient: the CUDA decode kernel has "
+            "no backward, so its output would be cut from the autograd "
+            "graph; call it under torch.no_grad() or with inputs that do "
+            "not require grad")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(
             f"decode attention shapes: q {tuple(q.shape)} must be [B, Hq, D], "

@@ -6,7 +6,9 @@ on the card run them with
 
 Tolerances: float32 within 1e-4 (same f32 arithmetic, other summation
 order); bfloat16 outputs within 2e-2 * max(1, |ref|) (one bf16 ulp of
-rounding on top of that).
+rounding on top of that). The backward kernel is held to the plain
+backward on the same inputs (same lse, same rounding of P and dS to bf16),
+with the same tolerances.
 """
 
 import numpy as np
@@ -15,10 +17,13 @@ import torch
 
 from ray_tpu_torch._private import kernels
 from ray_tpu_torch.ops.decode_attention import (_reference_decode_attention,
+                                                decode_attention,
                                                 decode_attention_cuda,
                                                 split_plan)
-from ray_tpu_torch.ops.flash_attention import (_reference_flash_attention,
-                                               flash_attention_cuda)
+from ray_tpu_torch.ops.flash_attention import (
+    _reference_flash_attention, _reference_flash_attention_backward,
+    _reference_flash_attention_lse, flash_attention,
+    flash_attention_backward_cuda, flash_attention_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -160,3 +165,139 @@ def test_engine_on_the_card_matches_the_cpu(gen):
         finally:
             eng.shutdown()
     assert np.array_equal(out["cpu"], out["cuda"])
+
+
+BACKWARD_CASES = [
+    (2, 200, 200, 4, 4, 64, True),
+    (1, 77, 300, 8, 2, 128, True),     # GQA, Sq < Sk, ragged tiles
+    (1, 130, 70, 2, 2, 64, True),      # Sq > Sk: rows without keys
+    (2, 64, 190, 4, 1, 128, False),    # GQA rep 4
+    (1, 1, 1000, 4, 2, 64, True),      # one query row
+    (1, 129, 127, 2, 2, 128, True),    # Sq > Sk by one
+    (1, 1000, 1000, 4, 1, 64, True),   # ragged, rep 4
+    (1, 65, 129, 4, 2, 64, False),
+    (2, 256, 256, 16, 16, 64, True),   # training heads
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", BACKWARD_CASES)
+def test_flash_backward_kernel_matches_plain(gen, dtype, b, sq, sk, hq, hkv,
+                                             d, causal):
+    """The forward's logsumexp within 1e-4 of the plain one (-inf where a
+    row sees no key), then dq, dk, dv against the plain backward fed the
+    same o, dO and lse."""
+    q = _randn(gen, b, sq, hq, d, dtype=dtype)
+    k, v = (_randn(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    dout = _randn(gen, b, sq, hq, d, dtype=dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    ref_out, ref_lse = _reference_flash_attention_lse(q, k, v, causal)
+    _check(out, ref_out, dtype)
+    dead = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] < 0).all())
+    diff = (lse - ref_lse)[~dead].abs()
+    assert diff.numel() == 0 or float(diff.max()) <= 1e-4
+    before = kernels.FLASH_ATTENTION_BWD.launches
+    grads = flash_attention_backward_cuda(q, k, v, out, dout, lse, causal)
+    assert kernels.FLASH_ATTENTION_BWD.launches == before + 1
+    refs = _reference_flash_attention_backward(q, k, v, out, dout, lse,
+                                               causal)
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape
+        _check(g, r, dtype)
+    if causal and sq > sk:
+        assert torch.all(grads[0][:, :sq - sk] == 0)
+
+
+def test_flash_attention_autograd_takes_a_strided_gradient(gen):
+    """Through `flash_attention` with grad required, the output has a
+    grad_fn and a non-contiguous incoming gradient (a broadcast weight)
+    gives the plain backward's result."""
+    dt = torch.bfloat16
+    q = _randn(gen, 2, 128, 4, 64, dtype=dt).requires_grad_()
+    k = _randn(gen, 2, 128, 2, 64, dtype=dt).requires_grad_()
+    v = _randn(gen, 2, 128, 2, 64, dtype=dt).requires_grad_()
+    w = _randn(gen, 64, dtype=dt).expand(2, 128, 4, 64)
+    before = (kernels.FLASH_ATTENTION.launches,
+              kernels.FLASH_ATTENTION_BWD.launches)
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    (out * w).sum().backward()
+    assert (kernels.FLASH_ATTENTION.launches,
+            kernels.FLASH_ATTENTION_BWD.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    with torch.no_grad():
+        o, lse = flash_attention_cuda(q, k, v, True, with_lse=True)
+        refs = _reference_flash_attention_backward(
+            q, k, v, o, w.contiguous(), lse, True)
+    for t, r in zip((q, k, v), refs):
+        _check(t.grad, r, dt)
+
+
+def test_decode_attention_raises_when_grad_is_required(gen):
+    q = _randn(gen, 2, 4, 64, dtype=torch.bfloat16).requires_grad_()
+    k = _randn(gen, 2, 16, 4, 64, dtype=torch.bfloat16)
+    lens = torch.tensor([3, 16], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no gradient"):
+        decode_attention(q, k, k, lens)
+    with torch.no_grad():  # how the engine calls it
+        out = decode_attention(q, k, k, lens)
+    _check(out, _reference_decode_attention(q.detach(), k, k, lens),
+           torch.bfloat16)
+
+
+def _tiny_models(seed=3, **over):
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig)
+
+    cfg = TransformerConfig(**{**dict(
+        vocab_size=300, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+        d_ff=344, max_seq=96, dtype=torch.float32), **over})
+    return (Transformer(cfg, device="cuda", seed=seed),
+            Transformer(cfg, device="cpu", seed=seed))
+
+
+@pytest.mark.parametrize("moe_experts", [0, 4])
+def test_transformer_gradients_on_the_card_match_the_cpu(gen, moe_experts):
+    """f32, TF32 off: loss within 1e-5 and every parameter's gradient
+    (wq, wk and wv through the flash backward kernel, GQA rep 2) within
+    1e-4 * max(1, |ref|) of the plain path on the CPU."""
+    from ray_tpu_torch.models.transformer import loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, cpu = _tiny_models(moe_experts=moe_experts)
+    tokens = torch.randint(0, 300, (2, 65),
+                           generator=torch.Generator().manual_seed(0))
+    before = kernels.FLASH_ATTENTION_BWD.launches
+    loss = loss_fn(card, tokens.cuda())
+    loss.backward()
+    assert kernels.FLASH_ATTENTION_BWD.launches == before + 2
+    ref = loss_fn(cpu, tokens)
+    ref.backward()
+    assert abs(float(loss) - float(ref)) <= 1e-5
+    for (name, p), r in zip(card.named_parameters(), cpu.parameters()):
+        assert p.grad is not None, name
+        err = (p.grad.cpu() - r.grad).abs() / r.grad.abs().clamp(min=1)
+        assert float(err.max()) <= 1e-4, name
+
+
+def test_adam_steps_on_the_card(gen):
+    """Three Adam(1e-3) steps on one batch: the first loss equals the
+    CPU's within 1e-5, every loss is finite and the last is the lowest."""
+    from ray_tpu_torch.models.transformer import loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, cpu = _tiny_models()
+    tokens = torch.randint(0, 300, (2, 65),
+                           generator=torch.Generator().manual_seed(1))
+    opt = torch.optim.Adam(card.parameters(), lr=1e-3)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = loss_fn(card, tokens.cuda())
+        loss.backward()
+        opt.step()
+        losses.append(float(loss))
+    with torch.no_grad():
+        assert abs(losses[0] - float(loss_fn(cpu, tokens))) <= 1e-5
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -3,8 +3,10 @@
 `tests/data/torch_port_golden.npz` carries, for a tiny float32 config
 (vocab 384, d_model 128, 2 layers, 2 heads so D=64, max_seq 128):
 weights drawn with numpy from a fixed seed (flax layout), the JAX
-package's full-forward logits on seeded tokens, and the JAX package's
-ContinuousEngine greedy tokens for two prompts. The card cannot run JAX, so
+package's full-forward logits on seeded tokens, the JAX package's
+ContinuousEngine greedy tokens for two prompts, and one training step's
+`jax.value_and_grad(loss_fn)` on a seeded batch of max_seq + 1 tokens (the
+loss and every parameter's gradient, under "grad/"). The card cannot run JAX, so
 the file is the reference there; these tests recompute it with the JAX
 package and with the port on the CPU, so it cannot drift from either.
 
@@ -17,6 +19,7 @@ import sys
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -25,11 +28,12 @@ from ray_tpu.llm.engine import ContinuousEngine as JaxEngine
 from ray_tpu.llm.engine import SamplingParams as JaxSampling
 from ray_tpu.llm.engine import model_config as jax_model_config
 from ray_tpu.models.transformer import Transformer as JaxTransformer
+from ray_tpu.models.transformer import loss_fn as jax_loss_fn
 from ray_tpu_torch.llm import LLMConfig
 from ray_tpu_torch.llm.engine import ContinuousEngine, SamplingParams
 from ray_tpu_torch.llm.engine import model_config as port_model_config
 from ray_tpu_torch.models.convert import params_from_flax
-from ray_tpu_torch.models.transformer import Transformer
+from ray_tpu_torch.models.transformer import Transformer, loss_fn
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "torch_port_golden.npz")
@@ -77,6 +81,25 @@ def golden_tokens(seed: int = SEED) -> np.ndarray:
         0, CONFIG["vocab_size"], size=(2, 32)).astype(np.int32)
 
 
+def golden_train_tokens(seed: int = SEED) -> np.ndarray:
+    """The training batch: [2, max_seq + 1] tokens, so the model sees
+    max_seq positions."""
+    return np.random.RandomState(seed + 2).randint(
+        0, CONFIG["vocab_size"], size=(2, CONFIG["max_seq"] + 1)
+    ).astype(np.int32)
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
 def _flatten(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -109,12 +132,19 @@ def _jax_golden(tree) -> dict:
         lg = np.asarray(model.apply({"params": tree}, jnp.asarray(seq)))[0]
         top2 = np.sort(lg[len(p) - 1:], axis=-1)[:, -2:]
         gaps.append(float(np.min(top2[:, 1] - top2[:, 0])))
+    train = jnp.asarray(golden_train_tokens())
+    loss, grads = jax.value_and_grad(
+        lambda p: jax_loss_fn(model, p, train))({"params": tree})
     out = {"tokens": tokens, "logits": logits.astype(np.float32),
+           "train_tokens": np.asarray(train),
+           "train_loss": np.float32(loss),
            "greedy": np.asarray(greedy, np.int32),
            "min_greedy_gap": np.float32(min(gaps)),
            "config": np.asarray([CONFIG[k] for k in CONFIG_KEYS], np.int32)}
     out.update({f"prompt_{i}": np.asarray(p, np.int32)
                 for i, p in enumerate(PROMPTS)})
+    out.update({f"grad/{k}": np.asarray(v, np.float32) for k, v in
+                _flatten(grads["params"]).items()})
     return out
 
 
@@ -145,10 +175,11 @@ def test_golden_matches_jax_package(golden):
     code generation may differ between hosts in the last bits), greedy
     tokens exactly, and every greedy step has a clear top-1."""
     ref = _jax_golden(golden_params())
-    for key in ("tokens", "config", "prompt_0", "prompt_1"):
+    for key in ("tokens", "config", "prompt_0", "prompt_1", "train_tokens"):
         np.testing.assert_array_equal(ref[key], golden[key])
-    np.testing.assert_allclose(ref["logits"], golden["logits"], atol=1e-5,
-                               rtol=0)
+    for key in ["logits", "train_loss"] + [k for k in ref
+                                           if k.startswith("grad/")]:
+        np.testing.assert_allclose(ref[key], golden[key], atol=1e-5, rtol=0)
     np.testing.assert_array_equal(ref["greedy"], golden["greedy"])
     assert float(golden["min_greedy_gap"]) > 1e-3
 
@@ -173,6 +204,31 @@ def test_golden_matches_port_on_cpu(golden):
     finally:
         eng.shutdown()
     np.testing.assert_array_equal(np.asarray(greedy), golden["greedy"])
+
+
+def golden_gradients(golden) -> dict:
+    """The file's JAX gradients keyed by the port's parameter names."""
+    return params_from_flax(_unflatten(
+        {k[len("grad/"):]: v for k, v in golden.items()
+         if k.startswith("grad/")}))
+
+
+def test_golden_gradients_match_port_on_cpu(golden):
+    """One training step of the port at the file's weights on the CPU:
+    loss within 1e-5 and every parameter's gradient within
+    1e-4 * max(1, |ref|) of the JAX package's (f32, summation order)."""
+    model = Transformer(
+        port_model_config(LLMConfig(**CONFIG, dtype="float32")), device="cpu")
+    model.load_state_dict(params_from_flax(golden_params()))
+    loss = loss_fn(model, torch.from_numpy(golden["train_tokens"]).long())
+    loss.backward()
+    assert abs(float(loss) - float(golden["train_loss"])) <= 1e-5
+    ref = golden_gradients(golden)
+    assert set(ref) == {n for n, _ in model.named_parameters()}
+    for name, p in model.named_parameters():
+        r = ref[name].numpy()
+        err = np.abs(p.grad.numpy() - r) / np.maximum(1.0, np.abs(r))
+        assert err.max() <= 1e-4, name
 
 
 if __name__ == "__main__":

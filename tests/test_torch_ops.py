@@ -8,11 +8,17 @@ and differ only in summation order. The TPU kernels need a cache length and
 Sk that are multiples of 128 and an Sq that is a multiple of 8, so the
 shared cases use those; the port's own rules beyond them (any length, zero
 rows) are tested on the port alone.
+
+Gradients: the JAX package's Pallas kernel has no gradient rule, so the
+port's plain backward and its autograd Function are held to `jax.vjp` of
+`_xla_attention` in f32 within 1e-5 (both differentiate the same math; only
+the summation order differs).
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -26,7 +32,10 @@ from ray_tpu_torch.ops import (decode_attention, dot_product_attention,
 from ray_tpu_torch.ops.attention import _reference_attention
 from ray_tpu_torch.ops.decode_attention import (decode_attention_cuda,
                                                 rows_per_round, split_plan)
-from ray_tpu_torch.ops.flash_attention import flash_attention_cuda
+from ray_tpu_torch.ops.flash_attention import (
+    _FlashAttention, _reference_flash_attention_backward,
+    _reference_flash_attention_lse, flash_attention_backward_cuda,
+    flash_attention_cuda)
 
 TOL = 2e-5
 
@@ -249,3 +258,118 @@ def test_cuda_entry_points_raise_without_cuda():
         ContinuousEngine(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         OpenAIServer(cfg)
+
+
+def _jax_attention_vjp(q, k, v, dout, causal):
+    """(out, (dq, dk, dv)) of the JAX package's XLA attention."""
+    out, vjp = jax.vjp(lambda a, b, c: _xla_attention(a, b, c, causal=causal),
+                       *map(jnp.asarray, (q, k, v)))
+    return out, vjp(jnp.asarray(dout))
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
+    (2, 64, 64, 4, 4, 64, True),
+    (2, 64, 64, 4, 4, 64, False),
+    (1, 48, 128, 8, 2, 64, True),      # GQA, Sq < Sk (diagonal offset 80)
+    (1, 100, 100, 4, 1, 128, True),    # ragged, GQA rep 4, D=128
+    (1, 37, 130, 4, 2, 64, False),     # ragged, Sq < Sk
+])
+def test_flash_backward_matches_jax_grad(b, sq, sk, hq, hkv, d, causal):
+    """The plain backward (from lse and Delta) and the CPU autograd
+    Function both equal jax.vjp of `_xla_attention` within 1e-5."""
+    rng = np.random.RandomState(6)
+    q, dout = _randn(rng, b, sq, hq, d), _randn(rng, b, sq, hq, d)
+    k, v = _randn(rng, b, sk, hkv, d), _randn(rng, b, sk, hkv, d)
+    _, ref = _jax_attention_vjp(q, k, v, dout, causal)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = _reference_flash_attention_lse(tq, tk, tv, causal)
+    plain = _reference_flash_attention_backward(tq, tk, tv, out, tdo, lse,
+                                                causal)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    fout = flash_attention(*leaves, causal=causal)
+    assert fout.grad_fn is not None
+    fout.backward(tdo)
+    for g, fn_leaf, r in zip(plain, leaves, ref):
+        _close(g, r, tol=1e-5)
+        _close(fn_leaf.grad, r, tol=1e-5)
+
+
+def test_flash_backward_rows_without_keys():
+    """Causal Sq > Sk: rows that see no key get dq = 0 and add nothing to
+    dk/dv, with no NaN; the rest equals jax.vjp of `_xla_attention` with
+    those rows' incoming gradient set to zero (the XLA path gives them the
+    mean of V, which the port does not)."""
+    rng = np.random.RandomState(7)
+    q, dout = _randn(rng, 1, 192, 4, 64), _randn(rng, 1, 192, 4, 64)
+    k, v = _randn(rng, 1, 128, 2, 64), _randn(rng, 1, 128, 2, 64)
+    live = dout.copy()
+    live[:, :64] = 0
+    _, ref = _jax_attention_vjp(q, k, v, live, True)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = _reference_flash_attention_lse(tq, tk, tv, True)
+    assert torch.isinf(lse[..., :64]).all() and torch.isfinite(lse[..., 64:]).all()
+    grads = _reference_flash_attention_backward(tq, tk, tv, out, tdo, lse,
+                                                True)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert torch.all(grads[0][:, :64] == 0)
+    for g, r in zip(grads, ref):
+        _close(g, r, tol=1e-5)
+
+
+@pytest.mark.parametrize("sq,sk,hq,hkv,causal", [
+    (12, 9, 4, 2, True),    # Sq > Sk: three rows without keys
+    (9, 12, 2, 1, True),    # Sq < Sk, GQA rep 2
+    (10, 10, 2, 2, False),
+])
+def test_flash_attention_function_gradcheck(sq, sk, hq, hkv, causal):
+    """torch.autograd.gradcheck of the CPU `_FlashAttention` in float64:
+    its backward (the plain backward) against finite differences of its
+    forward."""
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn(1, s, h, 16, dtype=torch.float64, generator=gen,
+                           requires_grad=True)
+               for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: _FlashAttention.apply(a, b, c, causal), (q, k, v))
+
+
+def test_flash_attention_takes_the_function_only_for_grad(monkeypatch):
+    """Under torch.no_grad(), or with no input requiring grad, the call is
+    the plain forward (no Function, nothing saved); with grad it is the
+    Function."""
+    def refuse(*args):
+        raise AssertionError("the autograd Function ran")
+
+    rng = np.random.RandomState(9)
+    q = torch.from_numpy(_randn(rng, 1, 16, 2, 64)).requires_grad_()
+    k = torch.from_numpy(_randn(rng, 1, 16, 2, 64))
+    with monkeypatch.context() as m:
+        m.setattr(_FlashAttention, "apply", staticmethod(refuse))
+        with torch.no_grad():
+            assert flash_attention(q, k, k).grad_fn is None
+        assert flash_attention(q.detach(), k, k).grad_fn is None
+    assert flash_attention(q, k, k).grad_fn is not None
+
+
+def test_backward_and_decode_wrappers_refuse_what_the_kernels_do_not_take():
+    """The backward wrapper checks shapes, head dims and devices as the
+    forward's does; the decode wrapper refuses inputs that require grad
+    (the kernel has no backward) before anything else."""
+    z = torch.zeros
+    q, k = z(1, 8, 2, 64), z(1, 8, 2, 64)
+    lse = z(1, 2, 8)
+    with pytest.raises(ValueError, match="D=32"):
+        flash_attention_backward_cuda(z(1, 8, 2, 32), z(1, 8, 2, 32),
+                                      z(1, 8, 2, 32), z(1, 8, 2, 32),
+                                      z(1, 8, 2, 32), lse)
+    with pytest.raises(ValueError, match="shaped like q"):
+        flash_attention_backward_cuda(q, k, k, q, z(1, 7, 2, 64), lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_backward_cuda(q, k, k, q, q, lse)
+    dq = z(1, 2, 64, requires_grad=True)
+    cache = z(1, 8, 2, 64)
+    lens = z(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        decode_attention_cuda(dq, cache, cache, lens)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        decode_attention_cuda(dq, cache, cache, lens)

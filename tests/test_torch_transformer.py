@@ -23,13 +23,14 @@ SHAPE = dict(vocab_size=320, d_model=128, n_layers=2, n_heads=4, d_ff=336,
              max_seq=64)
 
 
-def _models(n_kv_heads):
-    jcfg = JaxConfig(**SHAPE, n_kv_heads=n_kv_heads, dtype=jnp.float32)
+def _models(n_kv_heads, moe_experts=0):
+    jcfg = JaxConfig(**SHAPE, n_kv_heads=n_kv_heads, dtype=jnp.float32,
+                     moe_experts=moe_experts)
     jmodel = JaxTransformer(jcfg)
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
     tree = jax.tree.map(np.asarray, params)
     tcfg = TransformerConfig(**SHAPE, n_kv_heads=n_kv_heads,
-                             dtype=torch.float32)
+                             dtype=torch.float32, moe_experts=moe_experts)
     tmodel = Transformer(tcfg, device="cpu")
     tmodel.load_state_dict(params_from_flax(tree))
     return jmodel, params, tmodel
@@ -111,10 +112,42 @@ def test_params_from_flax_keys_and_outer_params_key():
         tree["params"]["layer_1"]["attn"]["wo"]["kernel"])
 
 
-def test_moe_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Transformer(TransformerConfig(vocab_size=16, d_model=64, n_layers=1,
-                                      moe_experts=2), device="cpu")
+@pytest.mark.parametrize("n_kv_heads,moe_experts", [(4, 4), (2, 3), (4, 1)])
+def test_moe_forward_matches_jax(n_kv_heads, moe_experts):
+    """Top-2 (top-1 for one expert) dense-dispatch MoE blocks, with the
+    reference's router, gates and experts carried by params_from_flax."""
+    jmodel, params, tmodel = _models(n_kv_heads, moe_experts)
+    assert all(hasattr(block, "moe") and not hasattr(block, "mlp")
+               for block in tmodel.layers)
+    toks = np.random.RandomState(3).randint(0, 320, (2, 24)).astype(np.int32)
+    ref = jmodel.apply(params, jnp.asarray(toks))
+    with torch.no_grad():
+        out = tmodel(torch.from_numpy(toks).long())
+    _close(out, ref)
+
+
+def test_params_from_flax_carries_the_moe_subtree():
+    _, params, tmodel = _models(4, moe_experts=4)
+    tree = jax.tree.map(np.asarray, params)
+    sd = params_from_flax(tree)
+    assert set(sd) == set(tmodel.state_dict())
+    moe = tree["params"]["layer_1"]["moe"]
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        np.testing.assert_array_equal(sd[f"layers.1.moe.{name}"].numpy(),
+                                      moe[name])
+    assert tuple(sd["layers.0.moe.w_down"].shape) == (4, 336, 128)
+
+
+def test_seeded_moe_init_draws_flax_fan_in():
+    """The seeded init draws the router at std 0.02 and each expert
+    kernel [E, in, out] at std (E * in)^-0.5, flax's lecun_normal fan-in."""
+    cfg = TransformerConfig(vocab_size=64, d_model=256, n_layers=1,
+                            n_heads=4, d_ff=512, moe_experts=8)
+    moe = Transformer(cfg, device="cpu", seed=1).layers[0].moe
+    assert abs(float(moe.router.std()) - 0.02) < 2e-3
+    for w in (moe.w_gate, moe.w_up, moe.w_down):
+        want = (w.shape[0] * w.shape[1]) ** -0.5
+        assert abs(float(w.std()) / want - 1) < 0.02
 
 
 @pytest.mark.parametrize("n_layers,n_stages", [(8, 3), (4, 4), (5, 1)])
