@@ -356,8 +356,8 @@ def _sdpa_call(q, k, v, causal):
 def _flash_bwd_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     """The backward kernel against the plain backward on the same o, dO and
     logsumexp. Bound: the 5 products the gradient needs (S, dP, dV, dK, dQ:
-    10 * B * Hq * D flops per visible pair; the kernel recomputes S and dP
-    for 7), against reading q, k, v, o, dO and lse once and writing dq, dk
+    10 * B * Hq * D flops per visible pair; the bf16 kernel computes each
+    once), against reading q, k, v, o, dO and lse once and writing dq, dk
     and dv once. Library: the backward alone of SDPA, torch.autograd.grad of
     its output (the forward runs once, outside the timing)."""
     import torch
@@ -776,8 +776,8 @@ PRODUCT_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "Gemm")
 def _profile_train_step(step) -> dict:
     """One training step under torch.profiler: the device's busy share of
     the step's wall time, and the shares of device time of the flash
-    backward kernels (delta, dK/dV and dQ), the flash forward kernel and
-    the products (cuBLAS)."""
+    backward kernels (prep, the wgmma kernel and convert), the flash forward
+    kernel and the products (cuBLAS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

@@ -1,9 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each kernel is one `.cu` file under `ray_tpu_torch/ops/csrc/` with a plain
-C entry point (helpers shared between them in `common.cuh`). At first use it is compiled by `nvcc` for Hopper (`sm_90a`)
-into a shared library under `build/ray_tpu_torch/` at the root of the
-checkout, named by a hash of its source and flags, and loaded with
+C entry point (helpers shared between them in `common.cuh`, the Hopper
+building blocks of the two flash kernels in `hopper.cuh`). At first use
+it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
+under `build/ray_tpu_torch/` at the root of the checkout, named by a
+hash of its source, the shared headers and the flags, and loaded with
 `ctypes` (pointers and the stream passed as `c_void_p`). `build_all()`
 starts one `nvcc` per source at once and waits for all of them.
 
@@ -146,10 +148,10 @@ FLASH_ATTENTION = Kernel(
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 FLASH_ATTENTION_BWD = Kernel(
     "flash_attention_bwd", "flash_attention_bwd.cu", "rt_flash_attention_bwd",
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
-    # causal, dtype, stream
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     _P])
+    # q, k, v, o, dout, lse, delta, lse_log2, dq_accum, dq, dk, dv, B, Sq,
+    # Sk, Hq, Hkv, D, causal, dtype, block_k, block_q, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+     _I, _I, _I, _I, _P])
 KERNELS = (DECODE_ATTENTION, FLASH_ATTENTION, FLASH_ATTENTION_BWD)
 
 

@@ -56,12 +56,14 @@
 // The TPU kernel's (8, 128) tile rule and its (block_q, 128) scratch have
 // no counterpart here.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;  // f32 path: 16 x 16 threads over output tiles
 constexpr int kBQ = 64;
@@ -305,245 +307,6 @@ struct Smem {
 // mbarriers: Q full; K full, V full, K empty, V empty for each stage.
 enum { kQFull = 0, kKFull = 1, kVFull = 3, kKEmpty = 5, kVEmpty = 7, kNumBars = 9 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Arrives when `pred` holds. Predicated inside the asm rather than
-// branched around it: a branch is a divergent path, and the wgmma that
-// follow it would be serialised.
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 state;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar),
-      "r"((int)pred)
-      : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed. The poll loop
-// lives inside one asm block: a loop the compiler can see is a divergent
-// path, and a wgmma after it would be serialised. A wait that outlasts any
-// real load (2^26 polls) traps, so a fault in the pipeline is a launch
-// error and not a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 polls;\nmov.u32 polls, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 polls, polls, 1;\n"
-      "setp.eq.u32 p, polls, 67108864;\n"
-      "@p trap;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats as one register of two bf16, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// wgmma shared-memory descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (B128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// K-major operand (rows of 64 columns, 8-row groups 1024 bytes apart).
-__device__ __forceinline__ uint64_t k_major_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
-}
-
-// MN-major operand: the N axis runs along the 128-byte rows (panels of 64
-// columns kPanelBytes apart), the K axis down the rows (8 rows per 1024).
-__device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr) {
-  return sw128_desc(addr, kPanelBytes, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accesses of wgmma accumulators across the
-// asynchronous issue and wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// D(64 x 128, f32) = A(64 x 16, smem) * B(16 x 128, smem), both K-major: the
-// first k-step, which writes D without reading it.
-__device__ __forceinline__ void wgmma_ss_n128_first(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
-        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
-        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
-        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
-        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-// D(64 x 128, f32) += A(64 x 16, smem) * B(16 x 128, smem), both K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// D(64 x 64, f32) (+)= A(64 x 16, registers) * B(16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// D(64 x 128, f32) (+)= A(64 x 16, registers) * B(16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
 // S(64 q rows x 128 keys) = Q K^T over D: q_a is this warpgroup's 64 rows
 // of the Q tile, k_b a K tile; a k-step of 16 columns is 32 bytes along a
 // swizzled row, and every 4 steps the next 64-column panel.
@@ -566,18 +329,13 @@ __device__ __forceinline__ void issue_pv(float* o, const uint32_t* p, uint32_t v
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk) {
     if constexpr (D == 64)
-      wgmma_rs_n64(o, p + 4 * kk, mn_major_desc(v_b + kk * 2048), 1);
+      wgmma_rs_n64(o, p + 4 * kk, mn_major_desc(v_b + kk * 2048, kPanelBytes), 1);
     else
-      wgmma_rs_n128(o, p + 4 * kk, mn_major_desc(v_b + kk * 2048), 1);
+      wgmma_rs_n128(o, p + 4 * kk, mn_major_desc(v_b + kk * 2048, kPanelBytes), 1);
   }
 }
 
-// Accumulator layout of wgmma m64nN (f32), per warpgroup thread (warp w,
-// lane = 4 g + t): d[4j], d[4j+1] are row 16w + g, columns 8j + 2t and
-// 8j + 2t + 1; d[4j+2], d[4j+3] the same columns of row 16w + g + 8. The
-// A fragment of a register-sourced wgmma k-step kk is that of mma.sync
-// m16n8k16: rows g / g + 8, keys 16kk + 2t (+1) and 16kk + 8 + 2t (+1), so
-// two neighbouring 8-key column blocks of S become one k-step of P.
+// Accumulator and A-fragment layouts of wgmma: hopper.cuh.
 template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -679,7 +437,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
       issue_qk<D>(s, q_a, k_s);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs<64>(s);
       mbar_arrive_if(bar0 + 8 * kKEmpty, lane == 0);  // one arrival a warp
 
@@ -754,7 +512,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           issue_qk<D>(s, q_a, k_s + st1 * L::kTileBytes);
           wgmma_commit();
         }
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs<D / 2>(o);
         fence_regs<64>(s);
         mbar_arrive_if(bar0 + 8 * (kVEmpty + st), lane == 0);
@@ -780,7 +538,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // Stage O as bf16 in this warpgroup's own rows of the Q tile (same
     // swizzle, so the 4-byte stores of a warp hit 32 banks), then write
     // whole 16-byte pieces of rows below Sq.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     const int lr = c * 64 + warp * 16 + g;  // tile rows lr and lr + 8
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -806,57 +564,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, fetched through the runtime so the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over a contiguous bf16 [B, S, H, D] tensor, boxes of 64
-// columns x 1 head x 128 rows x 1 batch in the 128-byte swizzle; boxes
-// reaching past S (or any edge) are filled with zeros.
-bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTile, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
                          int causal, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_bshd(&q_map, q, B, Sq, Hq, D) || !encode_bshd(&k_map, k, B, Sk, Hkv, D) ||
-      !encode_bshd(&v_map, v, B, Sk, Hkv, D))
+  if (!encode_bshd(&q_map, q, B, Sq, Hq, D, kTile) ||
+      !encode_bshd(&k_map, k, B, Sk, Hkv, D, kTile) ||
+      !encode_bshd(&v_map, v, B, Sk, Hkv, D, kTile))
     return cudaErrorInvalidValue;
   constexpr int bytes = Smem<D>::kBytes;
   static bool configured = false;

@@ -12,7 +12,9 @@ grad), the call goes through `_FlashAttention`: its forward also writes
 the logsumexp of each row, its backward launches the backward kernel
 (`csrc/flash_attention_bwd.cu`) on CUDA tensors and runs the plain
 `_reference_flash_attention_backward` on CPU tensors. Under
-`torch.no_grad()` no logsumexp is computed.
+`torch.no_grad()` no logsumexp is computed. The bf16 backward adds dq
+through f32 atomics, so its last bit may differ between two calls on the
+same inputs; dk and dv do not.
 
 Counterpart: ray_tpu/ops/flash_attention.py (`flash_attention`). The JAX
 package's Pallas kernel has no gradient rule; its gradient is XLA's, of
@@ -26,6 +28,10 @@ import torch
 from ray_tpu_torch._private import kernels
 
 SUPPORTED_HEAD_DIMS = (64, 128)
+# The bf16 backward kernel's tiles by head dim: (keys, query rows). One
+# block owns a key tile and steps over query tiles; the scratch rows are
+# padded to a multiple of the query tile. The kernel refuses any other pair.
+BWD_TILES = {64: (128, 128), 128: (128, 64)}
 
 
 def _compute_dtype(dtype):
@@ -167,7 +173,8 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
     """Launch the backward kernel on the current stream, without
     synchronising: q/out/dout [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] of one
     dtype (float32 or bfloat16), contiguous, on one CUDA device; lse the
-    forward's f32 [B, Hq, Sq]. Returns (dq, dk, dv)."""
+    forward's f32 [B, Hq, Sq]. The kernel's f32 scratch is allocated here.
+    Returns (dq, dk, dv)."""
     code = _check_inputs("flash attention backward", q, k, v, out, dout)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -177,14 +184,24 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
                          f"float32 [{b}, {hq}, {sq}] on {q.device}, got "
                          f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    block_k, block_q = BWD_TILES[d]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:  # Delta, lse in log2 and dQ's accumulator
+        rows = -(-sq // block_q) * block_q
+        delta = torch.empty(b, hq, rows, **f32)
+        lse_log2 = torch.empty(b, hq, rows, **f32)
+        dq_accum = torch.empty(b, hq, rows, d, **f32)
+    else:
+        delta, lse_log2, dq_accum = torch.empty(b, hq, sq, **f32), None, None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         kernels.FLASH_ATTENTION_BWD.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if lse_log2 is None else lse_log2.data_ptr(),
+            None if dq_accum is None else dq_accum.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d, int(causal),
-            code, stream)
+            code, block_k, block_q, stream)
     return dq, dk, dv
 
 

@@ -177,6 +177,13 @@ BACKWARD_CASES = [
     (1, 1000, 1000, 4, 1, 64, True),   # ragged, rep 4
     (1, 65, 129, 4, 2, 64, False),
     (2, 256, 256, 16, 16, 64, True),   # training heads
+    # edges of the bf16 kernel's tiles (BWD_TILES: 128 keys; 128 query
+    # rows at D=64, 64 at D=128)
+    (1, 127, 127, 2, 2, 64, True),
+    (1, 129, 129, 2, 2, 64, True),
+    (1, 100, 129, 4, 2, 64, False),    # Sk one past a key tile
+    (1, 200, 200, 8, 1, 128, True),    # GQA rep 8, D=128
+    (4, 1024, 1024, 16, 16, 64, True),  # the training shape
 ]
 
 
@@ -207,6 +214,42 @@ def test_flash_backward_kernel_matches_plain(gen, dtype, b, sq, sk, hq, hkv,
         _check(g, r, dtype)
     if causal and sq > sk:
         assert torch.all(grads[0][:, :sq - sk] == 0)
+
+
+def _backward_case(gen, b, sq, sk, hq, hkv, d, causal, dtype=torch.bfloat16):
+    q = _randn(gen, b, sq, hq, d, dtype=dtype)
+    k, v = (_randn(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    dout = _randn(gen, b, sq, hq, d, dtype=dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    return q, k, v, out, dout, lse
+
+
+def test_flash_backward_kernel_repeats(gen):
+    """Two calls on the same inputs: dq is a sum of f32 atomics in an order
+    that changes from run to run, so the two agree within the tolerance and
+    each matches the plain backward; dk and dv are bitwise equal."""
+    args = _backward_case(gen, 2, 300, 300, 8, 2, 64, True)
+    first = flash_attention_backward_cuda(*args, True)
+    second = flash_attention_backward_cuda(*args, True)
+    refs = _reference_flash_attention_backward(*args, True)
+    for a, c, r in zip(first, second, refs):
+        _check(a, r, torch.bfloat16)
+        _check(c, r, torch.bfloat16)
+        _check(a, c, torch.bfloat16)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+def test_flash_backward_kernel_shapes_in_a_row(gen):
+    """Calls of different shapes one after another each give the plain
+    backward's answer: the dQ accumulator and the other scratch carry
+    nothing from one call to the next."""
+    for shape in [(1, 300, 300, 4, 4, 64, True), (2, 64, 190, 4, 1, 128, False),
+                  (1, 129, 127, 2, 2, 128, True), (1, 300, 300, 4, 4, 64, True)]:
+        args = _backward_case(gen, *shape)
+        grads = flash_attention_backward_cuda(*args, shape[-1])
+        refs = _reference_flash_attention_backward(*args, shape[-1])
+        for g, r in zip(grads, refs):
+            _check(g, r, torch.bfloat16)
 
 
 def test_flash_attention_autograd_takes_a_strided_gradient(gen):

@@ -15,6 +15,10 @@ port's plain backward and its autograd Function are held to `jax.vjp` of
 the summation order differs).
 """
 
+import ctypes
+import itertools
+import re
+
 import numpy as np
 import pytest
 
@@ -26,6 +30,7 @@ from ray_tpu.ops.attention import _xla_attention
 from ray_tpu.ops.decode_attention import (_xla_decode_attention,
                                           decode_attention_pallas)
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
+from ray_tpu_torch._private import kernels
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops import (decode_attention, dot_product_attention,
                                flash_attention)
@@ -33,7 +38,7 @@ from ray_tpu_torch.ops.attention import _reference_attention
 from ray_tpu_torch.ops.decode_attention import (decode_attention_cuda,
                                                 rows_per_round, split_plan)
 from ray_tpu_torch.ops.flash_attention import (
-    _FlashAttention, _reference_flash_attention_backward,
+    BWD_TILES, _FlashAttention, _reference_flash_attention_backward,
     _reference_flash_attention_lse, flash_attention_backward_cuda,
     flash_attention_cuda)
 
@@ -220,6 +225,135 @@ def test_split_k_merge_matches_jax(b, hq, kv, d, s, lengths):
     _close(mirror, decode_attention_pallas(jq, jk, jv, jl, block_k=128,
                                            interpret=True), tol=1e-5)
     _close(mirror, _xla_decode_attention(jq, jk, jv, jl), tol=1e-5)
+
+
+def _c_entry_points():
+    """{symbol: [parameter declarations]} of every `extern "C" int rt_*`
+    entry point under ops/csrc."""
+    found = {}
+    for src in sorted(kernels.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (rt_\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            found[name] = [" ".join(p.split()) for p in params.split(",")]
+    return found
+
+
+@pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
+def test_kernel_argtypes_match_the_c_entry_point(kernel):
+    """Each Kernel's ctypes argtypes follow its C signature: as many
+    parameters, c_void_p for every pointer and c_int for every int. ctypes
+    passes a pointer given as c_int as 32 bits and cuts it silently, which
+    would only show on the card."""
+    params = _c_entry_points()[kernel.symbol]
+    assert len(kernel.argtypes) == len(params), params
+    for decl, argtype in zip(params, kernel.argtypes):
+        if "*" in decl:
+            assert argtype is ctypes.c_void_p, decl
+        else:
+            assert re.fullmatch(r"int \w+", decl), decl
+            assert argtype is ctypes.c_int, decl
+
+
+def _flash_backward_mirror(q, k, v, out, dout, lse, causal):
+    """The bf16 backward kernel's schedule in plain torch: one block per
+    (key tile, KV head, batch) walks the KV head's query heads and, for
+    each, the query tiles from the first that sees its first key; per tile
+    pair S^T, P^T = exp2(S^T scale log2 e - lse log2 e), dP^T and dS^T (P
+    and dS rounded to q's dtype as the kernel's operands are), dV and dK
+    summed in the block, dQ summed across blocks in an f32 accumulator of
+    padded rows; dq, dk, dv cast once. Rows and keys past the tensors are
+    zeros, as TMA fills them; rows past Sq or without a visible key have
+    lse +inf."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep, off, scale = hq // hkv, sk - sq, d ** -0.5
+    block_k, block_q = BWD_TILES[d]
+    rows = -(-sq // block_q) * block_q
+    log2e = float(np.log2(np.e))
+
+    def pad(t, n, value=0.0):  # along dim 1
+        fill = t.new_full((t.shape[0], n - t.shape[1], *t.shape[2:]), value)
+        return torch.cat([t, fill], dim=1)
+
+    def rounded(t):
+        return t.to(q.dtype).float()
+
+    qp, dop = pad(q.float(), rows), pad(dout.float(), rows)
+    kp = pad(k.float(), -(-sk // block_k) * block_k)
+    vp = pad(v.float(), kp.shape[1])
+    delta = pad(torch.einsum("bqhd,bqhd->bhq", dout.float(),
+                             out.float()).transpose(1, 2), rows).transpose(1, 2)
+    lse2 = torch.where(torch.isfinite(lse), lse * log2e, float("inf"))
+    lse2 = pad(lse2.transpose(1, 2), rows, float("inf")).transpose(1, 2)
+    dq_acc = torch.zeros(b, hq, rows, d)
+    dk, dv = torch.zeros(b, sk, hkv, d), torch.zeros(b, sk, hkv, d)
+    for bi, hk, k0 in itertools.product(range(b), range(hkv),
+                                        range(0, sk, block_k)):
+        kt, vt = kp[bi, k0:k0 + block_k, hk], vp[bi, k0:k0 + block_k, hk]
+        key = torch.arange(k0, k0 + block_k)[:, None]
+        dk_t, dv_t = torch.zeros(block_k, d), torch.zeros(block_k, d)
+        first = max(0, k0 - off) // block_q * block_q if causal else 0
+        for h, q0 in itertools.product(range(hk * rep, (hk + 1) * rep),
+                                       range(first, rows, block_q)):
+            tile = slice(q0, q0 + block_q)
+            qt, dot = qp[bi, tile, h], dop[bi, tile, h]
+            hidden = (key >= sk).expand(block_k, block_q)
+            if causal:
+                hidden = hidden | (key > torch.arange(q0, q0 + block_q) + off)
+            s_t = (kt @ qt.T).masked_fill(hidden, float("-inf"))
+            p_t = torch.exp2(s_t * (scale * log2e) - lse2[bi, h, tile])
+            ds_t = p_t * (vt @ dot.T - delta[bi, h, tile])
+            p_t, ds_t = rounded(p_t), rounded(ds_t)
+            dv_t += p_t @ dot
+            dk_t += ds_t @ qt
+            dq_acc[bi, h, tile] += ds_t.T @ kt
+        n = min(block_k, sk - k0)
+        dk[bi, k0:k0 + n, hk] = dk_t[:n] * scale
+        dv[bi, k0:k0 + n, hk] = dv_t[:n]
+    dq = (dq_acc[:, :, :sq] * scale).transpose(1, 2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
+    (1, 200, 200, 8, 2, 64, True),     # GQA rep 4, two tiles each way
+    (1, 100, 300, 4, 2, 64, True),     # Sq < Sk (diagonal offset 200)
+    (2, 129, 129, 2, 1, 64, True),     # ragged: one key and one row past a tile
+    (1, 60, 255, 2, 2, 64, False),     # ragged Sk = 255
+    (1, 150, 150, 4, 1, 128, True),    # D=128: 64-row query tiles, rep 4
+])
+def test_flash_backward_schedule_matches_jax(b, sq, sk, hq, hkv, d, causal):
+    """The kernel's block schedule (tiles from BWD_TILES), mirrored in plain
+    torch, equals jax.vjp of `_xla_attention` and the plain backward in f32
+    within 1e-5."""
+    rng = np.random.RandomState(10)
+    q, dout = _randn(rng, b, sq, hq, d), _randn(rng, b, sq, hq, d)
+    k, v = _randn(rng, b, sk, hkv, d), _randn(rng, b, sk, hkv, d)
+    _, ref = _jax_attention_vjp(q, k, v, dout, causal)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = _reference_flash_attention_lse(tq, tk, tv, causal)
+    mirror = _flash_backward_mirror(tq, tk, tv, out, tdo, lse, causal)
+    plain = _reference_flash_attention_backward(tq, tk, tv, out, tdo, lse,
+                                                causal)
+    for g, p, r in zip(mirror, plain, ref):
+        _close(g, r, tol=1e-5)
+        _close(g, p, tol=1e-5)
+
+
+def test_flash_backward_schedule_rows_without_keys():
+    """Causal Sq > Sk: the mirror equals the plain backward (the reference's
+    two paths disagree on rows without keys), and those rows get dq = 0."""
+    rng = np.random.RandomState(11)
+    q, dout = _randn(rng, 1, 300, 4, 64), _randn(rng, 1, 300, 4, 64)
+    k, v = _randn(rng, 1, 200, 2, 64), _randn(rng, 1, 200, 2, 64)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = _reference_flash_attention_lse(tq, tk, tv, True)
+    mirror = _flash_backward_mirror(tq, tk, tv, out, tdo, lse, True)
+    plain = _reference_flash_attention_backward(tq, tk, tv, out, tdo, lse,
+                                                True)
+    assert torch.all(mirror[0][:, :100] == 0)
+    for g, p in zip(mirror, plain):
+        assert torch.isfinite(g).all()
+        _close(g, p, tol=1e-5)
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
