@@ -47,10 +47,30 @@ from the root of a checkout. Phases, each of which raises on failure
    profiled step gives the device's busy share and the shares of device
    time of the two flash kernels and the products. Then the MoE variant
    (4 experts, 2 layers) for 2 steps.
+7. Serving over HTTP: `ray_tpu_torch.init(num_cpus=4)` (the node must
+   count 1 GPU), then `serve.run(build_openai_app(...,
+   ray_actor_options={"num_gpus": 1}))` on a free port: the HTTP proxy,
+   the router and a replica actor in its own worker process, which holds
+   the card. First the golden file's float32 model: its greedy token_ids
+   over HTTP equal the JAX package's, and /v1/stats names a replica pid
+   that is not this process's, with CUDA memory of its own, while
+   nvidia-smi lists the pid or, where its pids are another PID
+   namespace's, one more compute app than with this process alone.
+   Then the serving model of phase 4: /v1/models, a lone greedy
+   completion equal to phase 4's in-process answer for the same prompt,
+   two SSE streams (chunks arrive one by one, then [DONE]; time to first
+   token of the second, after the first paid the stream set-up), one
+   chat and 6 concurrent completions from threads with phase 4's mix
+   (generated tokens/s, wall ms per decode step). The decode kernel's
+   launch count is read from the replica (/v1/stats). Then
+   serve.shutdown() and ray_tpu_torch.shutdown(), which must leave no
+   rt_* segment in /dev/shm.
 
 Launch counts: the decode kernel's from phase 4, the flash forward's from
 phases 5 and 6, the flash backward's from phase 6, each path's counts set
-to 0 just before it and read just after.
+to 0 just before it and read just after; the decode row also carries the
+replica's count from phase 7 (`replica_launches`: a fresh process, read
+after its requests).
 
 It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`, one JSON line {"kernels": [...]}, and last
@@ -471,10 +491,41 @@ def _kernel_cases():
 
 
 # ------------------------------------------------------------- phase 3
-def phase_golden(path: str) -> None:
+GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
+
+
+def _golden() -> dict:
+    with np.load(GOLDEN) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _subtree(g: dict, prefix: str) -> dict:
+    """The nested flax tree stored under `prefix` ("params/", "grad/")."""
+    tree: dict = {}
+    for key, arr in g.items():
+        if key.startswith(prefix):
+            node = tree
+            *parents, leaf = key[len(prefix):].split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = arr
+    return tree
+
+
+def _golden_config(g: dict):
+    """LLMConfig of the golden model, float32, with its weights."""
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.models.convert import params_from_flax
+
+    vocab, d_model, n_layers, n_heads, max_seq = (int(x) for x in g["config"])
+    return LLMConfig(vocab_size=vocab, d_model=d_model, n_layers=n_layers,
+                     n_heads=n_heads, max_seq=max_seq, dtype="float32",
+                     params=params_from_flax(_subtree(g, "params/")))
+
+
+def phase_golden() -> None:
     import torch
 
-    from ray_tpu_torch.llm import LLMConfig
     from ray_tpu_torch.llm.engine import (ContinuousEngine, SamplingParams,
                                           model_config)
     from ray_tpu_torch.models.convert import params_from_flax
@@ -482,24 +533,8 @@ def phase_golden(path: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with np.load(path) as f:
-        g = {k: f[k] for k in f.files}
-    def subtree(prefix):
-        tree: dict = {}
-        for key, arr in g.items():
-            if key.startswith(prefix):
-                node = tree
-                *parents, leaf = key[len(prefix):].split("/")
-                for p in parents:
-                    node = node.setdefault(p, {})
-                node[leaf] = arr
-        return tree
-
-    tree = subtree("params/")
-    vocab, d_model, n_layers, n_heads, max_seq = (int(x) for x in g["config"])
-    lcfg = LLMConfig(vocab_size=vocab, d_model=d_model, n_layers=n_layers,
-                     n_heads=n_heads, max_seq=max_seq, dtype="float32",
-                     params=params_from_flax(tree))
+    g = _golden()
+    lcfg = _golden_config(g)
     model = Transformer(model_config(lcfg), device="cuda")
     model.load_state_dict(lcfg.params)
     with torch.no_grad():
@@ -524,7 +559,7 @@ def phase_golden(path: str) -> None:
     loss = loss_fn(model, torch.from_numpy(g["train_tokens"]).long().cuda())
     loss.backward()
     loss_err = abs(loss.item() - float(g["train_loss"]))
-    ref = params_from_flax(subtree("grad/"))
+    ref = params_from_flax(_subtree(g, "grad/"))
     worst, worst_name = 0.0, ""
     for name, p in model.named_parameters():
         r = ref[name].cuda()
@@ -538,7 +573,7 @@ def phase_golden(path: str) -> None:
 
 
 # ------------------------------------------------------------- phase 4
-def phase_serve(server, kernels) -> dict:
+def phase_serve(server, kernels) -> tuple[dict, tuple]:
     import torch
 
     rng = np.random.RandomState(0)
@@ -613,6 +648,7 @@ def phase_serve(server, kernels) -> dict:
     a, b = call(same)["token_ids"], call(same)["token_ids"]
     if a != b:
         raise AssertionError("the same greedy prompt gave two answers")
+    lone = (same, a)
     profile = _profile_decode(call, prompt, eng)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -630,7 +666,7 @@ def phase_serve(server, kernels) -> dict:
            "stream_ttft_ms": 1e3 * ttft,
            "decode_launches": counts["decode_attention"], **profile}
     log("serve " + json.dumps(rec))
-    return rec
+    return rec, lone
 
 
 def _profile_decode(call, prompt, eng) -> dict:
@@ -937,6 +973,251 @@ def phase_train(kernels) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 7
+def _rt_segments() -> set:
+    """The runtime's shared-memory segments: object store (rt_*) and
+    stream rings (rtring_*)."""
+    return {f for f in os.listdir("/dev/shm") if f.startswith("rt")}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(url: str, body: dict | None = None, timeout: float = 300):
+    """GET (no body) or POST a JSON body; returns the parsed reply."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _http_stream(url: str, body: dict) -> tuple[list, list]:
+    """POST a streaming request; returns the SSE data events (None for
+    [DONE]) and each one's arrival time (perf_counter)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events, arrival = [], []
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if not r.headers["Content-Type"].startswith("text/event-stream"):
+            raise AssertionError(f"stream answered {r.headers['Content-Type']}")
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            arrival.append(time.perf_counter())
+            if line == "data: [DONE]":
+                events.append(None)
+                break
+            events.append(json.loads(line[len("data: "):]))
+    return events, arrival
+
+
+def _compute_apps() -> list[tuple[int, int]]:
+    """(pid, used MiB) of every process nvidia-smi lists on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [(int(a), int(b)) for a, b in
+            (line.split(",") for line in out.strip().splitlines())]
+
+
+def _replica_holds_card(stats: dict, driver_apps: list) -> str:
+    """Raise unless the replica that answered `stats` is another process
+    than this one and holds the card: it reports CUDA memory of its own,
+    and nvidia-smi lists its pid or, where nvidia-smi's pids come from
+    another PID namespace than this process's, one more compute app than
+    with this process alone (`driver_apps`)."""
+    pid = stats["pid"]
+    if pid == os.getpid():
+        raise AssertionError("the engine runs in the driver, not a replica")
+    if not stats["device"].startswith("cuda") or stats["device_bytes"] <= 0:
+        raise AssertionError(f"the replica holds no CUDA memory: {stats}")
+    apps = _compute_apps()
+    if pid in [p for p, _ in apps]:
+        return f"nvidia-smi lists the replica's pid {pid}: {apps}"
+    if len(apps) <= len(driver_apps):
+        raise AssertionError(f"nvidia-smi lists compute apps {apps}, no "
+                             f"more than the driver's alone {driver_apps}")
+    return (f"nvidia-smi lists compute apps {apps} against {driver_apps} "
+            f"with the driver alone (its pids are not this namespace's)")
+
+
+def _wait_gpu_free(rt, timeout: float = 60.0) -> None:
+    """A deleted replica's GPU returns to the node once its process is
+    gone; wait for it before the next replica asks for it."""
+    deadline = time.monotonic() + timeout
+    while rt.available_resources().get("GPU", 0.0) < 1.0:
+        if time.monotonic() > deadline:
+            raise AssertionError("the deleted replica's GPU was not released")
+        time.sleep(0.2)
+
+
+def phase_http(lone) -> dict:
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.openai import build_openai_app
+
+    shm_before = _rt_segments()
+    t_phase = time.perf_counter()
+    rt.init(num_cpus=4)
+    try:
+        res = rt.cluster_resources()
+        log(f"http: node resources {json.dumps(res)}")
+        if res.get("GPU") != 1.0:
+            raise AssertionError(f"the node counts {res.get('GPU')} GPUs, "
+                                 f"not 1")
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        driver_apps = _compute_apps()
+
+        # golden: the JAX package's greedy tokens, over HTTP
+        g = _golden()
+        t0 = time.perf_counter()
+        serve.run(build_openai_app(_golden_config(g), name="golden", max_batch=2,
+                                   decode_chunk=4,
+                                   ray_actor_options={"num_gpus": 1}),
+                  port=port)
+        golden_deploy_s = time.perf_counter() - t0
+        greedy = [_http(f"{base}/v1/completions", {
+            "prompt": g[f"prompt_{i}"].tolist(), "temperature": 0.0,
+            "max_tokens": g["greedy"].shape[1]})["token_ids"]
+            for i in range(g["greedy"].shape[0])]
+        if not np.array_equal(np.asarray(greedy), g["greedy"]):
+            raise AssertionError(f"golden greedy tokens over HTTP differ:\n"
+                                 f"{greedy}\n{g['greedy']}")
+        stats = _http(f"{base}/v1/stats")
+        held = _replica_holds_card(stats, driver_apps)
+        log(f"http: golden greedy tokens equal over HTTP "
+            f"({np.asarray(greedy).size} tokens); replica pid "
+            f"{stats['pid']} (driver {os.getpid()}) on {stats['device']} "
+            f"with {stats['device_bytes']} B allocated; {held}; decode "
+            f"launches in the replica "
+            f"{stats['kernel_launches']['decode_attention']}; deployed in "
+            f"{golden_deploy_s:.1f} s")
+        serve.delete("golden")
+        _wait_gpu_free(rt)
+
+        # the serving model of phase 4
+        t0 = time.perf_counter()
+        serve.run(build_openai_app(LLMConfig(**SERVE), max_batch=8,
+                                   decode_chunk=16, default_max_tokens=64,
+                                   ray_actor_options={"num_gpus": 1}),
+                  port=port)
+        deploy_s = time.perf_counter() - t0
+        models = _http(f"{base}/v1/models")
+        if models["data"][0]["id"] != "ray-tpu-llm":
+            raise AssertionError(f"/v1/models answered {models}")
+        body, want = lone
+        got = _http(f"{base}/v1/completions", body)["token_ids"]
+        if got != want:
+            raise AssertionError("the lone greedy completion over HTTP "
+                                 "differs from the in-process server's")
+        stats = _http(f"{base}/v1/stats")
+        log(f"http: replica pid {stats['pid']}: "
+            f"{_replica_holds_card(stats, driver_apps)}")
+
+        rng = np.random.RandomState(7)
+
+        def stream():
+            t_s = time.perf_counter()
+            events, arrival = _http_stream(f"{base}/v1/completions", {
+                "prompt": rng.randint(0, SERVE["vocab_size"], 128).tolist(),
+                "temperature": 0.0, "max_tokens": 64, "stream": True})
+            return t_s, events, arrival
+
+        # The first stream also pays the proxy's one-time stream set-up
+        # (its ring hub, the replica's pump threads); TTFT is the second's,
+        # as phase 4's comes after warm requests.
+        t_cold, events, arrival = stream()
+        ttft_cold = next(t for e, t in zip(events, arrival)
+                         if e and e["token_ids"]) - t_cold
+        t_s, events, arrival = stream()
+        if events[-1] is not None:
+            raise AssertionError("the stream did not end with [DONE]")
+        with_tokens = [(e, t) for e, t in zip(events, arrival)
+                       if e and e["token_ids"]]
+        streamed = [t for e, _ in with_tokens for t in e["token_ids"]]
+        if len(streamed) != 64 or len(with_tokens) < 2 \
+                or with_tokens[-1][1] <= with_tokens[0][1]:
+            raise AssertionError(f"the stream gave {len(streamed)} tokens in "
+                                 f"{len(with_tokens)} events")
+        ttft = with_tokens[0][1] - t_s
+        chat = _http(f"{base}/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "hello there"}],
+            "temperature": 0.0, "max_tokens": 32})
+        if chat["object"] != "chat.completion" or \
+                len(chat["token_ids"]) != 32:
+            raise AssertionError(f"chat answer malformed: {chat['object']}")
+
+        bodies = []
+        for i, n in enumerate((64, 128, 256, 64, 128, 256)):
+            b = {"prompt": rng.randint(0, SERVE["vocab_size"], n).tolist(),
+                 "max_tokens": 96 + 16 * i,
+                 "temperature": 0.0 if i % 2 == 0 else 0.8}
+            if i % 2:
+                b.update(top_p=0.9, top_k=50, seed=i)
+            bodies.append(b)
+        results = [None] * len(bodies)
+
+        def worker(i):
+            results[i] = _http(f"{base}/v1/completions", bodies[i])
+
+        steps0 = _http(f"{base}/v1/stats")["decode_steps"]
+        t0 = time.perf_counter()
+        threads = []
+        for i in range(len(bodies)):
+            threads.append(threading.Thread(target=worker, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.05)  # staggered, as in phase 4
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        stats = _http(f"{base}/v1/stats")
+        steps = stats["decode_steps"] - steps0
+        n_tokens = 0
+        for b, out in zip(bodies, results):
+            if out is None or len(out["token_ids"]) != b["max_tokens"]:
+                raise AssertionError("a concurrent completion over HTTP "
+                                     "did not finish")
+            n_tokens += len(out["token_ids"])
+        launches = stats["kernel_launches"]["decode_attention"]
+        if launches == 0 or stats["pid"] == os.getpid():
+            raise AssertionError("the replica never launched the decode "
+                                 "kernel")
+        rec = {"replica_pid": stats["pid"], "deploy_s": deploy_s,
+               "golden_deploy_s": golden_deploy_s,
+               "concurrent_requests": len(bodies),
+               "generated_tokens": n_tokens, "wall_s": wall,
+               "tokens_per_s": n_tokens / wall, "decode_steps": steps,
+               "ms_per_decode_step_wall": 1e3 * wall / max(steps, 1),
+               "stream_ttft_ms": 1e3 * ttft,
+               "first_stream_ttft_ms": 1e3 * ttft_cold,
+               "stream_events": len(with_tokens),
+               "replica_decode_launches": launches,
+               "replica_decode_steps": stats["decode_steps"]}
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    left = _rt_segments() - shm_before
+    if left:
+        raise AssertionError(f"shutdown left shm segments {sorted(left)}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("http " + json.dumps(rec))
+    return rec
+
+
 def _ptxas_summary(build_log: str) -> list[str]:
     """One line per kernel instance from nvcc -Xptxas -v: its name and
     template arguments, registers, shared memory and spills, plus any
@@ -988,20 +1269,22 @@ def main() -> int:
                 log(f"ptxas {k.name}: {line}")
 
     decode_rec, flash_rec, bwd_rec = phase_kernels()
-    phase_golden(os.path.join(REPO, "tests", "data", "torch_port_golden.npz"))
+    phase_golden()
 
     server = OpenAIServer(LLMConfig(**SERVE), max_batch=8, decode_chunk=16,
                           default_max_tokens=64, device="cuda")
     try:
-        serve_rec = phase_serve(server, kernels)
+        serve_rec, lone = phase_serve(server, kernels)
         forward_rec = phase_forward(server.engine.model, kernels)
     finally:
         server.shutdown()
     del server
     torch.cuda.empty_cache()
     train_rec = phase_train(kernels)
+    http_rec = phase_http(lone)
     if serve_rec["decode_launches"] == 0 or forward_rec["flash_launches"] == 0 \
-            or train_rec["flash_bwd_launches"] == 0:
+            or train_rec["flash_bwd_launches"] == 0 \
+            or http_rec["replica_decode_launches"] == 0:
         raise AssertionError("a kernel of the main path never launched")
 
     def line(kernel, rec, launches, replaces):
@@ -1014,9 +1297,10 @@ def main() -> int:
                 "library_ms": rec["library_ms"]}
 
     log(json.dumps({"kernels": [
-        line(kernels.DECODE_ATTENTION, decode_rec,
-             serve_rec["decode_launches"],
-             "ray_tpu/ops/decode_attention.py:33"),
+        {**line(kernels.DECODE_ATTENTION, decode_rec,
+                serve_rec["decode_launches"],
+                "ray_tpu/ops/decode_attention.py:33"),
+         "replica_launches": http_rec["replica_decode_launches"]},
         line(kernels.FLASH_ATTENTION, flash_rec,
              forward_rec["flash_launches"] + train_rec["flash_launches"],
              "ray_tpu/ops/flash_attention.py:74"),

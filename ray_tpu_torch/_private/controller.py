@@ -1,0 +1,4108 @@
+"""Cluster controller — the control plane of the runtime.
+
+Parity target: the reference GCS server (src/ray/gcs/gcs_server/gcs_server.h:90
+and its per-domain managers: GcsNodeManager, GcsActorManager
+(gcs_actor_manager.cc:1410 max_restarts), GcsPlacementGroupManager,
+GcsJobManager, internal KV (gcs_kv_manager.h), GcsHealthCheckManager
+(gcs_health_check_manager.h:45)) PLUS the GCS-side ClusterTaskManager: unlike
+the reference — which scheduls most tasks on per-node raylets with spillback —
+this controller makes all placement decisions centrally. TPU-era rationale:
+slices are long-lived gang-scheduled resources; central decisions avoid the
+raylet spillback dance (normal_task_submitter.cc:461) entirely.
+
+Also plays the object directory role (reference
+ownership_object_directory.h): oid -> holder addresses, with inline storage
+for small objects (reference CoreWorkerMemoryStore memory_store.h:45).
+
+Counterpart: ray_tpu/_private/controller.py (copied).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import bisect
+import logging
+import os
+import time
+from collections import deque
+from typing import Optional
+
+from ray_tpu_torch._private import rpc
+from ray_tpu_torch._private.resources import ResourceSet
+from ray_tpu_torch._private.rtconfig import CONFIG
+from ray_tpu_torch._private.scheduler import NodeState, pick_node
+from ray_tpu_torch._private.task_spec import ACTOR_CREATE, TaskSpec
+
+logger = logging.getLogger(__name__)
+
+
+class _ObjectEntry:
+    __slots__ = ("state", "inline", "holders", "size", "waiters", "owner",
+                 "error", "escaped", "borrowers", "dying_at", "plane",
+                 "device_worker", "device_node")
+
+    def __init__(self):
+        self.state = "pending"  # pending | ready | lost
+        self.inline = None  # list[bytes] | None
+        self.holders: set[tuple] = set()
+        self.size = 0
+        self.waiters: list[asyncio.Future] = []
+        self.owner: Optional[str] = None
+        self.error = None  # serialized error blob (parts) shared with owner
+        # Device object plane (README "Device objects"): "device" entries
+        # hold only a placeholder inline; the payload is pinned in the
+        # producing worker's DeviceObjectTable. device_worker/device_node
+        # drive the free fan-out and the producer-death lost sweep.
+        self.plane: Optional[str] = None  # None/"host" | "device"
+        self.device_worker: Optional[str] = None
+        self.device_node: Optional[str] = None
+        # Borrower protocol (reference reference_count.h:72): an oid that
+        # ESCAPED its owner (was serialized into a payload another process
+        # can see) is not freed when the owner's refcount hits zero — it is
+        # marked dying and survives while registered borrowers exist, plus a
+        # grace TTL covering the in-flight window between the owner shipping
+        # the ref and the borrower registering.
+        self.escaped = False
+        self.borrowers: set[str] = set()  # worker ids holding borrowed refs
+        self.dying_at: Optional[float] = None  # owner freed; sweep after TTL
+
+    def wake(self):
+        for fut in self.waiters:
+            if not fut.done():
+                fut.set_result(None)
+        self.waiters.clear()
+
+
+class _ActorEntry:
+    __slots__ = (
+        "spec", "state", "node_id", "worker_id", "address", "instance",
+        "restarts_used", "name", "namespace", "death_cause", "waiters",
+        "resources_held",
+    )
+
+    def __init__(self, spec: TaskSpec):
+        self.spec = spec
+        self.state = "PENDING"  # PENDING | ALIVE | RESTARTING | DEAD
+        self.node_id = None
+        self.worker_id = None
+        self.address = None  # (host, port) of hosting worker's RPC server
+        self.instance = 0  # bumped every restart so stale handles re-resolve
+        self.restarts_used = 0
+        self.name = spec.actor_name
+        self.namespace = spec.namespace
+        self.death_cause = None
+        self.waiters: list[asyncio.Future] = []
+        self.resources_held = False  # True while a node's resources back this actor
+
+    def wake(self):
+        for fut in self.waiters:
+            if not fut.done():
+                fut.set_result(None)
+        self.waiters.clear()
+
+
+#: Decimation factor for the telemetry ring: every DECIM raw points aging
+#: out of the recent tier fold into ONE averaged history point.
+_TELEM_DECIM = 8
+
+#: Controller self-telemetry: per-RPC-method latency bucket boundaries
+#: (seconds). Matches rt_rpc_frame_seconds' spirit but tuned to handler
+#: execution times; shared by every method's histogram.
+_RPC_BOUNDS = [0.0002, 0.001, 0.005, 0.02, 0.1, 0.5, 2.0]
+
+
+class _SeriesRing:
+    """Bounded two-tier timeseries for one (node, series[, worker]): a raw
+    recent deque plus a decimated history deque (mean of every
+    _TELEM_DECIM points aging out of raw). Memory is O(2 * points) per
+    series regardless of runtime; timestamps stay monotone because append
+    rejects out-of-order points."""
+
+    __slots__ = ("raw", "hist", "acc_sum", "acc_n", "last_ts")
+
+    def __init__(self, points: int):
+        self.raw: deque = deque()
+        self.hist: deque = deque(maxlen=points)
+        self.acc_sum = 0.0
+        self.acc_n = 0
+        self.last_ts = 0.0
+
+    def append(self, ts: float, val: float, points: int) -> None:
+        if ts <= self.last_ts:
+            return  # late/duplicate batch: keep the series monotone
+        while len(self.raw) >= max(2, points):
+            old_ts, old_val = self.raw.popleft()
+            self.acc_sum += old_val
+            self.acc_n += 1
+            if self.acc_n >= _TELEM_DECIM:
+                self.hist.append((old_ts, self.acc_sum / self.acc_n))
+                self.acc_sum = 0.0
+                self.acc_n = 0
+        self.raw.append((ts, float(val)))
+        self.last_ts = ts
+
+    def points(self, since: float | None = None) -> list:
+        out = [list(p) for p in self.hist] + [list(p) for p in self.raw]
+        if since is not None:
+            out = [p for p in out if p[0] > since]
+        return out
+
+    def latest(self) -> tuple | None:
+        if self.raw:
+            return self.raw[-1]
+        if self.hist:
+            return self.hist[-1]
+        return None
+
+
+class Controller:
+    def __init__(self, session_id: str):
+        self.session_id = session_id
+        self.server = rpc.RpcServer(self._on_request, self._on_push, self._on_conn_close)
+        self.nodes: dict[str, NodeState] = {}
+        self.node_conns: dict[str, rpc.Connection] = {}
+        self.client_conns: dict[str, rpc.Connection] = {}  # worker_id -> conn
+        self.objects: dict[str, _ObjectEntry] = {}
+        # Device-plane directory index: producer worker id -> ready device
+        # oids. Keeps the per-death lost sweep O(that worker's entries)
+        # instead of a full object-table scan per worker exit (and exactly
+        # zero for clusters that never touch the plane).
+        self._device_index: dict[str, set] = {}
+        # oid -> expiry: freed refs whose late advertises must not
+        # resurrect directory entries (see _p_free_objects)
+        self.freed_tombstones: dict[str, float] = {}
+        self._tombstone_prune_at = 0.0
+        # Task-event ring (reference task_event_buffer.h -> GCS task
+        # events): feeds ray_tpu_torch.timeline() and the state list APIs.
+        self.task_events: deque = deque(maxlen=100_000)
+        self.pending: deque[TaskSpec] = deque()
+        # task_id -> {"spec", "node_id", "worker_id"}
+        self.dispatched: dict[str, dict] = {}
+        self.actors: dict[str, _ActorEntry] = {}
+        self.named_actors: dict[tuple, str] = {}
+        self.pgs: dict[str, dict] = {}
+        self.pg_bundles: dict[tuple, dict] = {}  # (pg_id, idx) -> {node, available, reserved}
+        self.kv: dict[tuple, bytes] = {}
+        # Job table (reference gcs_job_manager + dashboard job_manager.py:60):
+        # submission_id -> {entrypoint, status, message, node_id, start/end,
+        # metadata, runtime_env}. Driver subprocesses run on a node agent.
+        self.jobs: dict[str, dict] = {}
+        # (metric name, sorted tag tuple) -> aggregated series
+        self.metrics: dict[tuple, dict] = {}
+        # Histogram bucket boundaries, registered ONCE per name by
+        # `histogram_decl` records (observe records carry values only —
+        # shipping the boundary list per observation bloated every flush
+        # batch once the tracing plane added hot-path histograms).
+        self._hist_bounds: dict[str, list] = {}
+        # Tracing plane (README "Tracing & timeline"): trace_id -> {spans,
+        # start, last, name, root_done, dirty} in arrival order, bounded by
+        # RT_TRACE_MAX_TRACES (oldest evicted, persisted first). Served by
+        # list_traces/get_trace, `ray-tpu timeline`, /api/traces.
+        self.traces: dict[str, dict] = {}
+        self._trace_sweep_task: Optional[asyncio.Task] = None
+        # Evicted-but-unpersisted traces awaiting the persistence sweep.
+        # BOUNDED: under full-sampling overload (every task its own trace)
+        # evictions arrive at task rate, and persisting each inline was
+        # measured at ~3x task-throughput collapse on a 1-core box — the
+        # sweep drains a bounded batch per tick and sheds the rest (ring
+        # discipline, same as the flight recorder).
+        self._evicted_traces: deque = deque(maxlen=256)
+        # Cluster event plane (README "Cluster events"): lifecycle events
+        # in a bounded arrival-order ring (seq = arrival order, minted
+        # here), plus a per-entity secondary index so "what happened to
+        # actor X" is O(that entity's events). Settled events persist as
+        # segmented JSONL through the storage plane (_event_sweep).
+        self.events: deque = deque()
+        self._event_seq = 0  # next seq to mint; snapshot/restore-durable
+        self._event_index: dict[str, deque] = {}
+        self._event_sweep_task: Optional[asyncio.Task] = None
+        # Events awaiting segment persistence (bounded; a long backend
+        # outage sheds OLDEST and counts them into _events_dropped).
+        self._evseg_buf: list = []
+        self._evseg_tail_written = -1  # last seq the current.jsonl tail has
+        self._events_dropped = 0
+        # task_id -> (force, expiry), for cancels that land while the task is
+        # queued or mid-dispatch (neither pending nor dispatched yet).
+        # Entries expire so cancels racing completion (or actor-method refs
+        # that never pass through scheduling) can't leak or poison a later
+        # lineage reconstruction of the same task_id.
+        self.cancelled: dict[str, tuple[bool, float]] = {}
+        self._persist_dirty = False
+        import threading as _threading
+
+        self._persist_io_lock = _threading.Lock()
+        # Serializes event-segment writes: the sweep's executor job vs
+        # stop()'s synchronous final flush (same shape as the snapshot
+        # path's _persist_io_lock — unordered cross-thread current.jsonl
+        # writes could lose the newest tail to a stale one). The watermark
+        # ORDERS them: a writer whose coverage is below what already
+        # landed skips the current.jsonl rewrite (locks alone only
+        # serialize; a stale writer acquiring second would still win).
+        self._event_io_lock = _threading.Lock()
+        self._evseg_current_hi = -1  # newest seq current.jsonl covers
+        # task_id -> (task_done payload, expiry): completions whose task_done
+        # beat the dispatch *reply* (worker reports straight to the
+        # controller; the agent's reply rides another connection). Replayed
+        # by _dispatched once the dispatch bookkeeping exists — otherwise
+        # the late-arriving entry would zombify and leak its resources.
+        self.early_done: dict[str, tuple[dict, float]] = {}
+        self._sched_wakeup = asyncio.Event()
+        self._tasks: list[asyncio.Task] = []
+        self._stopping = False
+        self.port = 0
+        # Worker leases (reference NormalTaskSubmitter lease pools,
+        # normal_task_submitter.cc:296): owners lease workers by scheduling
+        # class and push tasks to them DIRECTLY; the controller only accounts
+        # resources and brokers worker acquisition. lease_id -> entry.
+        self.leases: dict[str, dict] = {}
+        self._last_need_push = 0.0
+        self._lease_waiters = 0  # parked lease requests (fair-share signal)
+        # Parked lease requests waiting for capacity: woken the moment a
+        # lease returns / resources free instead of polling on a timer
+        # (the 20ms poll sat directly on multi-client handoff latency).
+        self._lease_waiter_futs: list[asyncio.Future] = []
+        # node_id -> warm returned leases: a returned lease's worker slot
+        # stays 'leased' at the agent for lease_idle_s, so a matching
+        # regrant (the multi-client handoff hot path) is pure controller
+        # bookkeeping — no agent round trip, and usually a cached owner
+        # connection. Entries: {worker_id, address, demand, expires}.
+        self.lease_pool: dict[str, list] = {}
+        self._lease_pool_size = 0
+        # Observability for the direct-dispatch plane (asserted by tests):
+        # grants split by warm-pool hit vs agent acquisition, plus returns.
+        self.lease_grants = 0
+        self.lease_pool_hits = 0
+        self.lease_returns = 0
+        # (owner, lease_entry, expiry): reasserted leases whose node agent
+        # hasn't re-registered yet (controller restart FT).
+        self._parked_reasserts: list[tuple] = []
+        # task_id -> (node_id, raw resources): pre-restart in-flight tasks
+        # whose capacity was charged from an agent's inventory report.
+        self._reconciled_busy: dict[str, tuple] = {}
+        # worker_ids that ever hosted an actor instance: the fate-sharing
+        # reaper must recognize an actor owner even after its entry's
+        # worker_id was cleared by the death bookkeeping.
+        self._actor_host_workers: set[str] = set()
+        # task_id -> (spec, demand, nid): specs sent in a dispatch_batch
+        # whose per-spec `dispatched` push hasn't landed yet. Entries left
+        # after the batch call resolves (agent/conn death) are requeued.
+        self._pending_dispatch: dict[str, tuple] = {}
+        # owner worker_id -> buffered object_ready items: completions are
+        # notified in batched `objects_ready` frames (one per owner per
+        # event-loop burst) instead of one push per oid.
+        self._ready_bufs: dict[str, list] = {}
+        # Stall-detection plane (README "Stall detection & watchdogs"):
+        # ring of StallReports forwarded by node agents (worker watchdogs +
+        # agent backstops) and train controllers; served by list_stalls /
+        # `ray-tpu stalls`, counted into rt_stalls_total{stage}.
+        self.stalls: deque = deque(maxlen=512)
+        # node_id -> (task_id -> progress-silence seconds, received-at):
+        # per-task beacon ages riding agent heartbeats, so task_status can
+        # answer "how long has the producer been silent".
+        self._task_beacons: dict[str, tuple] = {}
+        # Telemetry plane (README "Telemetry & profiling"): (node_id,
+        # series, worker_prefix) -> _SeriesRing, fed by the `telemetry`
+        # batches riding agent heartbeats plus the controller's own
+        # self-sample tick. Series quiet past RT_TELEMETRY_WINDOW_S age
+        # out (a dead agent's series disappear instead of freezing).
+        self.telemetry: dict[tuple, _SeriesRing] = {}
+        self._telem_prune_at = 0.0
+        self._telem_skew: dict[str, float] = {}  # node -> sticky rebase
+        self._telem_task: Optional[asyncio.Task] = None
+        # Controller self-telemetry, no agent involved: per-RPC-method
+        # latency/count histograms (method -> [count, sum, buckets]) —
+        # accumulated inline in _on_request (two perf_counter reads + one
+        # bisect; always on) — and the event-loop lag gauge (measured by
+        # the self-sample tick, None while telemetry is unarmed).
+        self._rpc_stats: dict[str, list] = {}
+        self._loop_lag: Optional[float] = None
+        # node_id -> latest minted incarnation. Survives the NodeState
+        # (incremented across SUSPECT->DEAD->rejoin), so a zombie agent
+        # from ANY previous life is fenced, not just the last one.
+        self.node_incarnations: dict[str, int] = {}
+        # Observability for the fencing path (asserted by chaos tests).
+        self.stale_incarnation_rejections = 0
+
+    async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        if CONFIG.controller_persist_dir:
+            self._restore_state()
+            self._tasks.append(asyncio.ensure_future(self._persist_loop()))
+            if any(e.state == "RECOVERING" for e in self.actors.values()):
+                self._tasks.append(
+                    asyncio.ensure_future(self._reconcile_recovering()))
+        # Event-plane seq fencing: a restored (or re-started-into-session)
+        # head must mint seqs ABOVE anything already persisted, or fresh
+        # events would collide with segment history (pinned by test).
+        self._restore_event_seq()
+        self.port = await self.server.start(host, port)
+        self._tasks.append(asyncio.ensure_future(self._schedule_loop()))
+        self._tasks.append(asyncio.ensure_future(self._health_loop()))
+        from ray_tpu_torch._private import telemetry as _telemetry
+
+        if _telemetry.interval_s() > 0:
+            self._telem_task = asyncio.ensure_future(self._self_sample_loop())
+            self._tasks.append(self._telem_task)
+        return self.port
+
+    async def _reconcile_recovering(self):
+        """Grace window after a restart for agents to re-report surviving
+        actor workers; whatever never shows up is re-created (detached, or
+        owner re-registered) or declared DEAD (reference: GCS restart
+        reconciliation, gcs_actor_manager restart-on-node-report)."""
+        await asyncio.sleep(max(
+            2.0, CONFIG.heartbeat_interval_s * CONFIG.num_heartbeats_timeout))
+        for aid, ent in list(self.actors.items()):
+            if ent.state != "RECOVERING":
+                continue
+            owner_alive = ent.spec.owner_id in self.client_conns
+            if ent.spec.lifetime == "detached" or owner_alive:
+                ent.state = "PENDING"
+                self.pending.append(ent.spec)
+                logger.info("actor %s did not survive the controller "
+                            "restart; re-creating", aid[:8])
+            else:
+                from ray_tpu_torch._private.serialization import dumps_oob
+
+                ent.state = "DEAD"
+                self._emit_event(
+                    "actor_death",
+                    f"actor {aid[:12]} did not survive the controller "
+                    f"restart (worker and owner gone)", entity=(aid,))
+                h, bufs = dumps_oob({
+                    "type": "ActorDiedError",
+                    "message": f"actor {aid[:12]} did not survive the "
+                               f"controller restart (worker and owner gone)"
+                               + self._event_hint(aid)})
+                ent.death_cause = [h, *bufs]
+                if ent.name:
+                    # Free the name like every other death path does
+                    # (_bury_actor), or get_actor(name) resolves to a corpse.
+                    self.named_actors.pop((ent.namespace, ent.name), None)
+                self._mark_dirty()
+                self._publish("actor", {"actor_id": aid, "state": "DEAD"})
+            # Either way: wake get_actor_info callers parked on RECOVERING.
+            for fut in ent.waiters:
+                if not fut.done():
+                    fut.set_result(None)
+            ent.waiters.clear()
+        self._kick()
+
+    # ------------------------------------------------------- persistence
+    # Reference: src/ray/gcs/store_client/redis_store_client.h — GCS state
+    # survives restarts in Redis. Here: pickled snapshots (atomic replace)
+    # of the DURABLE domains: KV, named-actor registry + actor creation
+    # specs, and PG definitions. On restore, actors re-queue as creation
+    # specs and run again once nodes join (their in-memory state restarts —
+    # reference raylets outlive the GCS so theirs keep running; our agents
+    # share fate with the controller, so re-creation is the contract).
+
+    def _persist_path(self) -> str:
+        # controller_persist_dir may be any storage-plane URI (local path,
+        # local://, sim://) — snapshots ride the same pluggable backend as
+        # train/tune/workflow checkpoints (README "Checkpointing & storage").
+        from ray_tpu_torch import storage
+
+        return storage.join(CONFIG.controller_persist_dir,
+                            "controller_state.pkl")
+
+    def _mark_dirty(self):
+        self._persist_dirty = True
+
+    def _restore_state(self):
+        import pickle
+        import time as _time
+
+        from ray_tpu_torch import storage
+
+        path = self._persist_path()
+        # Read with a short transient-retry budget: a blipping REMOTE
+        # persist backend (sim://, future object stores) must not be
+        # mistaken for corruption — quarantining an intact snapshot would
+        # let the persist loop later overwrite it with empty state.
+        data = None
+        delay = 0.1
+        for attempt in range(4):
+            try:
+                if not storage.exists(path):
+                    return
+                data = storage.get_bytes(path)
+                break
+            except storage.StorageTransientError:
+                if attempt == 3:
+                    logger.exception(
+                        "controller: persist backend unreachable reading "
+                        "%s; starting fresh WITHOUT quarantining (the "
+                        "snapshot may be intact)", path)
+                    return
+                _time.sleep(delay)
+                delay *= 2
+        try:
+            snap = pickle.loads(data)
+        except Exception:
+            # A corrupt/truncated snapshot must not crash-loop the
+            # controller: quarantine the bad file (kept for forensics
+            # under a .corrupt suffix) and start fresh — re-persist will
+            # atomically write a good one.
+            logger.exception(
+                "controller: persisted state unreadable; quarantining %s "
+                "and starting fresh", path)
+            try:
+                storage.rename(path, path + ".corrupt")
+            except Exception:
+                logger.exception("controller: quarantine rename failed")
+            return
+        self.kv = snap.get("kv", {})
+        self.named_actors = snap.get("named_actors", {})
+        self._event_seq = max(self._event_seq,
+                              int(snap.get("events_seq") or 0))
+        if snap.get("session_id"):
+            # Adopt the previous incarnation's session: agents/workers that
+            # survived the restart registered their shm segments under it.
+            self.session_id = snap["session_id"]
+        for item in snap.get("actors", []):
+            aid, spec = item[0], item[1]
+            ent = _ActorEntry(spec)
+            ent.restarts_used = item[2] if len(item) > 2 else 0
+            # RECOVERING: the actor's worker may have SURVIVED the restart
+            # (agents outlive the controller). Wait for agents to re-report
+            # inventory; _reconcile_recovering re-creates whatever never
+            # shows up (reference: GCS restart reconciliation before any
+            # actor restart decisions).
+            ent.state = "RECOVERING"
+            self.actors[aid] = ent
+        for pid, pg in snap.get("pgs", {}).items():
+            self.pgs[pid] = {"state": "PENDING",
+                             "bundles_raw": pg["bundles_raw"],
+                             "strategy": pg["strategy"], "name": pg.get("name")}
+        logger.info(
+            "controller: restored %d kv entries, %d actors, %d pgs from %s",
+            len(self.kv), len(snap.get("actors", [])), len(self.pgs), path)
+
+    async def _persist_loop(self):
+        while True:
+            await asyncio.sleep(0.5)
+            if not self._persist_dirty:
+                continue
+            self._persist_dirty = False
+            snap = self._build_snapshot()  # consistent view, on the loop
+            try:
+                # The pickle+write happens OFF the event loop: a large KV
+                # must not stall heartbeats/scheduling for the write.
+                await asyncio.to_thread(self._dump_snapshot, snap)
+            except Exception:
+                self._persist_dirty = True  # acknowledged state must retry
+                logger.exception("controller: persist failed")
+
+    def _build_snapshot(self) -> dict:
+        return {
+            "session_id": self.session_id,
+            # names only for actors that are themselves persisted — a
+            # dangling name->id mapping would break name reuse after restore
+            "kv": dict(self.kv),
+            "named_actors": {
+                k: aid for k, aid in self.named_actors.items()
+                if (e := self.actors.get(aid)) is not None
+                and e.state != "DEAD"},
+            # ALL live actors (not just detached): agents outlive a
+            # controller restart, so a surviving worker re-binds its actor
+            # entry on re-registration; only actors whose workers really
+            # died get re-created (detached / owner-alive) or declared DEAD
+            # by the reconcile sweep.
+            "actors": [(aid, ent.spec, ent.restarts_used)
+                       for aid, ent in self.actors.items()
+                       if ent.state != "DEAD"],
+            "pgs": {pid: {"bundles_raw": pg["bundles_raw"],
+                          "strategy": pg["strategy"], "name": pg.get("name")}
+                    for pid, pg in self.pgs.items()},
+            # Event-plane seq watermark: restore resumes minting above it
+            # (belt; _restore_event_seq's segment scan is the braces for
+            # seqs minted after the last snapshot).
+            "events_seq": self._event_seq,
+        }
+
+    def _dump_snapshot(self, snap: dict):
+        import pickle
+
+        from ray_tpu_torch import storage
+
+        # Serializes the threaded persist-loop dump against stop()'s final
+        # synchronous flush: the LAST writer must be the newest snapshot.
+        # storage.put is atomic on every backend (tmp + rename on the
+        # local fs), preserving the old atomic-replace contract.
+        with self._persist_io_lock:
+            storage.put(self._persist_path(),
+                        pickle.dumps(snap, protocol=5))
+
+    def _write_snapshot(self):
+        self._dump_snapshot(self._build_snapshot())
+
+    async def stop(self):
+        self._stopping = True
+        if CONFIG.controller_persist_dir and self._persist_dirty:
+            try:
+                self._write_snapshot()  # acknowledged writes survive shutdown
+            except Exception:
+                logger.exception("controller: final persist failed")
+        # Final event flush: history already ingested must not lose its
+        # last sweep-tick's worth to the shutdown (durable = durable).
+        try:
+            d = self._event_dir()
+            if d is not None and self._evseg_buf:
+                tail_hi = self._evseg_buf[-1]["seq"]
+                if tail_hi > self._evseg_tail_written:
+                    self._persist_event_segments_sync(
+                        d, [], list(self._evseg_buf),
+                        max(1, int(CONFIG.events_keep_segments)), 0)
+                    self._evseg_tail_written = tail_hi
+        except Exception:
+            logger.debug("controller: final event flush failed",
+                         exc_info=True)
+        for nid, conn in list(self.node_conns.items()):
+            try:
+                await conn.push("shutdown")
+            except Exception:
+                pass
+        for t in self._tasks:
+            t.cancel()
+        await self.server.stop()
+
+    # ------------------------------------------------------------------ RPC
+    async def _on_request(self, conn: rpc.Connection, method: str, a: dict):
+        handler = getattr(self, f"_h_{method}", None)
+        if handler is None:
+            raise rpc.RpcError(f"controller: unknown method {method}")
+        # Controller self-telemetry: per-method handler latency histogram
+        # (README "Telemetry & profiling" — the direct input to the
+        # control-plane scale harness, ROADMAP item 3). Always on: two
+        # perf_counter reads + a bisect over 7 bounds per request, cheap
+        # against any handler body; exposed via /metrics and get_metrics.
+        t0 = time.perf_counter()
+        try:
+            return await handler(conn, a)
+        finally:
+            dt = time.perf_counter() - t0
+            st = self._rpc_stats.get(method)
+            if st is None:
+                st = self._rpc_stats[method] = [
+                    0, 0.0, [0] * (len(_RPC_BOUNDS) + 1)]
+            st[0] += 1
+            st[1] += dt
+            st[2][bisect.bisect_left(_RPC_BOUNDS, dt)] += 1
+
+    async def _on_push(self, conn: rpc.Connection, method: str, a: dict):
+        handler = getattr(self, f"_p_{method}", None)
+        if handler is None:
+            logger.warning("controller: unknown push %s", method)
+            return
+        await handler(conn, a)
+
+    def _on_conn_close(self, conn: rpc.Connection):
+        if self._stopping:
+            return
+        kind = conn.meta.get("kind")
+        if kind == "node":
+            nid = conn.meta["node_id"]
+            node = self.nodes.get(nid)
+            if node is None or conn.meta.get("incarnation") != node.incarnation:
+                # A previous incarnation's connection closing (the agent
+                # already re-registered on a fresh one): not a liveness
+                # event for the CURRENT life.
+                return
+            asyncio.ensure_future(self._node_suspect(nid, conn))
+        elif kind == "client":
+            wid = conn.meta.get("worker_id")
+            self.client_conns.pop(wid, None)
+            if conn.meta.get("log_sub") and not self._any_log_sub():
+                # Last subscriber left: stop agents shipping log lines.
+                asyncio.ensure_future(self._push_log_sub_state(False))
+            asyncio.ensure_future(self._reap_owner_leases(wid))
+            asyncio.ensure_future(
+                self._reap_owned_actors(wid, conn.meta.get("mode")))
+            asyncio.ensure_future(self._reap_borrows(wid))
+            asyncio.ensure_future(self._client_device_sweep(wid))
+
+    async def _client_device_sweep(self, wid: str):
+        """A client (driver or worker) connection closed: after a short
+        grace (the close may be a transient drop — reconnects re-register
+        on a fresh conn), device entries the process produced go LOST so
+        consumers get the fast sticky ObjectLostError instead of a connect
+        timeout per read. Worker processes are also covered by the agent's
+        worker_died report; this path is the only one that reaches DRIVER
+        producers."""
+        if not self._device_index.get(wid):
+            return
+        await asyncio.sleep(max(1.0, CONFIG.node_suspect_grace_s))
+        conn = self.client_conns.get(wid)
+        if conn is not None and not conn.closed:
+            return  # re-registered: the producer (and its pins) live on
+        await self._device_objects_lost(wid, "process disconnected")
+
+    async def _reconcile_reported_worker(self, nid: str, node: "NodeState", w: dict):
+        """One inventory entry from a re-registering agent (controller
+        restart FT). Actors whose workers survived re-bind in place —
+        running calls on their direct pipes never noticed the outage."""
+        aid = w.get("actor_id")
+        held = w.get("resources")
+        if aid:
+            ent = self.actors.get(aid)
+            rebindable = (
+                ent is not None
+                and (ent.state in ("RECOVERING", "PENDING")
+                     # RESTARTING re-binds only while the re-creation is
+                     # still QUEUED (cancellable); once it dispatched, a
+                     # second instance is already being built elsewhere.
+                     or (ent.state == "RESTARTING"
+                         and ent.spec in self.pending)))
+            if ent is not None and ent.state == "ALIVE" \
+                    and ent.worker_id == w["worker_id"]:
+                # Already bound to exactly this worker (raced reconcile
+                # paths): refresh the address and make sure the (possibly
+                # fresh) NodeState carries the charge.
+                ent.node_id = nid
+                ent.address = tuple(w["address"])
+                if held and not ent.resources_held:
+                    node.available.subtract(ResourceSet(_raw=held))
+                    ent.resources_held = True
+                return
+            if ent is None:
+                # Unknown actor (e.g. restart without persistence): not
+                # provably stale — leave the worker alone like before.
+                return
+            if not rebindable:
+                # Split-brain zombie: the actor is DEAD, already
+                # restarted/rebound elsewhere, or its re-creation already
+                # dispatched — and now an old instance's worker resurfaces
+                # on a returning node, still serving its pipes. Exactly one
+                # instance may live: reap the resurfaced one.
+                await self._reap_stale_worker(nid, w["worker_id"], aid,
+                                              "resurfaced after its restart")
+                return
+            try:
+                self.pending.remove(ent.spec)  # un-queue a re-creation
+            except ValueError:
+                pass
+            ent.state = "ALIVE"
+            ent.node_id = nid
+            ent.worker_id = w["worker_id"]
+            ent.address = tuple(w["address"])
+            self._actor_host_workers.add(w["worker_id"])
+            if held and not ent.resources_held:
+                node.available.subtract(ResourceSet(_raw=held))
+                ent.resources_held = True
+            for fut in ent.waiters:
+                if not fut.done():
+                    fut.set_result(None)
+            ent.waiters.clear()
+            self._publish("actor", {"actor_id": aid, "state": "ALIVE"})
+            logger.info("actor %s re-bound to surviving worker %s",
+                        aid[:8], w["worker_id"][:8])
+            self._emit_event(
+                "actor_ready",
+                f"actor {aid[:12]} re-bound to surviving worker "
+                f"{w['worker_id'][:12]}",
+                entity=(aid, w["worker_id"]), node_id=nid,
+                attrs={"rebound": True})
+        elif w.get("state") == "busy" and held:
+            # A controller-dispatched task still running; charge its
+            # resources so the scheduler doesn't oversubscribe the node,
+            # and remember the charge so its task_done (or the node's
+            # death) releases it — this controller never dispatched the
+            # task, so the normal release path can't.
+            node.available.subtract(ResourceSet(_raw=held))
+            if w.get("task_id"):
+                self._reconciled_busy[w["task_id"]] = (nid, dict(held))
+
+    async def _reap_stale_worker(self, nid: str, wid: str, aid: str,
+                                 why: str):
+        """Kill a resurfaced actor instance whose entry no longer points at
+        it (exactly one instance may live). ONE implementation for both
+        reconcile paths so the zombie-reap protocol cannot drift."""
+        nconn = self.node_conns.get(nid)
+        if nconn is None or nconn.closed:
+            return
+        logger.warning(
+            "actor %s: stale instance on returning node %s (%s); killing "
+            "the zombie worker %s", aid[:8], nid[:8], why, wid[:8])
+        try:
+            await nconn.push("kill_worker", worker_id=wid)
+        except Exception:
+            pass
+
+    async def _p_reassert_leases(self, conn, a):
+        """An owner re-declares leases it held across a controller restart
+        (the lease ids live with the owner; the agent's inventory only
+        shows 'leased' slots). A lease whose node hasn't re-registered YET
+        is parked and retried on node registration — owners and agents
+        reconnect independently, so in ~half of restarts the one-shot
+        reassert beats the agent; dropping it would oversubscribe the node
+        and leak the leased worker."""
+        owner = a.get("owner_id")
+        for ent in a.get("leases") or ():
+            if not self._apply_reassert(owner, ent):
+                self._parked_reasserts.append(
+                    (owner, ent, time.monotonic() + 30.0))
+        logger.info("owner %s reasserted %d leases",
+                    (owner or "?")[:8], len(a.get("leases") or ()))
+
+    def _apply_reassert(self, owner, ent) -> bool:
+        """Returns False if the lease's node is not (yet) registered."""
+        lid = ent["lease_id"]
+        if lid in self.leases:
+            return True
+        nid = ent.get("node_id")
+        node = self.nodes.get(nid)
+        if node is None or not node.alive:
+            return False
+        inc = ent.get("incarnation")
+        if inc is not None and inc != node.incarnation:
+            # Fenced: the lease was granted against a previous life of this
+            # node — its worker died with that life, so the lease is dead on
+            # arrival (charging its resources would oversubscribe the fresh
+            # life). Consumed, not parked; the owner fails its in-flight
+            # specs over on the invalidation.
+            self.stale_incarnation_rejections += 1
+            logger.warning(
+                "rejected stale-incarnation lease %s for node %s "
+                "(incarnation %s, current %s)", lid[:8], nid[:8], inc,
+                node.incarnation)
+            self._emit_event(
+                "incarnation_fenced",
+                f"rejected lease {lid[:8]} reasserted against node "
+                f"{nid[:8]}'s previous life (incarnation {inc}, current "
+                f"{node.incarnation})",
+                entity=(lid, nid, owner), node_id=nid,
+                attrs={"stale": inc, "current": node.incarnation})
+            oconn = self.client_conns.get(owner)
+            if oconn is not None and not oconn.closed:
+                try:
+                    oconn.push_threadsafe("lease_invalid", lease_id=lid,
+                                          cause="stale node incarnation")
+                except Exception:
+                    pass
+            return True
+        demand = ResourceSet(_raw=ent["resources"])
+        try:
+            self._consume_for(nid, ent["strategy"], demand)
+        except Exception:
+            node.available.subtract(demand)
+        self.leases[lid] = {
+            "owner": owner,
+            "node_id": nid,
+            "worker_id": ent["worker_id"],
+            "address": tuple(ent["address"]) if ent.get("address") else None,
+            "demand": demand.raw(),
+            "strategy": ent["strategy"],
+            "incarnation": node.incarnation,
+        }
+        return True
+
+    def _retry_parked_reasserts(self):
+        now = time.monotonic()
+        self._parked_reasserts = [
+            (owner, ent, exp) for owner, ent, exp in self._parked_reasserts
+            if exp > now and not self._apply_reassert(owner, ent)]
+
+    async def _reap_borrows(self, wid: str):
+        """A dead borrower can never drop its borrows: remove it from every
+        borrower set; the dying-object sweep frees entries it was pinning
+        once their grace TTL passes."""
+        if not wid:
+            return
+        for ent in self.objects.values():
+            ent.borrowers.discard(wid)
+
+    # ------------------------------------------------------- registration
+    async def _h_register(self, conn, a):
+        incarnation = None
+        if a["kind"] == "node":
+            nid = a["node_id"]
+            # Mint the next incarnation for this node_id. Every registration
+            # is a new life; messages and conn-close events carrying an
+            # older incarnation are fenced from then on.
+            incarnation = self.node_incarnations.get(nid, 0) + 1
+            self.node_incarnations[nid] = incarnation
+            conn.label = conn.label or "node"
+            existing = self.nodes.get(nid)
+            if existing is not None and existing.liveness in ("ALIVE", "SUSPECT"):
+                # The agent reconnected within the grace window (or raced
+                # its own connection loss): reconcile IN PLACE. The
+                # NodeState keeps its resource accounting; the inventory
+                # diff below releases whatever died during the blip.
+                node = existing
+                was = node.liveness
+                node.liveness = "ALIVE"
+                node.address = tuple(a["address"])
+                if a.get("labels") is not None:  # {} clears, like fresh path
+                    node.labels = a["labels"]
+                node.incarnation = incarnation
+                node.last_beat = time.monotonic()
+                # The agent may have restarted with a DIFFERENT resource
+                # config: apply the capacity delta while preserving the
+                # frozen in-use accounting (available can go negative on a
+                # shrink; fits() then refuses placements until work drains).
+                new_total = ResourceSet(_raw=a["resources"])
+                if new_total.raw() != node.total.raw():
+                    node.available.add(new_total)
+                    node.available.subtract(node.total)
+                    node.total = new_total
+                self.node_conns[nid] = conn
+                conn.meta.update(kind="node", node_id=nid,
+                                 incarnation=incarnation)
+                await self._reconcile_returned_node(
+                    nid, node, a.get("workers") or ())
+                logger.info("node %s re-registered (was %s) as incarnation "
+                            "%d; reconciled in place", nid[:8], was,
+                            incarnation)
+                self._emit_event(
+                    "node_reconciled",
+                    f"node {nid[:8]} re-registered (was {was}) and "
+                    f"reconciled in place",
+                    entity=(nid,), node_id=nid,
+                    attrs={"incarnation": incarnation, "was": was})
+            else:
+                node = NodeState(nid, tuple(a["address"]),
+                                 ResourceSet(_raw=a["resources"]), a.get("labels"))
+                node.incarnation = incarnation
+                node.last_beat = time.monotonic()
+                self.nodes[nid] = node
+                self.node_conns[nid] = conn
+                conn.meta.update(kind="node", node_id=nid,
+                                 incarnation=incarnation)
+                # Re-registration after a controller restart (or a return
+                # after DEAD): the agent reports its live worker inventory
+                # so this controller can rebuild accounting — bind
+                # recovering actors to their still-running workers; charge
+                # dedicated/busy slots' resources. Leased slots are charged
+                # by their OWNER's reassert_leases (the owner knows the
+                # lease ids; the agent doesn't).
+                for w in a.get("workers") or ():
+                    await self._reconcile_reported_worker(nid, node, w)
+                logger.info("node %s registered with %s (incarnation %d)",
+                            nid[:8], node.total.to_dict(), incarnation)
+                self._emit_event(
+                    "node_register",
+                    f"node {nid[:8]} registered with {node.total.to_dict()}",
+                    entity=(nid,), node_id=nid,
+                    attrs={"incarnation": incarnation})
+            if self._parked_reasserts:
+                self._retry_parked_reasserts()
+            self._retry_pending_pgs()
+            self._kick()
+            self._publish("node", {"node_id": nid, "alive": True,
+                                   "liveness": "ALIVE",
+                                   "resources": node.total.to_dict()})
+        else:
+            wid = a["worker_id"]
+            self.client_conns[wid] = conn
+            conn.label = conn.label or "client"
+            conn.meta.update(kind="client", worker_id=wid,
+                             mode=a.get("mode"),
+                             address=tuple(a["address"]) if a.get("address") else None)
+        return {"session_id": self.session_id, "config": CONFIG.snapshot(),
+                "log_sub": self._any_log_sub(), "incarnation": incarnation}
+
+    def _fenced_node(self, conn, a) -> Optional[NodeState]:
+        """Resolve the node a message is about, REJECTING messages from a
+        previous incarnation (reference: raylet registration epochs; SWIM
+        incarnation numbers). The incarnation comes from the payload echo
+        when present, else from the connection's registration meta — so a
+        zombie agent that never re-registered is fenced by its old conn."""
+        nid = a.get("node_id") or (conn.meta.get("node_id")
+                                   if conn is not None else None)
+        if nid is None:
+            return None
+        node = self.nodes.get(nid)
+        if node is None:
+            return None
+        inc = a.get("incarnation")
+        if inc is None and conn is not None:
+            inc = conn.meta.get("incarnation")
+        if inc is not None and inc != node.incarnation:
+            self.stale_incarnation_rejections += 1
+            logger.warning(
+                "rejected stale-incarnation message for node %s "
+                "(incarnation %s, current %s)", nid[:8], inc,
+                node.incarnation)
+            self._emit_event(
+                "incarnation_fenced",
+                f"rejected a message from node {nid[:8]}'s previous life "
+                f"(incarnation {inc}, current {node.incarnation})",
+                entity=(nid,), node_id=nid,
+                attrs={"stale": inc, "current": node.incarnation})
+            return None
+        return node
+
+    async def _p_heartbeat(self, conn, a):
+        node = self._fenced_node(conn, a)
+        if node is not None and node.liveness != "DEAD":
+            node.last_beat = time.monotonic()
+            if "shm_used" in a:
+                node.shm_used = a["shm_used"]
+            beacons = a.get("beacons")
+            if beacons:
+                self._task_beacons[a["node_id"]] = (beacons, time.monotonic())
+            else:
+                self._task_beacons.pop(a.get("node_id"), None)
+            telem = a.get("telemetry")
+            if telem:
+                self._ingest_telemetry(a["node_id"], telem)
+            evs = a.get("events")
+            if evs:
+                self._ingest_events(evs, default_node=a["node_id"])
+
+    # ---------------------------------------------------------- scheduling
+    def _kick(self):
+        self._sched_wakeup.set()
+        if self._lease_waiter_futs:
+            self._kick_leases()
+
+    def _kick_leases(self):
+        """Wake parked lease requests (capacity may have freed)."""
+        waiters, self._lease_waiter_futs = self._lease_waiter_futs, []
+        for fut in waiters:
+            if not fut.done():
+                fut.set_result(None)
+
+    async def _schedule_loop(self):
+        while True:
+            await self._sched_wakeup.wait()
+            self._sched_wakeup.clear()
+            await self._schedule_once()
+
+    async def _schedule_once(self):
+        # Single pass over the queue; tasks that can't be placed stay queued.
+        # Placements are grouped per node and dispatched as ONE batched RPC
+        # per node per pass (the agent fans out worker acquisition
+        # internally), run concurrently (ensure_future) so one node's slow
+        # worker acquisition cannot stall cluster-wide placement (the agent
+        # may wait up to worker_register_timeout_s for a free worker).
+        still_pending: deque[TaskSpec] = deque()
+        # Demand signatures that already failed to place in THIS pass: later
+        # FIFO tasks with the same shape can't place either — skip their
+        # pick_node scan (reference caches by SchedulingClass; keeps a burst
+        # of N queued tasks from costing O(N) scans per completion).
+        failed_sigs: set = set()
+        by_node: dict[str, list] = {}  # nid -> [(spec, demand)]
+        while self.pending:
+            spec = self.pending.popleft()
+            if self._consume_cancel(spec.task_id) is not None:
+                await self._finish_cancelled(spec)
+                continue
+            sig = (tuple(sorted(spec.resources.items())), spec.strategy.kind,
+                   spec.strategy.node_id, spec.strategy.soft,
+                   spec.strategy.pg_id, spec.strategy.pg_bundle_index)
+            if sig in failed_sigs:
+                still_pending.append(spec)
+                continue
+            demand = ResourceSet(_raw=spec.resources)
+            nid = pick_node(demand, spec.strategy, self.nodes, self.pg_bundles,
+                            preferred=self._locality_nodes(spec))
+            if nid is None:
+                failed_sigs.add(sig)
+                still_pending.append(spec)
+                continue
+            self._consume(nid, spec, demand)
+            by_node.setdefault(nid, []).append((spec, demand))
+        self.pending.extend(still_pending)
+        for nid, items in by_node.items():
+            asyncio.ensure_future(self._dispatch_batch_bg(nid, items))
+        if still_pending:
+            self._maybe_push_need_resources()
+
+    def _locality_nodes(self, spec: TaskSpec) -> dict:
+        """node_id -> bytes of this spec's ref arguments already resident
+        there (feeds pick_node's locality preference; reference
+        dependency_manager.h's locality-aware dispatch)."""
+        out: dict[str, int] = {}
+        addr_to_node = host_to_node = None
+        for oid in spec.ref_arg_oids():
+            ent = self.objects.get(oid)
+            if ent is None or not ent.holders or not ent.size:
+                continue
+            if addr_to_node is None:
+                addr_to_node = {}
+                host_counts: dict[str, list] = {}
+                for nid, n in self.nodes.items():
+                    if not n.alive:
+                        continue
+                    addr_to_node[tuple(n.address)] = nid
+                    host_counts.setdefault(n.address[0], []).append(nid)
+                # Driver puts advertise the driver's own server address
+                # (host + ephemeral port), not a node agent's: fall back to
+                # host matching when exactly one node lives on that host.
+                host_to_node = {h: nids[0] for h, nids in host_counts.items()
+                                if len(nids) == 1}
+            for h in ent.holders:
+                nid = addr_to_node.get(tuple(h)) or host_to_node.get(h[0])
+                if nid is not None:
+                    out[nid] = out.get(nid, 0) + ent.size
+        return out
+
+    async def _dispatch_batch_bg(self, nid: str, items: list):
+        """One `dispatch_batch` RPC carries every spec this scheduling pass
+        placed on `nid` (O(1) frames per hop for an async burst of N
+        tasks). The agent acquires workers for all specs concurrently and
+        reports EACH spec eagerly via a `dispatched` push the moment its
+        acquisition resolves — a fast acquisition never waits for a cold
+        worker spawn sharing its batch. Pushes ride the same ordered
+        connection as the call reply, so every push lands before the reply:
+        the reply (or its failure) is purely the barrier after which
+        still-pending specs are provably unreported and safe to requeue."""
+        conn = self.node_conns.get(nid)
+        if conn is None or conn.closed:
+            for spec, demand in items:
+                self._release(nid, spec, demand)
+                self.pending.append(spec)
+            self._kick()
+            return
+        for spec, demand in items:
+            self._pending_dispatch[spec.task_id] = (spec, demand, nid)
+        try:
+            await conn.call("dispatch_batch", specs=[s for s, _ in items])
+        except Exception:
+            # Transport failure (RpcError, reset, broken pipe): leftovers
+            # are requeued below; a raw OSError must not kill this
+            # fire-and-forget task and leak capacity.
+            pass
+        requeued = False
+        for spec, demand in items:
+            if self._pending_dispatch.pop(spec.task_id, None) is not None:
+                self._release(nid, spec, demand)
+                self.pending.append(spec)
+                requeued = True
+        if requeued:
+            self._kick()
+
+    async def _p_dispatched(self, conn, a):
+        """Per-spec eager dispatch report from an agent (see
+        _dispatch_batch_bg). Exceptions here are isolated per spec — one
+        bad early_done replay must not strand its batch siblings."""
+        ent = self._pending_dispatch.pop(a["task_id"], None)
+        if ent is None:
+            return  # batch barrier already failed this spec over; or dup
+        spec, demand, nid = ent
+        if a.get("dup"):
+            # The agent already executed this task id on its direct (leased)
+            # path — the spec reaching it again is an owner failover racing
+            # an orphaned completion. At-most-once: don't run it twice; the
+            # dedup record carries the first execution's results, so resolve
+            # them exactly like a task_done (notifies the owner's refs).
+            self._release(nid, spec, demand)
+            try:
+                await self._p_task_done(None, {
+                    "task_id": spec.task_id, "attempt": spec.attempt,
+                    "results": a.get("results") or [],
+                    "error": a.get("error"),
+                    "retryable": a.get("retryable", False), "spec": spec})
+            except Exception:
+                logger.exception("dedup completion replay failed for task %s",
+                                 a["task_id"][:12])
+            self._kick()
+            return
+        if not a.get("ok"):
+            self._release(nid, spec, demand)
+            self.pending.append(spec)
+            self._kick()
+            return
+        try:
+            await self._dispatched(nid, spec, a["worker_id"],
+                                   self.node_conns.get(nid))
+        except Exception:
+            logger.exception("post-dispatch bookkeeping failed for task %s",
+                             a["task_id"][:12])
+
+    async def _dispatched(self, nid: str, spec: TaskSpec, worker_id: str,
+                          nconn) -> None:
+        """Post-dispatch bookkeeping for one successfully placed spec."""
+        self.dispatched[spec.task_id] = {
+            "spec": spec, "node_id": nid, "worker_id": worker_id}
+        if spec.kind == ACTOR_CREATE:
+            ent = self.actors.get(spec.actor_id)
+            if ent is None or ent.state == "DEAD":
+                # kill() raced the creation dispatch: reap the fresh worker
+                # and give the resources back instead of resurrecting. A
+                # task_done that beat the dispatch report is moot now —
+                # drop its parked replay instead of leaving it to the TTL.
+                self.dispatched.pop(spec.task_id, None)
+                self.early_done.pop(spec.task_id, None)
+                self._release(nid, spec, ResourceSet(_raw=spec.resources))
+                try:
+                    await nconn.push("kill_worker", worker_id=worker_id)
+                except Exception:
+                    pass
+                return
+            ent.node_id = nid
+            ent.worker_id = worker_id
+            ent.resources_held = True
+        early = self.early_done.pop(spec.task_id, None)
+        if early is not None:
+            payload = dict(early[0])
+            if payload.get("attempt", 0) != spec.attempt:
+                return  # stale completion of a previous attempt: discard
+            payload["_replayed"] = True
+            await self._p_task_done(None, payload)
+        # A cancel may have landed while the dispatch RPC was in flight
+        # (worker still starting): deliver it now that we know the worker.
+        if spec.task_id in self.cancelled:
+            spec.max_retries = 0  # a cancelled task must never retry
+            info = self.dispatched.get(spec.task_id)
+            if info is not None and nconn is not None and not nconn.closed:
+                force, _ = self.cancelled.pop(spec.task_id)
+                try:
+                    await nconn.push("cancel_task", worker_id=info["worker_id"],
+                                     task_id=spec.task_id, force=force)
+                except Exception:
+                    pass
+            # else: leave the marker parked — if the node dies the requeue
+            # path consumes it in _schedule_once/_p_task_failed.
+
+    def _consume(self, nid: str, spec: TaskSpec, demand: ResourceSet):
+        if spec.strategy.kind == "PLACEMENT_GROUP":
+            # PG resources were reserved from the node at PG creation.
+            for (pgid, idx), b in self.pg_bundles.items():
+                if pgid == spec.strategy.pg_id and b["node"] == nid and b["available"].fits(demand):
+                    if spec.strategy.pg_bundle_index in (-1, idx):
+                        b["available"].subtract(demand)
+                        spec.strategy.pg_bundle_index = idx  # pin for release
+                        return
+        self.nodes[nid].available.subtract(demand)
+
+    def _release(self, nid: str, spec: TaskSpec, demand: ResourceSet):
+        if spec.strategy.kind == "PLACEMENT_GROUP":
+            b = self.pg_bundles.get((spec.strategy.pg_id, spec.strategy.pg_bundle_index))
+            if b is not None:
+                b["available"].add(demand)
+                return
+        node = self.nodes.get(nid)
+        if node is not None:
+            node.available.add(demand)
+
+    @staticmethod
+    def _ingest_spec(conn, spec: TaskSpec) -> TaskSpec:
+        """Over the in-process transport the submitter's LIVE spec arrives;
+        the controller mutates accepted specs (attempt, max_retries,
+        pg_bundle_index), so take a private copy. RPC connections already
+        deliver fresh unpickled copies."""
+        if isinstance(conn, rpc.LocalConnection):
+            return spec.clone()
+        return spec
+
+    async def _h_submit_task(self, conn, a):
+        spec = self._ingest_spec(conn, a["spec"])
+        for oid in spec.return_object_ids():
+            ent = self.objects.setdefault(oid, _ObjectEntry())
+            ent.owner = spec.owner_id
+        self.pending.append(spec)
+        self._kick()
+        return {"queued": True}
+
+    async def _p_submit_task(self, conn, a):
+        """Push variant: submitters don't need the queue ack (hot path)."""
+        await self._h_submit_task(conn, a)
+
+    async def _h_submit_tasks(self, conn, a):
+        """Vectorized submit: a burst of N same-tick submissions rides one
+        frame (reference NormalTaskSubmitter batches raylet RPCs). Callable
+        (the ack tells the submitter the batch is durably queued — with
+        coalesced writes a one-way push could be lost with a dying
+        connection AFTER the submitter's flush succeeded) or push-able."""
+        for spec in a["specs"]:
+            spec = self._ingest_spec(conn, spec)
+            for oid in spec.return_object_ids():
+                ent = self.objects.setdefault(oid, _ObjectEntry())
+                ent.owner = spec.owner_id
+            self.pending.append(spec)
+        self._kick()
+        return {"queued": True}
+
+    # Push forms (one-way; wire-compat alias for the pre-coalescing name).
+    _p_submit_tasks = _h_submit_tasks
+    _p_submit_batch = _h_submit_tasks
+
+    # ------------------------------------------------------ task completion
+    async def _p_task_done(self, conn, a):
+        task_id = a["task_id"]
+        self.cancelled.pop(task_id, None)  # completed: stale cancel marker must
+        # not kill a later lineage reconstruction of the same task_id
+        rec = self._reconciled_busy.pop(task_id, None)
+        if rec is not None:
+            # A pre-restart in-flight task finishing: release the capacity
+            # the agent's inventory report charged (this controller never
+            # dispatched it, so the normal release path can't fire).
+            nid, raw = rec
+            node = self.nodes.get(nid)
+            if node is not None and node.liveness != "DEAD":
+                node.available.add(ResourceSet(_raw=raw))
+                self._kick()
+        info = self.dispatched.pop(task_id, None)
+        if info is None and a.get("spec") is None and not a.get("_replayed"):
+            # Completion raced ahead of the dispatch reply: park it for
+            # _dispatched to replay (with a TTL so duplicates can't leak).
+            now = time.monotonic()
+            for tid, (_, exp) in list(self.early_done.items()):
+                if exp < now:
+                    self.early_done.pop(tid, None)
+            self.early_done[task_id] = (a, now + 60.0)
+            return
+        spec: Optional[TaskSpec] = info["spec"] if info else a.get("spec")
+        if info is not None and spec.kind != ACTOR_CREATE:
+            self._release(info["node_id"], spec, ResourceSet(_raw=spec.resources))
+            self._kick()
+
+        if spec is not None and spec.kind == ACTOR_CREATE:
+            await self._actor_started(spec, a, info)
+            return
+
+        error = a.get("error")
+        # Application-level retry: the worker flags user exceptions as
+        # retryable when retry_exceptions allows (reference task_manager.cc
+        # retries on both system and, when opted-in, application errors).
+        if (error is not None and a.get("retryable") and spec is not None
+                and spec.attempt < spec.max_retries):
+            await self._retry_or_fail(spec, "user exception (retry_exceptions)",
+                                      final_error=error)
+            return
+        for oid, inline, size, holder in a.get("results", []):
+            if self._freed(oid):
+                await self._purge_late(oid, holder)
+                continue
+            ent = self.objects.setdefault(oid, _ObjectEntry())
+            if ent.state == "ready" and ent.error is None and error is not None:
+                # Late/duplicate error report (e.g. a cancel SIGINT landing
+                # just after completion): the first good value wins.
+                self._notify_owner(ent, oid)
+                continue
+            if error is not None:
+                ent.error = error
+            ent.state = "ready"
+            ent.inline = inline
+            ent.size = size
+            if holder is not None:
+                ent.holders.add(tuple(holder))
+            ent.wake()
+            self._notify_owner(ent, oid)
+
+    def _notify_owner(self, ent: _ObjectEntry, oid: str):
+        """Queue an object-ready notification for the owner. Notifications
+        are flushed as ONE `objects_ready` frame per owner per event-loop
+        burst (a batch of task completions costs the owner one frame, not
+        one per oid)."""
+        owner = ent.owner
+        owner_conn = self.client_conns.get(owner)
+        if owner_conn is None or owner_conn.closed:
+            return
+        item = {"oid": oid, "inline": ent.inline,
+                "holders": list(ent.holders), "error": ent.error}
+        buf = self._ready_bufs.get(owner)
+        if buf is not None:
+            buf.append(item)  # a flusher for this owner is already running
+            return
+        self._ready_bufs[owner] = [item]
+        asyncio.ensure_future(self._a_flush_ready(owner))
+
+    async def _a_flush_ready(self, owner: str):
+        while True:
+            items = self._ready_bufs.get(owner)
+            if not items:
+                self._ready_bufs.pop(owner, None)
+                return
+            self._ready_bufs[owner] = []
+            conn = self.client_conns.get(owner)
+            if conn is None or conn.closed:
+                self._ready_bufs.pop(owner, None)
+                return
+            try:
+                await conn.push("objects_ready", items=items)
+            except Exception:
+                self._ready_bufs.pop(owner, None)
+                return
+
+    async def _p_task_failed(self, conn, a):
+        """Worker/system failure (not a user exception): retry or fail."""
+        task_id = a["task_id"]
+        info = self.dispatched.pop(task_id, None)
+        if info is None:
+            return
+        spec: TaskSpec = info["spec"]
+        if spec.kind != ACTOR_CREATE:
+            self._release(info["node_id"], spec, ResourceSet(_raw=spec.resources))
+        if self._consume_cancel(task_id) is not None and spec.kind != ACTOR_CREATE:
+            await self._finish_cancelled(spec)  # cancelled task must not retry
+            self._kick()
+            return
+        await self._retry_or_fail(spec, a.get("reason", "worker died"))
+        self._kick()
+
+    async def _retry_or_fail(self, spec: TaskSpec, reason: str, final_error=None,
+                             error_type: str | None = None):
+        if spec.kind == ACTOR_CREATE:
+            await self._maybe_restart_actor(spec.actor_id, reason)
+            return
+        if spec.attempt < spec.max_retries:
+            spec.attempt += 1
+            logger.info("retrying task %s (attempt %d): %s", spec.name, spec.attempt, reason)
+            await asyncio.sleep(CONFIG.task_retry_delay_s)
+            self.pending.append(spec)
+            self._kick()
+            return
+        if final_error is None:
+            from ray_tpu_torch._private.serialization import dumps_oob
+
+            err_header, err_bufs = dumps_oob(
+                {"type": error_type or "WorkerCrashedError", "message": reason})
+            final_error = [err_header, *err_bufs]
+        for oid in spec.return_object_ids():
+            if self._freed(oid):
+                continue  # owner dropped the ref; don't resurrect the entry
+            ent = self.objects.setdefault(oid, _ObjectEntry())
+            ent.state = "ready"
+            ent.error = final_error
+            ent.wake()
+            self._notify_owner(ent, oid)
+
+    async def _finish_cancelled(self, spec: TaskSpec):
+        from ray_tpu_torch._private.serialization import dumps_oob
+
+        h, b = dumps_oob({"type": "TaskCancelledError", "message": f"task {spec.name} cancelled"})
+        for oid in spec.return_object_ids():
+            if self._freed(oid):
+                continue  # owner dropped the ref; don't resurrect the entry
+            ent = self.objects.setdefault(oid, _ObjectEntry())
+            ent.state = "ready"
+            ent.error = [h, *b]
+            ent.wake()
+            self._notify_owner(ent, oid)
+
+    async def _h_cancel_task(self, conn, a):
+        """Cancel a queued or running task (reference core_worker.proto:492
+        CancelTask; force_kill semantics from python/ray/_private/worker.py
+        cancel). Queued: removed before dispatch. Running: the node agent
+        interrupts (KeyboardInterrupt) or kills (force) the worker."""
+        task_id = a["task_id"]
+        force = a.get("force", False)
+        for spec in list(self.pending):
+            if spec.task_id == task_id:
+                self.pending.remove(spec)
+                await self._finish_cancelled(spec)
+                return {"status": "cancelled_pending"}
+        info = self.dispatched.get(task_id)
+        if info is not None:
+            info["spec"].max_retries = 0  # a cancelled task must not retry
+            nconn = self.node_conns.get(info["node_id"])
+            if nconn is not None and not nconn.closed:
+                try:
+                    await nconn.push("cancel_task", worker_id=info["worker_id"],
+                                     task_id=task_id, force=force)
+                except Exception:
+                    pass
+            return {"status": "cancelling_running"}
+        # Not queued and not dispatched: either mid-dispatch or not yet
+        # submitted — park the marker; the schedule/dispatch paths consume it.
+        now = time.monotonic()
+        for tid, (_, exp) in list(self.cancelled.items()):
+            if exp < now:
+                self.cancelled.pop(tid, None)
+        self.cancelled[task_id] = (force, now + 60.0)
+        return {"status": "marked"}
+
+    def _consume_cancel(self, task_id: str):
+        """Pop a live cancel marker; returns force flag or None."""
+        ent = self.cancelled.pop(task_id, None)
+        if ent is None:
+            return None
+        force, exp = ent
+        if exp < time.monotonic():
+            return None
+        return force
+
+    # ------------------------------------------------------------- leases
+    async def _h_lease_workers(self, conn, a):
+        """Grant up to `count` leased workers matching a resource demand +
+        strategy. Each lease holds the demand's resources like a running
+        task; the holder streams tasks to the worker directly and returns
+        the lease when idle (reference RequestWorkerLease,
+        node_manager.proto:404, with the submitter-side lease caching of
+        normal_task_submitter.cc)."""
+        owner = conn.meta.get("worker_id") or a.get("owner_id")
+        demand = ResourceSet(_raw=a["resources"])
+        strategy = a["strategy"]
+        count = max(1, min(int(a.get("count", 1)), max(1, CONFIG.lease_batch)))
+        # Fair share under contention: while other requesters are parked
+        # waiting for capacity, one owner must not re-grab the whole pool.
+        others = max(0, self._lease_waiters)
+        have = int(a.get("have", 0))
+        if have > 0 and others > 0:
+            # Starving requesters (have=0, parked below) get first claim on
+            # freed capacity: a scale-up probe from an owner that already
+            # holds leases must not race them for it.
+            return {"leases": []}
+        granted = await self._grant_leases(
+            owner, demand, strategy, max(1, count // (1 + others)))
+        if not granted and have > 0:
+            # The requester already holds live leases for this class: this
+            # is a scale-UP probe, not starvation. Answer "no" immediately —
+            # parking it would fire need_resources and steal momentarily-
+            # idle leases from owners who are about to reuse them (the
+            # redistribution thrash behind the multi-client collapse).
+            return {"leases": granted}
+        if not granted:
+            # Park the request briefly instead of replying empty: ask lease
+            # holders for idle returns and retry when capacity frees —
+            # client-side polling at REQUEST_RETRY_S granularity convoys
+            # concurrent submitters on the idle-return timer (observed 15x
+            # multi-client loss). Parked requests are woken by _kick_leases
+            # the moment a lease returns; the short wait cap only covers
+            # lost wakeups.
+            deadline = time.monotonic() + 0.4
+            self._lease_waiters += 1
+            try:
+                while not granted:
+                    rem = deadline - time.monotonic()
+                    if rem <= 0:
+                        break
+                    self._maybe_push_need_resources()
+                    fut = asyncio.get_running_loop().create_future()
+                    self._lease_waiter_futs.append(fut)
+                    try:
+                        await asyncio.wait_for(fut, min(rem, 0.05))
+                    except asyncio.TimeoutError:
+                        pass
+                    granted = await self._grant_leases(
+                        owner, demand, strategy,
+                        max(1, count // max(1, self._lease_waiters)))
+            finally:
+                self._lease_waiters -= 1
+        return {"leases": granted}
+
+    async def _grant_leases(self, owner, demand, strategy, count) -> list:
+        import copy
+        import uuid
+
+        # Placement pass first: pick/consume up to `count` slots (placement
+        # authority stays entirely with the scheduler), THEN fill each
+        # node's quota — warm pool hits cost no agent round trip, misses
+        # ride ONE bulk `lease_workers` call per node.
+        by_node: dict[str, list] = {}
+        for _ in range(max(1, count)):
+            nid = pick_node(demand, strategy, self.nodes, self.pg_bundles)
+            if nid is None:
+                break
+            nconn = self.node_conns.get(nid)
+            if nconn is None or nconn.closed:
+                break
+            # Consume against a per-lease CLONE: _consume_for pins a
+            # pg_bundle_index=-1 wildcard to the bundle it consumed, and that
+            # pin must not leak into later iterations of this grant loop (or
+            # every lease of a multi-count grant collapses onto one bundle's
+            # capacity), into the lease entries, or — on the in-process
+            # LocalConnection path — into the caller's live strategy object.
+            lease_strategy = copy.copy(strategy)
+            self._consume_for(nid, lease_strategy, demand)
+            by_node.setdefault(nid, []).append(lease_strategy)
+
+        granted = []
+        demand_raw = demand.raw()
+
+        def _mint(nid, lease_strategy, worker_id, address, incarnation):
+            self.lease_grants += 1
+            lease_id = uuid.uuid4().hex[:16]
+            addr = tuple(address) if address else None
+            self.leases[lease_id] = {
+                "owner": owner,
+                "node_id": nid,
+                "worker_id": worker_id,
+                "address": addr,
+                "demand": demand_raw,
+                "strategy": lease_strategy,
+                "incarnation": incarnation,
+            }
+            granted.append({
+                "lease_id": lease_id,
+                "node_id": nid,
+                "worker_id": worker_id,
+                "address": addr,
+                "incarnation": incarnation,
+            })
+
+        for nid, strategies in by_node.items():
+            node = self.nodes[nid]
+            rest = []
+            for st in strategies:
+                pooled = self._pool_pop(nid, demand_raw)
+                if pooled is not None:
+                    self.lease_pool_hits += 1
+                    _mint(nid, st, pooled["worker_id"], pooled["address"],
+                          node.incarnation)
+                else:
+                    rest.append(st)
+            if not rest:
+                continue
+            nconn = self.node_conns.get(nid)
+            workers = []
+            if nconn is not None and not nconn.closed:
+                try:
+                    # Margin over the agent's own acquire timeout: if the
+                    # agent raises first we get a clean error reply; timing
+                    # out here first would strand slots in 'leased' with no
+                    # lease entry.
+                    rep = await nconn.call(
+                        "lease_workers", count=len(rest),
+                        resources=demand_raw,
+                        _timeout=CONFIG.worker_register_timeout_s + 5)
+                    workers = rep.get("workers") or []
+                except Exception:
+                    workers = []
+            # The node may have died/bounced during the agent call: minting
+            # a lease against the stale life would leak its accounting.
+            node = self.nodes.get(nid)
+            if node is None or not node.alive:
+                for st in rest:
+                    self._release_for(nid, st, demand)
+                continue
+            for st, w in zip(rest, workers):
+                _mint(nid, st, w["worker_id"], w["address"], node.incarnation)
+            for st in rest[len(workers):]:
+                self._release_for(nid, st, demand)
+        return granted
+
+    # -- warm lease pool ---------------------------------------------------
+    def _pool_pop(self, nid: str, demand_raw: dict):
+        pool = self.lease_pool.get(nid)
+        if not pool:
+            return None
+        now = time.monotonic()
+        for i, ent in enumerate(pool):
+            if ent["expires"] > now and ent["demand"] == demand_raw:
+                self._lease_pool_size -= 1
+                return pool.pop(i)
+        return None
+
+    def _drop_node_pool(self, nid: str):
+        """Forget a node's warm pool (death / reconcile: the slots are
+        gone, or the inventory sweep will unlease them)."""
+        dropped = self.lease_pool.pop(nid, None)
+        if dropped:
+            self._lease_pool_size -= len(dropped)
+
+    async def _unlease(self, nid: str, worker_id: str):
+        nconn = self.node_conns.get(nid)
+        if nconn is not None and not nconn.closed:
+            try:
+                await nconn.push("unlease_worker", worker_id=worker_id)
+            except Exception:
+                pass
+
+    async def _sweep_lease_pool(self):
+        """Expire warm pool entries (runs from the health loop): the agent
+        finally gets its worker slot back. ALL pool mutation happens before
+        the first await — writing a pre-await snapshot back would resurrect
+        entries popped by a concurrent grant (double-granting one worker
+        slot) and drop entries returned during the await."""
+        now = time.monotonic()
+        to_unlease = []
+        for nid in list(self.lease_pool):
+            pool = self.lease_pool[nid]
+            keep = [e for e in pool if e["expires"] > now]
+            expired = [e for e in pool if e["expires"] <= now]
+            if not expired:
+                continue
+            self._lease_pool_size -= len(expired)
+            if keep:
+                self.lease_pool[nid] = keep
+            else:
+                self.lease_pool.pop(nid, None)
+            to_unlease.extend((nid, e["worker_id"]) for e in expired)
+        for nid, wid in to_unlease:
+            await self._unlease(nid, wid)
+
+    def _consume_for(self, nid: str, strategy, demand: ResourceSet):
+        if strategy.kind == "PLACEMENT_GROUP":
+            for (pgid, idx), b in self.pg_bundles.items():
+                if pgid == strategy.pg_id and b["node"] == nid and b["available"].fits(demand):
+                    if strategy.pg_bundle_index in (-1, idx):
+                        b["available"].subtract(demand)
+                        strategy.pg_bundle_index = idx
+                        return
+        self.nodes[nid].available.subtract(demand)
+
+    def _release_for(self, nid: str, strategy, demand: ResourceSet):
+        if strategy.kind == "PLACEMENT_GROUP":
+            b = self.pg_bundles.get((strategy.pg_id, strategy.pg_bundle_index))
+            if b is not None:
+                b["available"].add(demand)
+                return
+        node = self.nodes.get(nid)
+        # SUSPECT nodes still take releases: their accounting is frozen, not
+        # discarded, and must be correct if the agent reconnects in time.
+        if node is not None and node.liveness != "DEAD":
+            node.available.add(demand)
+
+    def _drop_lease(self, lease_id: str, release: bool = True):
+        ent = self.leases.pop(lease_id, None)
+        if ent is None:
+            return None
+        if release:
+            self._release_for(ent["node_id"], ent["strategy"], ResourceSet(_raw=ent["demand"]))
+            self._kick()
+        return ent
+
+    async def _h_return_leases(self, conn, a):
+        keep = CONFIG.lease_idle_s
+        now = time.monotonic()
+        for lease_id in a["lease_ids"]:
+            ent = self._drop_lease(lease_id)
+            if ent is None:
+                continue
+            self.lease_returns += 1
+            nid = ent["node_id"]
+            node = self.nodes.get(nid)
+            # Keep the returned worker warm: the slot stays 'leased' at the
+            # agent and a matching regrant within the idle window skips the
+            # whole agent round trip (multi-client handoff hot path).
+            if (keep > 0 and node is not None and node.alive
+                    and node.incarnation == ent.get("incarnation",
+                                                    node.incarnation)
+                    and self._lease_pool_size < 256):
+                self.lease_pool.setdefault(nid, []).append({
+                    "worker_id": ent["worker_id"],
+                    "address": ent.get("address"),
+                    "demand": ent["demand"],
+                    "expires": now + keep,
+                })
+                self._lease_pool_size += 1
+                continue
+            await self._unlease(nid, ent["worker_id"])
+        return {}
+
+    async def _h_kill_leased_worker(self, conn, a):
+        """Force-cancel support for the direct task path: kill the worker
+        process behind a lease (the holder fails its in-flight tasks when the
+        direct connection drops). The lease is dropped HERE: the agent's
+        kill_worker marks the slot dead before exit, so no worker_died report
+        will follow to release the resources."""
+        for lease_id, ent in list(self.leases.items()):
+            if ent["worker_id"] == a["worker_id"]:
+                # Only claim the kill once the push to the node agent was
+                # actually sent: the caller un-dooms the lease on killed=False
+                # and would otherwise wait forever for a death that is never
+                # coming (the lease must also survive here in that case).
+                nconn = self.node_conns.get(ent["node_id"])
+                if nconn is None or nconn.closed:
+                    return {"killed": False}
+                try:
+                    await nconn.push("kill_worker", worker_id=ent["worker_id"])
+                except Exception:
+                    return {"killed": False}
+                self._drop_lease(lease_id)
+                return {"killed": True}
+        return {"killed": False}
+
+    async def _reap_owner_leases(self, owner: str):
+        """A lease holder disconnected: give its workers back to the pools."""
+        for lease_id, ent in list(self.leases.items()):
+            if ent["owner"] != owner:
+                continue
+            self._drop_lease(lease_id)
+            nconn = self.node_conns.get(ent["node_id"])
+            if nconn is not None and not nconn.closed:
+                try:
+                    await nconn.push("unlease_worker", worker_id=ent["worker_id"])
+                except Exception:
+                    pass
+
+    async def _lease_worker_died(self, worker_id: str, cause: str | None = None):
+        from ray_tpu_torch._private import events as _events
+
+        for lease_id, ent in list(self.leases.items()):
+            if ent["worker_id"] == worker_id:
+                self._drop_lease(lease_id)
+                # One normalized cause vocabulary end to end: the lease
+                # holder's failure messages key off it ("oom"/"stall"),
+                # and `ray-tpu events` queries by cause actually match.
+                norm = _events.normalize_exit_cause(cause)
+                self._emit_event(
+                    "lease_failover",
+                    f"lease {lease_id[:8]} invalidated: worker "
+                    f"{worker_id[:12]} died ({norm}); in-flight specs fail "
+                    f"over", entity=(lease_id, worker_id, ent["owner"]),
+                    node_id=ent.get("node_id"), attrs={"cause": norm})
+                oconn = self.client_conns.get(ent["owner"])
+                if oconn is not None and not oconn.closed:
+                    try:
+                        await oconn.push("lease_invalid", lease_id=lease_id,
+                                         cause=norm)
+                    except Exception:
+                        pass
+        # A pooled (returned-but-warm) worker dying must leave the pool, or
+        # a later grant would hand out a corpse.
+        for nid, pool in list(self.lease_pool.items()):
+            alive = [e for e in pool if e["worker_id"] != worker_id]
+            if len(alive) != len(pool):
+                self._lease_pool_size -= len(pool) - len(alive)
+                if alive:
+                    self.lease_pool[nid] = alive
+                else:
+                    self.lease_pool.pop(nid, None)
+
+    def _maybe_push_need_resources(self):
+        """Demand exists that can't place while clients hold leases: ask them
+        to give idle ones back (rate-limited)."""
+        if not self.leases:
+            return
+        now = time.monotonic()
+        # 20ms floor: a parked lease request's unblock chain is need-push ->
+        # owner idle-return -> regrant, so this throttle sits directly on
+        # multi-client handoff latency.
+        if now - self._last_need_push < 0.02:
+            return
+        self._last_need_push = now
+        owners = {ent["owner"] for ent in self.leases.values()}
+        for owner in owners:
+            oconn = self.client_conns.get(owner)
+            if oconn is not None and not oconn.closed:
+                try:
+                    oconn.push_threadsafe("need_resources")
+                except Exception:
+                    pass
+
+    # ------------------------------------------------------------- objects
+    async def _h_register_put(self, conn, a):
+        if self._freed(a["oid"]):
+            await self._purge_late(
+                a["oid"], a.get("holder"),
+                device_worker=(a.get("device_worker")
+                               if a.get("plane") == "device" else None))
+            return {}
+        ent = self.objects.setdefault(a["oid"], _ObjectEntry())
+        ent.state = "ready"
+        ent.owner = a.get("owner") or conn.meta.get("worker_id")
+        ent.size = a["size"]
+        if a.get("plane"):
+            ent.plane = a["plane"]
+            ent.device_worker = a.get("device_worker")
+            ent.device_node = a.get("device_node")
+            if ent.device_worker:
+                self._device_index.setdefault(
+                    ent.device_worker, set()).add(a["oid"])
+        if a.get("inline") is not None:
+            ent.inline = a["inline"]
+        if a.get("holder") is not None:
+            ent.holders.add(tuple(a["holder"]))
+        if a.get("error") is not None:
+            ent.error = a["error"]
+        ent.wake()
+        return {}
+
+    async def _p_register_put(self, conn, a):
+        """Push variant (no ack) — used by actor workers to advertise call
+        results without adding a round trip to the direct-call fast path."""
+        await self._h_register_put(conn, a)
+
+    async def _p_register_puts(self, conn, a):
+        """Batched advertise: one frame per flush of a worker's direct-path
+        result flusher."""
+        for item in a["items"]:
+            await self._h_register_put(conn, item)
+
+    async def _p_add_location(self, conn, a):
+        ent = self.objects.get(a["oid"])
+        if ent is not None:
+            ent.holders.add(tuple(a["holder"]))
+
+    async def _h_wait_object(self, conn, a):
+        oid = a["oid"]
+        timeout = a.get("timeout")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            if self._freed(oid):
+                # Owner already dropped its last reference: fail fast
+                # instead of resurrecting a permanently-pending entry.
+                return {"status": "lost"}
+            ent = self.objects.setdefault(oid, _ObjectEntry())
+            if ent.state == "ready":
+                return {
+                    "status": "ready",
+                    "inline": ent.inline,
+                    "holders": list(ent.holders),
+                    "error": ent.error,
+                }
+            if ent.state == "lost":
+                return {"status": "lost"}
+            fut = asyncio.get_running_loop().create_future()
+            ent.waiters.append(fut)
+            try:
+                remaining = None if deadline is None else max(0.0, deadline - time.monotonic())
+                await asyncio.wait_for(fut, remaining)
+            except asyncio.TimeoutError:
+                return {"status": "timeout"}
+
+    # --------------------------------------------------------------- jobs
+    async def _h_submit_job(self, conn, a):
+        """Run an entrypoint shell command as a driver subprocess on a node
+        agent (reference JobManager.submit_job,
+        dashboard/modules/job/job_manager.py:423)."""
+        sid = a.get("submission_id") or f"raysubmit_{os.urandom(8).hex()}"
+        if sid in self.jobs and self.jobs[sid]["status"] in ("PENDING", "RUNNING"):
+            raise rpc.RpcError(f"job {sid} already exists")
+        nid, nconn = None, None
+        for cand, c in self.node_conns.items():
+            if not c.closed and self.nodes.get(cand) and self.nodes[cand].alive:
+                nid, nconn = cand, c
+                break
+        if nconn is None:
+            raise rpc.RpcError("no alive node to run the job on")
+        self.jobs[sid] = {
+            "submission_id": sid, "entrypoint": a["entrypoint"],
+            "status": "PENDING", "message": "", "node_id": nid,
+            "start_time": time.time(), "end_time": None,
+            "metadata": a.get("metadata") or {},
+            "runtime_env": a.get("runtime_env") or {},
+        }
+        try:
+            rep = await nconn.call(
+                "run_job", submission_id=sid, entrypoint=a["entrypoint"],
+                runtime_env=a.get("runtime_env"))
+        except Exception as e:
+            # The RPC failing must not strand the id in PENDING forever
+            # (non-terminal states block resubmission of the same id).
+            job = self.jobs[sid]
+            job["status"] = "FAILED"
+            job["message"] = f"run_job RPC failed: {e!r}"
+            job["end_time"] = time.time()
+            raise
+        job = self.jobs[sid]
+        if rep.get("status") == "running":
+            job["status"] = "RUNNING"
+        else:
+            job["status"] = "FAILED"
+            job["message"] = rep.get("message", "spawn failed")
+            job["end_time"] = time.time()
+        self._emit_event(
+            "job_start",
+            f"job {sid} ({a['entrypoint']!r}) -> {job['status']}",
+            entity=(sid,), node_id=nid, attrs={"status": job["status"]})
+        return {"submission_id": sid, "status": job["status"]}
+
+    async def _p_job_done(self, conn, a):
+        if conn is not None and conn.meta.get("kind") == "node" \
+                and self._fenced_node(conn, a) is None:
+            return  # stale-incarnation zombie
+        job = self.jobs.get(a["submission_id"])
+        if job is None or job["status"] not in ("PENDING", "RUNNING"):
+            return
+        rc = a.get("returncode")
+        if a.get("stopped"):
+            job["status"] = "STOPPED"
+        elif rc == 0:
+            job["status"] = "SUCCEEDED"
+        else:
+            job["status"] = "FAILED"
+            job["message"] = f"entrypoint exited with code {rc}"
+        job["end_time"] = time.time()
+        self._emit_event(
+            "job_stop",
+            f"job {job['submission_id']} -> {job['status']}"
+            + (f" ({job['message']})" if job.get("message") else ""),
+            severity=("warning" if job["status"] == "FAILED" else "info"),
+            entity=(job["submission_id"],), node_id=a.get("node_id"),
+            attrs={"status": job["status"], "returncode": rc})
+        self._publish("job", {"submission_id": job["submission_id"],
+                              "status": job["status"]})
+
+    async def _h_stop_job(self, conn, a):
+        sid = a["submission_id"]
+        job = self.jobs.get(sid)
+        if job is None:
+            raise rpc.RpcError(f"job {sid} not found")
+        if job["status"] not in ("PENDING", "RUNNING"):
+            return {"stopped": False, "status": job["status"]}
+        nconn = self.node_conns.get(job["node_id"])
+        if nconn is None or nconn.closed:
+            job["status"] = "FAILED"
+            job["message"] = "job node died"
+            job["end_time"] = time.time()
+            return {"stopped": False, "status": job["status"]}
+        rep = await nconn.call("stop_job", submission_id=sid)
+        return {"stopped": rep.get("stopped", False), "status": job["status"]}
+
+    async def _h_get_job(self, conn, a):
+        job = self.jobs.get(a["submission_id"])
+        if job is None:
+            raise rpc.RpcError(f"job {a['submission_id']} not found")
+        return {"job": job}
+
+    async def _h_list_jobs(self, conn, a):
+        return {"jobs": list(self.jobs.values())}
+
+    async def _h_job_logs(self, conn, a):
+        sid = a["submission_id"]
+        job = self.jobs.get(sid)
+        if job is None:
+            raise rpc.RpcError(f"job {sid} not found")
+        nconn = self.node_conns.get(job["node_id"])
+        if nconn is None or nconn.closed:
+            return {"data": b"", "offset": int(a.get("offset", 0)),
+                    "found": False, "truncated": False}
+        return await nconn.call("job_logs", submission_id=sid,
+                                offset=int(a.get("offset", 0)))
+
+    # -------------------------------------------------------- observability
+    async def _p_metrics_report(self, conn, a):
+        """Aggregate application metric records (reference: workers export
+        through the metrics agent to Prometheus; here the controller is the
+        aggregation point, stats/metric.h role). Tracing spans piggyback on
+        the same frames (`spans` key) — see _ingest_spans."""
+        for rec in a["records"]:
+            kind = rec["kind"]
+            if kind == "histogram_decl":
+                # Boundaries registered once per (name, boundaries) by the
+                # first observe in each process; value records then ride
+                # bare. Idempotent: duplicate decls (per-process, races)
+                # simply rewrite the same list.
+                self._hist_bounds[rec["name"]] = list(rec["boundaries"])
+                # Self-heal series that aggregated DEGRADED (one +Inf
+                # bucket) before their decl arrived — e.g. a decl lost to a
+                # dropped batch, re-sent after the worker reconnected. Past
+                # observations keep count/sum; bucketing starts now.
+                for ent in self.metrics.values():
+                    if (ent["name"] == rec["name"]
+                            and ent.get("buckets") is not None
+                            and not ent.get("boundaries")):
+                        ent["boundaries"] = list(rec["boundaries"])
+                        ent["buckets"] = [0] * (len(rec["boundaries"]) + 1)
+                continue
+            key = (rec["name"], tuple(sorted(rec["tags"].items())))
+            ent = self.metrics.get(key)
+            if ent is None:
+                ent = self.metrics[key] = {
+                    "name": rec["name"], "kind": rec["kind"],
+                    "desc": rec.get("desc", ""), "tags": rec["tags"],
+                    "value": 0.0, "count": 0, "sum": 0.0, "buckets": None,
+                }
+            if kind == "counter":
+                ent["value"] += rec["value"]
+            elif kind == "gauge":
+                ent["value"] = rec["value"]
+            elif kind == "histogram":
+                if ent["buckets"] is None:
+                    # Boundaries from the decl registry; legacy records
+                    # carrying them inline still work. A decl lost to a
+                    # controller restart degrades to count/sum only (one
+                    # +Inf bucket) instead of dropping observations.
+                    bounds = (rec.get("boundaries")
+                              or self._hist_bounds.get(rec["name"]) or [])
+                    ent["boundaries"] = list(bounds)
+                    ent["buckets"] = [0] * (len(bounds) + 1)
+                import bisect
+
+                ent["buckets"][bisect.bisect_left(ent["boundaries"], rec["value"])] += 1
+                ent["count"] += 1
+                ent["sum"] += rec["value"]
+        spans = a.get("spans")
+        if spans:
+            self._ingest_spans(spans)
+        evs = a.get("events")
+        if evs:
+            self._ingest_events(evs)
+
+    async def _h_get_metrics(self, conn, a):
+        # Aggregated application series PLUS the controller's
+        # self-telemetry, synthesized at scrape time (no tick needed):
+        # per-RPC-method latency histograms, table-size gauges, and — when
+        # the sampling plane is armed — the event-loop lag gauge. All of
+        # it flows into the dashboard's /metrics Prometheus exposition.
+        out = list(self.metrics.values())
+        for method, (n, s, buckets) in sorted(self._rpc_stats.items()):
+            out.append({
+                "name": "rt_controller_rpc_seconds", "kind": "histogram",
+                "desc": "controller RPC handler latency by method",
+                "tags": {"method": method}, "value": 0.0, "count": n,
+                "sum": round(s, 6), "boundaries": list(_RPC_BOUNDS),
+                "buckets": list(buckets)})
+        for table, size in self._table_sizes().items():
+            out.append({
+                "name": "rt_controller_table_size", "kind": "gauge",
+                "desc": "controller state-table row counts",
+                "tags": {"table": table}, "value": float(size),
+                "count": 0, "sum": 0.0, "buckets": None})
+        if self._loop_lag is not None:
+            out.append({
+                "name": "rt_controller_loop_lag_seconds", "kind": "gauge",
+                "desc": "controller event-loop scheduling lag",
+                "tags": {}, "value": float(self._loop_lag),
+                "count": 0, "sum": 0.0, "buckets": None})
+        return {"metrics": out}
+
+    # ------------------------------------------------------ telemetry plane
+    def _table_sizes(self) -> dict:
+        """Row counts of the controller's hot tables — the direct input to
+        ROADMAP item 3's control-plane scale work (which tables grow is
+        which tables shard first)."""
+        return {
+            "objects": len(self.objects),
+            "actors": len(self.actors),
+            "leases": len(self.leases),
+            "parked_grants": self._lease_waiters,
+            "pending_tasks": len(self.pending),
+            "dispatched_tasks": len(self.dispatched),
+            "nodes": len(self.nodes),
+            "clients": len(self.client_conns),
+            "kv": len(self.kv),
+            "traces": len(self.traces),
+            "events": len(self.events),
+        }
+
+    def _telem_append(self, key: tuple, ts: float, val) -> None:
+        if not isinstance(val, (int, float)):
+            return
+        points = max(16, int(CONFIG.telemetry_points))
+        ring = self.telemetry.get(key)
+        if ring is None:
+            ring = self.telemetry[key] = _SeriesRing(points)
+        ring.append(ts, val, points)
+
+    #: Agent wall clocks further than this from the controller's are
+    #: rebased at ingest: window pruning, since= filtering, and sample_age
+    #: all compare against the CONTROLLER clock, and an unsynced node
+    #: would otherwise have its series pruned on arrival (clock behind) or
+    #: kept past age-out (clock ahead). Small skew passes through — the
+    #: 600s window and 120s sparkline dwarf it.
+    _TELEM_SKEW_REBASE_S = 30.0
+
+    def _ingest_telemetry(self, nid: str, batches: list) -> None:
+        """Fold heartbeat-piggybacked sample batches into the per-(node,
+        series) rings. Worker-scoped series key on a 12-char worker-id
+        prefix (matches every other surface's display ids)."""
+        tss = []
+        for b in batches:
+            try:
+                tss.append(float(b.get("ts") or time.time()))
+            except (TypeError, ValueError):
+                tss.append(None)
+        newest = max((t for t in tss if t is not None), default=None)
+        # Delivery just happened, so the newest batch was sampled within
+        # ~one heartbeat of controller-now: a larger gap is clock skew.
+        # The applied offset is STICKY per node (re-locked only when the
+        # measured skew moves a full threshold away from it): a hard
+        # threshold alone would flip offset on/off for skew hovering near
+        # it, and the ring's monotone guard would then reject alternate
+        # deliveries wholesale.
+        offset = self._telem_skew.get(nid, 0.0)
+        if newest is not None:
+            skew = time.time() - newest
+            if abs(skew - offset) > self._TELEM_SKEW_REBASE_S:
+                offset = skew if abs(skew) > self._TELEM_SKEW_REBASE_S \
+                    else 0.0
+                self._telem_skew[nid] = offset
+        for b, ts in zip(batches, tss):
+            if ts is None:
+                continue
+            ts += offset
+            for series, val in (b.get("node") or {}).items():
+                self._telem_append((nid, f"node.{series}", ""), ts, val)
+            for wid, wseries in (b.get("workers") or {}).items():
+                sub = str(wid)[:12]
+                for series, val in (wseries or {}).items():
+                    # Dotted keys are already fully-qualified series names
+                    # (e.g. the engine's `llm.tokens_per_s`); bare keys
+                    # get the worker. family prefix.
+                    name = series if "." in series else f"worker.{series}"
+                    self._telem_append((nid, name, sub), ts, val)
+        self._telem_prune()
+
+    def _telem_prune(self) -> None:
+        """Age out series with no fresh point for RT_TELEMETRY_WINDOW_S (a
+        dead agent or reaped worker leaves no stuck series). Rate-limited:
+        one sweep per ~window/8."""
+        window = max(5.0, float(CONFIG.telemetry_window_s))
+        now = time.time()
+        if now < self._telem_prune_at:
+            return
+        self._telem_prune_at = now + max(1.0, window / 8.0)
+        cutoff = now - window
+        for key in [k for k, r in self.telemetry.items()
+                    if r.last_ts < cutoff]:
+            self.telemetry.pop(key, None)
+        live_nodes = {k[0] for k in self.telemetry}
+        for nid in [n for n in self._telem_skew if n not in live_nodes]:
+            self._telem_skew.pop(nid, None)
+
+    def _telem_purge_worker(self, worker_id: str) -> None:
+        """Drop a dead worker's per-worker series immediately: its rings
+        would otherwise keep reporting the last HBM/compile/RSS sample as
+        current via cluster_utilization/`ray-tpu top` until the
+        RT_TELEMETRY_WINDOW_S prune — the freezing-last-values failure
+        mode the node-death path already avoids."""
+        sub = str(worker_id)[:12]
+        for key in [k for k in self.telemetry if k[2] == sub]:
+            self.telemetry.pop(key, None)
+
+    async def _self_sample_loop(self):
+        """Controller self-telemetry tick (armed with the sampling plane):
+        measures event-loop scheduling lag and feeds the controller's own
+        table sizes into the same ring the node series live in, under the
+        reserved node id "controller"."""
+        from ray_tpu_torch._private import telemetry as _telemetry
+
+        interval = max(0.05, _telemetry.interval_s())
+        while not self._stopping:
+            t0 = time.monotonic()
+            await asyncio.sleep(interval)
+            lag = max(0.0, time.monotonic() - t0 - interval)
+            self._loop_lag = round(lag, 6)
+            ts = time.time()
+            self._telem_append(("controller", "ctrl.loop_lag_s", ""),
+                               ts, self._loop_lag)
+            for table, size in self._table_sizes().items():
+                self._telem_append(("controller", f"ctrl.{table}", ""),
+                                   ts, size)
+            self._telem_prune()
+
+    async def _h_timeseries(self, conn, a):
+        """Query the telemetry rings: /api/timeseries?series=&node_id=&since=
+        and `util.state.timeseries()`. `series` matches exactly or as a
+        prefix (`node.` selects the whole family); points are
+        [[ts, value], ...], timestamps strictly monotone per row."""
+        sel = a.get("series") or None
+        nid = a.get("node_id") or None
+        since = a.get("since")
+        since = float(since) if since is not None else None
+        self._telem_prune()
+        rows = []
+        for (knid, series, sub), ring in self.telemetry.items():
+            if nid is not None and knid != nid:
+                continue
+            if sel is not None and series != sel \
+                    and not series.startswith(sel):
+                continue
+            pts = ring.points(since)
+            if not pts:
+                continue
+            rows.append({"node_id": knid, "series": series,
+                         "worker_id": sub or None, "points": pts})
+        rows.sort(key=lambda r: (r["node_id"], r["series"],
+                                 r["worker_id"] or ""))
+        return {"series": rows, "now": time.time(),
+                "interval_s": CONFIG.telemetry_interval_s,
+                "window_s": CONFIG.telemetry_window_s}
+
+    async def _h_cluster_utilization(self, conn, a):
+        """Latest sample per node/worker plus controller self-stats — the
+        one-call backing of `ray-tpu top` and
+        `util.state.cluster_utilization()`."""
+        self._telem_prune()
+        nodes: dict[str, dict] = {}
+        for nid, n in self.nodes.items():
+            nodes[nid] = {
+                "alive": n.alive, "liveness": n.liveness,
+                "beat_age": round(time.monotonic() - n.last_beat, 3),
+                "node": {}, "workers": {},
+            }
+        for (knid, series, sub), ring in self.telemetry.items():
+            last = ring.latest()
+            if last is None or knid == "controller":
+                continue
+            ent = nodes.get(knid)
+            if ent is None:  # series outliving its node entry (death race)
+                continue
+            if sub:
+                # worker.-family series drop the prefix ("worker.cpu" ->
+                # "cpu"); fully-qualified dotted series (the engine's
+                # "llm.tokens_per_s") keep their name — `ray-tpu top`
+                # reads them by it.
+                key = (series.split(".", 1)[1]
+                       if series.startswith("worker.") else series)
+                ent["workers"].setdefault(sub, {})[key] = last[1]
+            else:
+                ent["node"][series.split(".", 1)[1]] = last[1]
+            age = round(time.time() - ring.last_ts, 3)
+            if "sample_age" not in ent or age < ent["sample_age"]:
+                ent["sample_age"] = age  # freshest series wins
+        # Serve-plane summary (README "Cross-host streaming & multi-proxy"):
+        # per-proxy request/stream tallies plus the push-stream transport
+        # counters, scraped from the aggregated application metrics so
+        # `ray-tpu top` shows the ingress fleet without a second RPC.
+        proxies: dict[str, dict] = {}
+        stream = {"records": 0, "bytes": 0, "parks": 0}
+        for ent in self.metrics.values():
+            name = ent["name"]
+            if name.startswith("rt_serve_proxy_"):
+                pid = ent["tags"].get("proxy", "?")
+                row = proxies.setdefault(
+                    pid, {"requests": 0, "streams": 0, "active": 0})
+                if name == "rt_serve_proxy_requests_total":
+                    row["requests"] = int(ent["value"])
+                elif name == "rt_serve_proxy_streams_total":
+                    row["streams"] = int(ent["value"])
+                elif name == "rt_serve_proxy_active_streams":
+                    row["active"] = int(ent["value"])
+            elif name == "rt_stream_push_records_total":
+                stream["records"] = int(ent["value"])
+            elif name == "rt_stream_push_bytes_total":
+                stream["bytes"] = int(ent["value"])
+            elif name == "rt_stream_push_parks_total":
+                stream["parks"] = int(ent["value"])
+        return {
+            "nodes": nodes,
+            "controller": {
+                "loop_lag_s": self._loop_lag,
+                "tables": self._table_sizes(),
+                "rpc_total": sum(v[0] for v in self._rpc_stats.values()),
+            },
+            "serve": {"proxies": proxies, "stream": stream},
+            "telemetry_armed": bool(self.telemetry) or
+                self._telem_task is not None,
+            "now": time.time(),
+        }
+
+    # ----------------------------------------------------- worker profiling
+    async def _h_profile_worker(self, conn, a):
+        """Route an on-demand profile capture to the agent hosting the
+        worker (same lookup as worker_stacks), then register the returned
+        metadata in the KV (`_profiles` namespace) so list_profiles rows
+        survive the capture path."""
+        from ray_tpu_torch._private import telemetry as _telemetry
+
+        wid = a.get("worker_id") or ""
+        nid = a.get("node_id")
+        if nid is None:
+            hits = self._find_worker_nodes(wid)
+            if len(hits) > 1:
+                return {"found": False,
+                        "error": f"worker id prefix {wid[:12]!r} is "
+                                 f"ambiguous ({len(hits)} nodes match) — "
+                                 f"use a longer prefix"}
+            nid = next(iter(hits)) if hits else None
+        if nid is None:
+            return {"found": False,
+                    "error": f"worker {wid[:12]} not found in the actor, "
+                             f"lease, or dispatch tables (pass node_id, or "
+                             f"profile while it is running work)"}
+        nconn = self.node_conns.get(nid)
+        if nconn is None or nconn.closed:
+            return {"found": False, "error": f"node {nid[:8]} not connected"}
+        seconds = _telemetry.clamp_profile_seconds(a.get("seconds"))
+        try:
+            rep = await nconn.call(
+                "profile_worker", worker_id=wid, seconds=seconds,
+                mode=a.get("mode") or "cpu", hz=a.get("hz"),
+                _timeout=seconds + 40.0)
+        except Exception as e:
+            # Agent death/sever/timeout mid-capture follows the same
+            # attributed-error contract as every other failure branch
+            # here. A persist that merely outlived the timeout still
+            # registers via the agent's profile_persisted push.
+            return {"found": False,
+                    "error": f"profile via node {nid[:8]} failed "
+                             f"mid-capture ({type(e).__name__}: {e})"}
+        if rep.get("found") and rep.get("profile"):
+            # Idempotent with the agent's profile_persisted push (the
+            # authoritative registration — it lands even when a slow
+            # storage persist outlives this call's timeout budget); kept
+            # here as backup for a push lost to a reconnecting conn.
+            self._register_profile(rep["profile"])
+        return rep
+
+    async def _p_profile_persisted(self, conn, a):
+        """Agent push after a captured profile lands in the storage plane.
+        Registration rides this push rather than only the profile_worker
+        reply so a persist slower than the caller's RPC timeout still
+        indexes the document it wrote (orphaned docs are invisible to
+        list_profiles/get_profile forever)."""
+        meta = a.get("profile")
+        if isinstance(meta, dict) and meta.get("name"):
+            self._register_profile(meta)
+
+    def _register_profile(self, meta: dict) -> None:
+        import json as _json
+
+        self.kv[("_profiles", meta["name"])] = _json.dumps(
+            meta, default=str).encode()
+        # Bounded registry (ring discipline, like traces/stalls):
+        # automated periodic profiling must not grow the KV — and
+        # every controller snapshot — forever. Evicted rows lose only
+        # their index entry; the documents stay in the storage plane.
+        names = sorted(k[1] for k in self.kv
+                       if k[0] == "_profiles")
+        for stale in names[:-self._PROFILE_INDEX_CAP]:
+            self.kv.pop(("_profiles", stale), None)
+        self._mark_dirty()
+
+    _PROFILE_INDEX_CAP = 512  # metadata rows kept (oldest evicted)
+
+    def _find_worker_nodes(self, wid: str) -> set[str]:
+        """Nodes hosting workers matching `wid` (exact id or prefix), from
+        the actor / lease / dispatch tables. One hit routes; zero and
+        many are distinct error cases (missing vs ambiguous prefix)."""
+        hits: set[str] = set()
+        for ent in self.actors.values():
+            if ent.worker_id and ent.worker_id.startswith(wid):
+                hits.add(ent.node_id)
+        for lease in self.leases.values():
+            if str(lease.get("worker_id") or "").startswith(wid):
+                hits.add(lease["node_id"])
+        for info in self.dispatched.values():
+            if str(info.get("worker_id") or "").startswith(wid):
+                hits.add(info["node_id"])
+        hits.discard(None)
+        return hits
+
+    async def _h_list_profiles(self, conn, a):
+        """Captured-profile metadata rows from the KV registry, newest
+        last; same limit/truncation contract as the other list APIs."""
+        import json as _json
+
+        limit = int(a.get("limit", 1000))
+        rows = []
+        for (ns, name), blob in self.kv.items():
+            if ns != "_profiles":
+                continue
+            try:
+                rows.append(_json.loads(blob))
+            except ValueError:
+                continue
+        rows.sort(key=lambda r: r.get("created") or 0)
+        truncated = len(rows) > limit
+        return {"profiles": rows[-limit:], "truncated": truncated}
+
+    async def _h_get_profile(self, conn, a):
+        """Fetch one persisted profile document by name (unique prefixes
+        accepted) from the storage plane."""
+        import json as _json
+
+        name = a.get("name") or ""
+        metas = []
+        for (ns, key), blob in self.kv.items():
+            if ns == "_profiles" and key.startswith(name):
+                metas.append(blob)
+        if len(metas) != 1:
+            return {"found": False, "name": name,
+                    "error": ("no profile matches" if not metas
+                              else "ambiguous prefix")}
+        meta = _json.loads(metas[0])
+
+        def _load(path=meta.get("path")):
+            # Read AND parse off the event loop: a cpu capture's document
+            # (thousands of traceEvents) is easily multi-MB of JSON.
+            from ray_tpu_torch import storage
+
+            return _json.loads(storage.get_bytes(path))
+
+        try:
+            doc = await asyncio.get_running_loop().run_in_executor(
+                None, _load)
+        except Exception as e:
+            return {"found": False, "name": name,
+                    "error": f"profile doc unreadable: {e!r}"}
+        return {"found": True, **doc}
+
+    # ------------------------------------------------------- tracing plane
+    _TRACE_SPAN_CAP = 8192  # spans kept per trace (ring discipline)
+
+    def _ingest_spans(self, spans: list) -> None:
+        """Index worker-drained spans per trace_id (README "Tracing &
+        timeline"). The index is a bounded arrival-order ring: past
+        RT_TRACE_MAX_TRACES the oldest trace is evicted (persisted first if
+        it never was). A span with no parent is the trace ROOT — its
+        arrival marks the trace complete."""
+        cap = max(1, int(CONFIG.trace_max_traces))
+        now = time.time()
+        for sp in spans:
+            tid = sp.get("t")
+            if not tid:
+                continue
+            ent = self.traces.get(tid)
+            if ent is None:
+                while len(self.traces) >= cap:
+                    old_tid = next(iter(self.traces))
+                    old = self.traces.pop(old_tid)
+                    if old.get("dirty"):
+                        self._evicted_traces.append((old_tid, old))
+                ent = self.traces[tid] = {
+                    "spans": [], "start": sp.get("a", now), "last": 0.0,
+                    "name": None, "root_done": False, "dirty": False,
+                    "recv": now,
+                }
+            if len(ent["spans"]) < self._TRACE_SPAN_CAP:
+                ent["spans"].append(sp)
+            ent["start"] = min(ent["start"], sp.get("a", now))
+            ent["last"] = max(ent["last"], sp.get("b", now))
+            ent["dirty"] = True
+            ent["recv"] = now
+            if sp.get("p") is None:
+                ent["root_done"] = True
+                ent["name"] = sp.get("n")
+            elif ent["name"] is None:
+                ent["name"] = sp.get("n")
+        if self._trace_sweep_task is None and not self._stopping:
+            self._trace_sweep_task = asyncio.ensure_future(
+                self._trace_sweep())
+            self._tasks.append(self._trace_sweep_task)
+
+    def _trace_dir(self) -> str | None:
+        d = CONFIG.trace_dir
+        if d == "none":
+            return None
+        if d:
+            return d
+        return os.path.join(CONFIG.session_dir, self.session_id, "traces")
+
+    async def _trace_sweep(self):
+        """Persist settled traces through the storage plane, batched
+        and OFF the event loop: every ~2s, traces quiet for 2s with new
+        spans since their last write — plus a bounded batch of evicted
+        traces — go out as one executor job. Settled re-dirtied traces (a
+        late straggler span) re-persist next sweep."""
+        while not self._stopping:
+            await asyncio.sleep(2.0)
+            try:
+                d = self._trace_dir()
+                if d is None:
+                    self._evicted_traces.clear()
+                    continue
+                now = time.time()
+                batch = []
+                while self._evicted_traces and len(batch) < 128:
+                    tid, ent = self._evicted_traces.popleft()
+                    batch.append((tid, self._trace_doc(tid, ent)))
+                for tid, ent in self.traces.items():
+                    if ent["dirty"] and now - ent["recv"] >= 2.0:
+                        ent["dirty"] = False
+                        batch.append((tid, self._trace_doc(tid, ent)))
+                if batch:
+                    loop = asyncio.get_running_loop()
+                    await loop.run_in_executor(
+                        None, self._persist_traces_sync, d, batch)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # One bad tick (an executor mid-shutdown, a storage blip)
+                # must not end persistence for the controller's lifetime —
+                # the sweep-task sentinel is never reset, so a dead sweep
+                # would silently stop all trace persistence.
+                logger.exception("trace persistence sweep tick failed; "
+                                 "retrying")
+
+    @staticmethod
+    def _trace_doc(tid: str, ent: dict) -> dict:
+        return {"trace_id": tid, "name": ent.get("name"),
+                "start": ent.get("start"), "end": ent.get("last"),
+                "complete": bool(ent.get("root_done")),
+                "spans": list(ent["spans"])}
+
+    @staticmethod
+    def _persist_traces_sync(trace_dir: str, batch: list) -> None:
+        import json
+
+        from ray_tpu_torch import storage
+
+        for tid, doc in batch:
+            try:
+                storage.put(storage.join(trace_dir, f"{tid}.json"),
+                            json.dumps(doc).encode())
+            except Exception:
+                logger.debug("trace persist failed for %s", tid,
+                             exc_info=True)
+
+    async def _h_list_traces(self, conn, a):
+        limit = int(a.get("limit", 1000))
+        rows = []
+        for tid, ent in self.traces.items():
+            rows.append({"trace_id": tid, "name": ent.get("name"),
+                         "start": ent.get("start"), "end": ent.get("last"),
+                         "spans": len(ent["spans"]),
+                         "complete": bool(ent.get("root_done"))})
+        return {"traces": rows[-limit:], "truncated": len(rows) > limit}
+
+    async def _h_get_trace(self, conn, a):
+        """Spans of one trace; unique id prefixes accepted (CLI ergonomics).
+        Falls back to the storage plane for traces evicted from the ring."""
+        tid = a["trace_id"]
+        ent = self.traces.get(tid)
+        if ent is None:
+            matches = [t for t in self.traces if t.startswith(tid)]
+            if len(matches) == 1:
+                tid, ent = matches[0], self.traces[matches[0]]
+        if ent is not None:
+            return {"found": True, **self._trace_doc(tid, ent)}
+        d = self._trace_dir()
+        if d is not None:
+            loop = asyncio.get_running_loop()
+            doc = await loop.run_in_executor(
+                None, self._load_trace_sync, d, tid)
+            if doc is not None:
+                return {"found": True, **doc}
+        return {"found": False, "trace_id": tid, "spans": []}
+
+    @staticmethod
+    def _load_trace_sync(trace_dir: str, tid: str):
+        import json
+
+        from ray_tpu_torch import storage
+
+        try:
+            return json.loads(
+                storage.get_bytes(storage.join(trace_dir, f"{tid}.json")))
+        except Exception:
+            pass
+        # Unique-PREFIX lookup over persisted ids: `ray-tpu stalls` prints
+        # 12-char trace prefixes, and an evicted trace only exists as its
+        # full-id file — the exact-name miss above must not make the
+        # suggested `ray-tpu timeline --trace <prefix>` a dead end.
+        try:
+            names = [n for n in storage.listdir(trace_dir)
+                     if n.endswith(".json") and n.startswith(tid)]
+            if len(names) == 1:
+                return json.loads(
+                    storage.get_bytes(storage.join(trace_dir, names[0])))
+        except Exception:
+            pass
+        return None
+
+    async def _p_task_events(self, conn, a):
+        self.task_events.extend(a["events"])
+
+    # ------------------------------------------------------ event plane
+    # README "Cluster events": the controller is the aggregation point for
+    # lifecycle events — its own emissions (node/actor/lease/job
+    # transitions), agent batches riding heartbeats/worker_died pushes, and
+    # worker/driver batches riding metrics-flush frames.
+    _EVENT_INDEX_PER_ENTITY = 128   # events kept per entity in the index
+    _EVENT_INDEX_ENTITIES = 2048    # entities indexed (oldest-first evict)
+
+    def _emit_event(self, kind: str, message: str = "", *,
+                    severity: str | None = None, entity=(),
+                    node_id: str | None = None,
+                    trace_id: str | None = None,
+                    attrs: dict | None = None) -> None:
+        """Controller-side emission: mint + ingest directly (no ring hop)."""
+        if int(CONFIG.events_buffer) <= 0:
+            return
+        from ray_tpu_torch._private import events as _events
+
+        self._ingest_events([_events.build_event(
+            kind, message, severity=severity, entity=entity,
+            node_id=node_id, trace_id=trace_id, attrs=attrs,
+            src="controller")])
+
+    def _ingest_events(self, evs: list, default_node: str | None = None) -> None:
+        """Assign monotonic seqs in arrival order and index into the ring,
+        the per-entity index, and the persistence buffer."""
+        cap = int(CONFIG.events_buffer)
+        if cap <= 0 or not evs:
+            return
+        persist = bool(CONFIG.events_persist)
+        for ev in evs:
+            if not isinstance(ev, dict) or not ev.get("kind"):
+                continue
+            ev["seq"] = self._event_seq
+            self._event_seq += 1
+            if ev.get("node") is None and default_node is not None:
+                ev["node"] = default_node
+            self.events.append(ev)
+            while len(self.events) > cap:
+                self.events.popleft()
+            for eid in ev.get("entity") or ():
+                # Pop + reinsert so dict order is last-TOUCHED: eviction
+                # takes the coldest entity, not a hot long-lived one (the
+                # head node's id gets events for the cluster's lifetime).
+                dq = self._event_index.pop(eid, None)
+                if dq is None:
+                    while len(self._event_index) >= self._EVENT_INDEX_ENTITIES:
+                        self._event_index.pop(
+                            next(iter(self._event_index)), None)
+                    dq = deque(maxlen=self._EVENT_INDEX_PER_ENTITY)
+                self._event_index[eid] = dq
+                dq.append(ev)
+            if persist:
+                self._evseg_buf.append(ev)
+        if persist:
+            # Bound the persistence backlog (backend severed/slow): shed
+            # OLDEST — ring discipline, counted so the next successful
+            # segment carries an events_dropped marker.
+            lim = max(4 * int(CONFIG.events_segment_events), cap)
+            over = len(self._evseg_buf) - lim
+            if over > 0:
+                del self._evseg_buf[:over]
+                self._events_dropped += over
+            if self._event_sweep_task is None and not self._stopping:
+                try:
+                    self._event_sweep_task = asyncio.ensure_future(
+                        self._event_sweep())
+                    self._tasks.append(self._event_sweep_task)
+                except RuntimeError:
+                    pass  # no running loop (unit tests drive persistence
+                    #       synchronously via the sync helpers)
+
+    def _event_hint(self, entity: str | None) -> str:
+        """Error-message enrichment: the seq range of the events explaining
+        an entity's fate, so an ActorDiedError/ObjectLostError names where
+        to look ("" when the plane is off or the entity has no events)."""
+        if not entity:
+            return ""
+        dq = self._event_index.get(entity)
+        if not dq:
+            return ""
+        try:
+            lo, hi = dq[0]["seq"], dq[-1]["seq"]
+        except (IndexError, KeyError):
+            return ""
+        rng = str(lo) if lo == hi else f"{lo}-{hi}"
+        return (f" [events {rng}: ray-tpu events --entity "
+                f"{str(entity)[:12]}]")
+
+    def _event_dir(self) -> str | None:
+        if not CONFIG.events_persist or int(CONFIG.events_buffer) <= 0:
+            return None
+        d = CONFIG.events_dir
+        if d:
+            return d
+        from ray_tpu_torch._private import events as _events
+
+        return _events.default_events_dir(self.session_id)
+
+    _EVENT_SEG_RE = None  # compiled lazily (module re import stays top-free)
+
+    @classmethod
+    def _event_seg_seq(cls, name: str):
+        """seg-<last_seq>.jsonl -> last_seq, else None."""
+        import re
+
+        if cls._EVENT_SEG_RE is None:
+            cls._EVENT_SEG_RE = re.compile(r"^seg-(\d+)\.jsonl$")
+        m = cls._EVENT_SEG_RE.match(name)
+        return int(m.group(1)) if m else None
+
+    def _restore_event_seq(self) -> None:
+        """Boot-time restore of the event plane from persisted segments:
+        (a) the seq fence — never mint a seq <= anything already persisted
+        (segments outlive snapshots; the snapshot's watermark can lag the
+        last sweep) — and (b) the queryable history: the newest
+        ring-capacity worth of persisted events reload into the arrival
+        ring + entity index, so `ray-tpu events` still answers "what
+        happened" across a controller restart. current.jsonl's tail also
+        refills the persistence buffer (those events live in NO full
+        segment yet; the next tail rewrite must not drop them from
+        durable storage)."""
+        d = self._event_dir()
+        if d is None:
+            return
+        try:
+            import json as _json
+
+            from ray_tpu_torch import storage
+
+            hi = self._event_seq - 1
+            # listdir returns [] for a genuinely absent dir; an EXCEPTION
+            # is a backend problem. Retry transient blips (the
+            # _restore_state discipline): silently treating one as "no
+            # history" would skip the seq fence and let this head re-mint
+            # seqs that collide with (and later overwrite) persisted
+            # segments.
+            import time as _time
+
+            names = None
+            delay = 0.1
+            for attempt in range(4):
+                try:
+                    names = storage.listdir(d)
+                    break
+                except storage.StorageTransientError:
+                    if attempt == 3:
+                        raise
+                    _time.sleep(delay)
+                    delay *= 2
+            cap = max(1, int(CONFIG.events_buffer))
+            segs = sorted((n for n in names
+                           if self._event_seg_seq(n) is not None),
+                          key=self._event_seg_seq)
+            # Highest seq any FULL segment covers — strictly from segment
+            # names, NOT the snapshot watermark: a watermark ahead of
+            # persistence must not trick the tail refill below into
+            # thinking current.jsonl's events are segment-covered (the
+            # next tail rewrite would drop them from durable storage).
+            seg_hi = -1
+            for n in segs:
+                seg_hi = max(seg_hi, self._event_seg_seq(n))
+            hi = max(hi, seg_hi)
+            by_seq: dict[int, dict] = {}
+            # Newest segments first, until the ring capacity is covered.
+            for n in reversed(segs):
+                if len(by_seq) >= cap:
+                    break
+                try:
+                    for ln in storage.get_bytes(
+                            storage.join(d, n)).splitlines():
+                        if ln.strip():
+                            ev = _json.loads(ln)
+                            if isinstance(ev.get("seq"), int):
+                                by_seq[ev["seq"]] = ev
+                except Exception:
+                    pass
+            tail: list = []
+            if "current.jsonl" in names:
+                try:
+                    for ln in storage.get_bytes(
+                            storage.join(d, "current.jsonl")).splitlines():
+                        if ln.strip():
+                            ev = _json.loads(ln)
+                            if isinstance(ev.get("seq"), int):
+                                tail.append(ev)
+                except Exception:
+                    pass
+            # Dedup by seq: a crash between a seg-N write and the
+            # current.jsonl rewrite leaves the tail in BOTH files — the
+            # seq is the identity, so the duplicate collapses here (and
+            # only tail events no segment covers refill the buffer below,
+            # so it never becomes permanent in durable history).
+            for ev in tail:
+                hi = max(hi, ev["seq"])
+                by_seq.setdefault(ev["seq"], ev)
+            restored = [by_seq[s] for s in sorted(by_seq)][-cap:]
+            for ev in restored:
+                self.events.append(ev)
+                for eid in ev.get("entity") or ():
+                    dq = self._event_index.get(eid)
+                    if dq is None:
+                        dq = self._event_index[eid] = deque(
+                            maxlen=self._EVENT_INDEX_PER_ENTITY)
+                    dq.append(ev)
+            # Tail events durable ONLY in current.jsonl (seq above every
+            # full segment's) go back in the persistence buffer so they
+            # roll into a real segment eventually.
+            buf_tail = sorted((e for e in tail if e["seq"] > seg_hi),
+                              key=lambda e: e["seq"])
+            self._evseg_buf.extend(buf_tail)
+            if buf_tail:
+                self._evseg_tail_written = buf_tail[-1]["seq"]
+            self._event_seq = max(self._event_seq, hi + 1)
+        except Exception:
+            logger.exception("event-plane restore failed; minting from "
+                             "the snapshot watermark")
+
+    async def _event_sweep(self):
+        """Persist settled events as segmented JSONL through the storage
+        plane, batched and OFF the event loop (the trace-sweep idiom). A
+        failed tick (severed sim:// backend, storage blip) keeps the
+        buffer and retries — persistence picks up when the backend heals
+        (chaos-pinned)."""
+        while not self._stopping:
+            await asyncio.sleep(1.0)
+            try:
+                d = self._event_dir()
+                if d is None:
+                    self._evseg_buf.clear()
+                    continue
+                seg_n = max(16, int(CONFIG.events_segment_events))
+                n_full = len(self._evseg_buf) // seg_n
+                full = [list(self._evseg_buf[i * seg_n:(i + 1) * seg_n])
+                        for i in range(n_full)]
+                tail = list(self._evseg_buf[n_full * seg_n:])
+                tail_hi = tail[-1]["seq"] if tail else -1
+                if not full and tail_hi <= self._evseg_tail_written:
+                    continue  # nothing new since the last write
+                dropped, self._events_dropped = self._events_dropped, 0
+                keep = max(1, int(CONFIG.events_keep_segments))
+                loop = asyncio.get_running_loop()
+                try:
+                    await loop.run_in_executor(
+                        None, self._persist_event_segments_sync, d, full,
+                        tail, keep, dropped)
+                except Exception:
+                    self._events_dropped += dropped
+                    raise
+                # Success: full segments leave the buffer — BY SEQ, not by
+                # count: the overflow shed in _ingest_events may have run
+                # during the awaited write and already removed some of the
+                # front, so a count-based del would take newer, never-
+                # written events with it. The tail stays (it re-rolls into
+                # the next full segment) but its write watermark advances
+                # so quiet ticks skip the rewrite.
+                if full:
+                    written_hi = full[-1][-1]["seq"]
+                    buf = self._evseg_buf
+                    while buf and buf[0]["seq"] <= written_hi:
+                        buf.pop(0)
+                self._evseg_tail_written = tail_hi
+                if dropped:
+                    self._emit_event(
+                        "events_dropped",
+                        f"{dropped} event(s) shed while the events backend "
+                        f"was unreachable", attrs={"count": dropped})
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception("event persistence sweep tick failed; "
+                                 "retrying")
+
+    def _persist_event_segments_sync(self, events_dir: str, full: list,
+                                     tail: list, keep: int,
+                                     dropped: int) -> None:
+        import json
+
+        from ray_tpu_torch import storage
+
+        def _dump(evs):
+            return ("\n".join(json.dumps(e, default=str)
+                              for e in evs) + "\n").encode()
+
+        with self._event_io_lock:
+            for seg in full:
+                storage.put(
+                    storage.join(events_dir,
+                                 f"seg-{seg[-1]['seq']:016d}.jsonl"),
+                    _dump(seg))
+            # The in-progress tail rewrites atomically each sweep so a
+            # crash loses at most one tick of history. Watermark-gated: a
+            # STALE writer (an executor sweep job that lost the race to
+            # stop()'s final flush) must not overwrite a newer tail —
+            # its coverage ends below what already landed.
+            cover_hi = max(
+                full[-1][-1]["seq"] if full else -1,
+                tail[-1]["seq"] if tail else -1)
+            if cover_hi >= self._evseg_current_hi:
+                storage.put(storage.join(events_dir, "current.jsonl"),
+                            _dump(tail) if tail else b"")
+                self._evseg_current_hi = cover_hi
+            if full:
+                segs = sorted(
+                    (n for n in storage.listdir(events_dir)
+                     if self._event_seg_seq(n) is not None),
+                    key=self._event_seg_seq)
+                for victim in segs[:-keep] if len(segs) > keep else ():
+                    try:
+                        storage.delete(storage.join(events_dir, victim))
+                    except Exception:
+                        pass
+
+    async def _h_list_events(self, conn, a):
+        """Query the event ring: entity= (prefix-matches ANY of an event's
+        entity ids, served from the secondary index), kind=, severity=,
+        since= (seq, exclusive). Uniform truncation contract; `next_seq`
+        feeds `ray-tpu events --follow` polling."""
+        entity = a.get("entity") or None
+        kind = a.get("kind") or None
+        severity = a.get("severity") or None
+        since = a.get("since")
+        since = int(since) if since is not None else None
+        limit = int(a.get("limit", 1000))
+        if entity is not None:
+            seen: dict[int, dict] = {}
+            for eid, dq in self._event_index.items():
+                if eid.startswith(entity):
+                    for ev in dq:
+                        seen[ev["seq"]] = ev
+            rows = [seen[s] for s in sorted(seen)]
+        else:
+            rows = list(self.events)
+        if kind is not None:
+            rows = [e for e in rows if e.get("kind") == kind]
+        if severity is not None:
+            rows = [e for e in rows if e.get("sev") == severity]
+        if since is not None:
+            rows = [e for e in rows if e.get("seq", 0) > since]
+        return {"events": rows[-limit:], "truncated": len(rows) > limit,
+                "next_seq": self._event_seq,
+                "dropped": self._events_dropped}
+
+    # ------------------------------------------------------ stall detection
+    async def _p_stall_report(self, conn, a):
+        """One escalation-ladder stage observed somewhere in the cluster
+        (worker watchdog via its node agent, agent backstop, or a train
+        controller's group-stall policy). Aggregated into the stalls ring
+        (util.state.list_stalls / `ray-tpu stalls`) and the
+        rt_stalls_total{stage} counter."""
+        if conn is not None and conn.meta.get("kind") == "node" \
+                and self._fenced_node(conn, a) is None:
+            return  # stale-incarnation zombie
+        report = dict(a.get("report") or {})
+        report.setdefault("node_id", a.get("node_id"))
+        report["received"] = time.time()
+        # Bound what the ring keeps per row: the full flight dump lives in
+        # storage (report["flight_path"]); the ring is for triage listing.
+        evs = report.get("events")
+        if isinstance(evs, list) and len(evs) > 16:
+            report["events"] = evs[-16:]
+        stacks = report.get("stacks")
+        if isinstance(stacks, str) and len(stacks) > 4000:
+            report["stacks"] = stacks[-4000:]
+        self.stalls.append(report)
+        stage = str(report.get("stage") or "?")
+        self._emit_event(
+            "stall",
+            f"stall {stage}: {report.get('name') or report.get('scope')} "
+            f"silent {report.get('silence_s')}s — "
+            f"{(report.get('reason') or '')[:120]}",
+            severity=("error" if stage == "kill" else "warning"),
+            entity=(report.get("task_id"), report.get("worker_id")),
+            node_id=report.get("node_id"),
+            trace_id=report.get("trace_id"),
+            attrs={"stage": stage, "scope": report.get("scope"),
+                   "silence_s": report.get("silence_s")})
+        await self._p_metrics_report(None, {"records": [{
+            "kind": "counter", "name": "rt_stalls_total",
+            "desc": "stall escalations (warn/dump/kill stages observed)",
+            "tags": {"stage": str(report.get("stage") or "?")},
+            "value": 1.0}]})
+
+    async def _h_list_stalls(self, conn, a):
+        limit = int(a.get("limit", 1000))
+        return {"stalls": list(self.stalls)[-limit:],
+                "truncated": len(self.stalls) > limit}
+
+    async def _h_task_status(self, conn, a):
+        """Best-effort status of ONE task — the enrichment behind
+        GetTimeoutError: queued/running, where, and seconds since its last
+        progress beacon (when the stall watchdog is beaconing)."""
+        tid = a["task_id"]
+        out = {"found": False, "state": None, "name": None, "attempt": None,
+               "node_id": None, "worker_id": None, "beacon_age_s": None}
+        now = time.monotonic()
+        for nid, (beacons, ts) in self._task_beacons.items():
+            age = beacons.get(tid)
+            if age is not None:
+                out.update(found=True, state="running", node_id=nid,
+                           beacon_age_s=round(age + (now - ts), 3))
+                break
+        info = self.dispatched.get(tid)
+        if info is not None:
+            out.update(found=True, state=out["state"] or "running",
+                       node_id=info["node_id"], worker_id=info["worker_id"],
+                       name=info["spec"].name, attempt=info["spec"].attempt)
+            return out
+        for spec in self.pending:
+            if spec.task_id == tid:
+                out.update(found=True, state="queued", name=spec.name,
+                           attempt=spec.attempt)
+                return out
+        if not out["found"]:
+            for ev in reversed(self.task_events):
+                if ev["task_id"] == tid:
+                    out.update(found=True,
+                               state="finished" if ev["ok"] else "failed",
+                               name=ev["name"], attempt=ev["attempt"],
+                               node_id=ev["node_id"],
+                               worker_id=ev["worker_id"])
+                    break
+        return out
+
+    async def _h_get_task_events(self, conn, a):
+        limit = int(a.get("limit", 100_000))
+        evs = list(self.task_events)
+        return {"events": evs[-limit:]}
+
+    async def _h_list_tasks(self, conn, a):
+        """Latest state per task (reference util/state/api.py list_tasks):
+        executed tasks from the event ring + queued/dispatched live ones."""
+        limit = int(a.get("limit", 1000))
+        out: dict[str, dict] = {}
+        for ev in self.task_events:
+            out[ev["task_id"]] = {
+                "task_id": ev["task_id"], "name": ev["name"],
+                "kind": ev["kind"], "attempt": ev["attempt"],
+                "state": "FINISHED" if ev["ok"] else "FAILED",
+                "node_id": ev["node_id"], "worker_id": ev["worker_id"],
+                "start": ev["start"], "end": ev["end"],
+            }
+        for spec in self.pending:
+            out[spec.task_id] = {"task_id": spec.task_id, "name": spec.name,
+                                 "kind": spec.kind, "attempt": spec.attempt,
+                                 "state": "PENDING", "node_id": None,
+                                 "worker_id": None, "start": None, "end": None}
+        for tid, info in self.dispatched.items():
+            out[tid] = {"task_id": tid, "name": info["spec"].name,
+                        "kind": info["spec"].kind,
+                        "attempt": info["spec"].attempt, "state": "RUNNING",
+                        "node_id": info["node_id"],
+                        "worker_id": info["worker_id"],
+                        "start": None, "end": None}
+        # Uniform truncation contract (shared by every list API): rows
+        # beyond `limit` drop oldest-first and the reply says so instead
+        # of silently shrinking.
+        return {"tasks": list(out.values())[-limit:],
+                "truncated": len(out) > limit}
+
+    async def _h_list_objects(self, conn, a):
+        import itertools
+
+        limit = int(a.get("limit", 1000))
+        total = len(self.objects)
+        # Uniform truncation contract: oldest rows drop first (insertion
+        # order), same as every other list API — but only the kept tail
+        # is materialized (an O(table) dict build per call would stall
+        # the event loop exactly when the table is large).
+        out = [{"object_id": oid, "state": ent.state,
+                "size": ent.size, "owner": ent.owner,
+                "inline": ent.inline is not None,
+                "plane": ent.plane or "host",
+                "holders": [list(h) for h in ent.holders]}
+               for oid, ent in itertools.islice(
+                   self.objects.items(), max(0, total - limit), None)]
+        return {"objects": out, "truncated": total > limit}
+
+    async def _p_worker_logs(self, conn, a):
+        """Fan worker stdout/stderr lines out to subscribed drivers
+        (reference log_monitor.py -> GCS pubsub -> driver printer)."""
+        for c in list(self.client_conns.values()):
+            if c.meta.get("log_sub") and not c.closed and c is not conn:
+                try:
+                    await c.push("worker_log", **a)
+                except Exception:
+                    pass
+
+    def _any_log_sub(self) -> bool:
+        return any(c.meta.get("log_sub") and not c.closed
+                   for c in self.client_conns.values())
+
+    # ------------------------------------------------------------- pubsub
+    # Reference src/ray/pubsub/publisher.h:300 (GCS pubsub channels for
+    # actor state / node / job / error events) + user-defined channels.
+    async def _h_subscribe(self, conn, a):
+        subs = conn.meta.setdefault("subs", set())
+        for ch in a.get("channels", ()):
+            subs.add(ch)
+        for ch in a.get("unsubscribe", ()):
+            subs.discard(ch)
+        return {"channels": sorted(subs)}
+
+    async def _p_publish(self, conn, a):
+        self._publish(a["channel"], a["payload"])
+
+    def _publish_actor_state(self, ent) -> None:
+        self._publish("actor", {
+            "actor_id": ent.spec.actor_id, "state": ent.state,
+            "name": ent.name, "node_id": ent.node_id,
+            "restarts_used": ent.restarts_used})
+
+    def _publish(self, channel: str, payload):
+        for c in self.client_conns.values():
+            if not c.closed and channel in (c.meta.get("subs") or ()):
+                try:
+                    c.push_threadsafe("pubsub", channel=channel, payload=payload)
+                except Exception:
+                    pass
+
+    async def _h_subscribe_logs(self, conn, a):
+        conn.meta["log_sub"] = bool(a.get("on", True))
+        # Tell agents whether anyone is listening: unsubscribed clusters
+        # must not pay per-line shipping costs.
+        await self._push_log_sub_state(self._any_log_sub())
+        return {}
+
+    async def _push_log_sub_state(self, on: bool):
+        for nconn in self.node_conns.values():
+            if not nconn.closed:
+                try:
+                    await nconn.push("log_sub_state", on=on)
+                except Exception:
+                    pass
+
+    async def _h_cluster_info(self, conn, a):
+        """Bootstrap info for joining nodes/CLIs (reference: ray start
+        --address fetches the session from the GCS)."""
+        return {
+            "session": self.session_id,
+            "num_nodes": sum(1 for n in self.nodes.values() if n.alive),
+        }
+
+    async def _h_check_objects(self, conn, a):
+        """Bulk readiness probe (backs `wait()`, cf. reference WaitManager
+        raylet/wait_manager.h)."""
+        out = []
+        for oid in a["oids"]:
+            ent = self.objects.get(oid)
+            # "lost" counts as ready-to-return: wait() surfaces it so the
+            # subsequent get() can raise / trigger lineage reconstruction.
+            out.append(ent is not None and ent.state in ("ready", "lost"))
+        return {"ready": out}
+
+    async def _p_free_objects(self, conn, a):
+        """Owner dropped its last reference. Only fan the purge out to node
+        agents for objects that could actually have shm names there (a
+        non-inline holder) — inline results (every small task/actor return)
+        never touch /dev/shm, and purging them on every node made the agent
+        glob shm per freed oid. Tombstones catch the advertise-vs-free race:
+        a register that lands after the free must not resurrect the entry.
+
+        Escaped oids (listed in a["escaped"], or marked on the entry) get
+        borrower-protocol semantics instead: the entry is marked dying and
+        survives until no borrowers remain and a grace TTL has passed
+        (_sweep_dying) — the owner's local refcount hitting zero must not
+        yank an object another process borrowed (reference
+        reference_count.h borrower protocol)."""
+        oids = a["oids"]
+        escaped = set(a.get("escaped") or ())
+        now = time.monotonic()
+        if self.freed_tombstones and now > self._tombstone_prune_at:
+            self._tombstone_prune_at = now + 10.0
+            self.freed_tombstones = {
+                o: t for o, t in self.freed_tombstones.items() if t > now}
+        shm_oids = []
+        device_frees: dict[str, list] = {}  # producer worker_id -> oids
+        for oid in oids:
+            ent = self.objects.get(oid)
+            if oid in escaped or (ent is not None and ent.escaped):
+                ent = self.objects.setdefault(oid, _ObjectEntry())
+                ent.escaped = True
+                if ent.dying_at is None:
+                    ent.dying_at = now + CONFIG.borrowed_free_grace_s
+                continue
+            self.objects.pop(oid, None)
+            # TTL must exceed any plausible task runtime: a fire-and-forget
+            # task finishing after the tombstone expires would resurrect the
+            # entry (and pin its shm segment forever).
+            self.freed_tombstones[oid] = now + 600.0
+            if ent is not None and ent.plane == "device":
+                # Device-plane entry: the payload is pinned in the producing
+                # process — unpin it with a TARGETED device_free on that
+                # producer's own client connection (works for driver
+                # producers too, which no agent can reach), and purge the
+                # shm export names everywhere like any other segment.
+                if ent.device_worker:
+                    device_frees.setdefault(ent.device_worker, []).append(oid)
+                self._device_index_drop(ent, oid)
+                shm_oids.append(oid)
+            elif ent is not None and ent.inline is None and ent.holders:
+                shm_oids.append(oid)
+        if len(self.freed_tombstones) > 200_000:  # hard cap, oldest first
+            for o in list(self.freed_tombstones)[:100_000]:
+                self.freed_tombstones.pop(o, None)
+        if shm_oids:
+            await self._purge_on_agents(shm_oids)
+        await self._push_device_frees(device_frees)
+
+    async def _purge_on_agents(self, shm_oids: list[str]):
+        for nconn in self.node_conns.values():
+            if not nconn.closed:
+                try:
+                    await nconn.push("free", oids=shm_oids)
+                except Exception:
+                    pass
+
+    async def _push_device_frees(self, by_worker: dict):
+        """Unpin freed device objects at their producers: ONE device_free
+        push per producing process over its registered client connection
+        (executing workers and drivers both register as clients) — not a
+        cluster-wide broadcast."""
+        for worker_id, oids in by_worker.items():
+            conn = self.client_conns.get(worker_id)
+            if conn is not None and not conn.closed:
+                try:
+                    await conn.push("device_free", oids=oids)
+                except Exception:
+                    pass
+
+    async def _p_borrow_add(self, conn, a):
+        """A process materialized a borrowed ref: pin the entry while the
+        borrower lives (keeps a dying escaped entry alive past its TTL)."""
+        if self._freed(a["oid"]):
+            # The object is already gone (grace expired / non-escaped free):
+            # don't resurrect a permanently-pending entry — the borrower's
+            # get() will surface 'lost' via the tombstone.
+            return
+        ent = self.objects.setdefault(a["oid"], _ObjectEntry())
+        ent.escaped = True
+        ent.borrowers.add(a["worker_id"])
+
+    async def _p_borrow_drop(self, conn, a):
+        ent = self.objects.get(a["oid"])
+        if ent is None:
+            return
+        ent.borrowers.discard(a["worker_id"])
+        # Even with no borrowers left, the entry must survive until its
+        # grace TTL: another borrow registration may still be in flight
+        # (that window is the whole reason dying_at exists). The health
+        # loop's _sweep_dying reaps it at the TTL.
+
+    async def _free_escaped(self, oids: list[str]):
+        now = time.monotonic()
+        shm_oids = []
+        device_frees: dict[str, list] = {}
+        for oid in oids:
+            ent = self.objects.pop(oid, None)
+            self.freed_tombstones[oid] = now + 600.0
+            if ent is not None and ent.plane == "device":
+                if ent.device_worker:
+                    device_frees.setdefault(ent.device_worker, []).append(oid)
+                self._device_index_drop(ent, oid)
+                shm_oids.append(oid)
+            elif ent is not None and ent.inline is None and ent.holders:
+                shm_oids.append(oid)
+        if shm_oids:
+            await self._purge_on_agents(shm_oids)
+        await self._push_device_frees(device_frees)
+
+    async def _sweep_dying(self):
+        """Reap owner-freed escaped entries whose grace TTL expired with no
+        registered borrowers (runs from the health loop)."""
+        now = time.monotonic()
+        expired = [oid for oid, ent in self.objects.items()
+                   if ent.dying_at is not None and now >= ent.dying_at
+                   and not ent.borrowers]
+        if expired:
+            await self._free_escaped(expired)
+
+    def _freed(self, oid: str) -> bool:
+        t = self.freed_tombstones.get(oid)
+        if t is None:
+            return False
+        if t <= time.monotonic():
+            self.freed_tombstones.pop(oid, None)
+            return False
+        return True
+
+    async def _purge_late(self, oid: str, holder,
+                          device_worker: str | None = None):
+        """A result advertised after its ref was freed: purge the shm names
+        it just created (fire-and-forget tasks with large returns). A late
+        DEVICE advertise also unpins at the producer — otherwise the pin
+        (and the device memory under it) would outlive the freed ref."""
+        if device_worker:
+            await self._push_device_frees({device_worker: [oid]})
+        if holder is None and not device_worker:
+            return
+        for nconn in self.node_conns.values():
+            if not nconn.closed:
+                try:
+                    await nconn.push("free", oids=[oid])
+                except Exception:
+                    pass
+
+    # ------------------------------------------------------------- actors
+    async def _h_create_actor(self, conn, a):
+        spec = self._ingest_spec(conn, a["spec"])
+        if spec.actor_name:
+            key = (spec.namespace, spec.actor_name)
+            existing = self.named_actors.get(key)
+            if existing is not None and self.actors[existing].state != "DEAD":
+                if spec.get_if_exists:
+                    return {"actor_id": existing, "existing": True}
+                raise rpc.RpcError(f"Actor name {spec.actor_name!r} already taken")
+            self.named_actors[key] = spec.actor_id
+        self.actors[spec.actor_id] = _ActorEntry(spec)
+        self._mark_dirty()
+        self.pending.append(spec)
+        self._emit_event("actor_create",
+                         f"actor {spec.name} ({spec.actor_id[:12]}) queued",
+                         entity=(spec.actor_id,),
+                         attrs={"name": spec.name})
+        self._kick()
+        return {"actor_id": spec.actor_id, "existing": False}
+
+    async def _actor_started(self, spec: TaskSpec, a: dict, info):
+        ent = self.actors.get(spec.actor_id)
+        if ent is None:
+            return
+        if ent.state == "DEAD":
+            # Killed while __init__ was running: do not resurrect; reap the
+            # worker and release whatever _dispatch accounted to it.
+            if ent.worker_id is not None and ent.node_id in self.node_conns:
+                try:
+                    await self.node_conns[ent.node_id].push(
+                        "kill_worker", worker_id=ent.worker_id)
+                except Exception:
+                    pass
+            self._release_actor_resources(ent)
+            return
+        if a.get("error") is not None:
+            # Actor __init__ raised: actor is DEAD with that cause.
+            ent.state = "DEAD"
+            self._publish_actor_state(ent)
+            ent.death_cause = a["error"]
+            self._release_actor_resources(ent)
+            self._mark_dirty()
+            self._emit_event(
+                "actor_death",
+                f"actor {spec.name} ({spec.actor_id[:12]}) died: __init__ "
+                f"raised", entity=(spec.actor_id, ent.worker_id),
+                node_id=ent.node_id)
+            ent.wake()
+            return
+        ent.state = "ALIVE"
+        self._publish_actor_state(ent)
+        ent.address = tuple(a["actor_address"])
+        if ent.worker_id:
+            self._actor_host_workers.add(ent.worker_id)
+        ent.instance += 1
+        self._emit_event(
+            "actor_ready",
+            f"actor {spec.name} ({spec.actor_id[:12]}) alive "
+            f"(instance {ent.instance})",
+            entity=(spec.actor_id, ent.worker_id), node_id=ent.node_id,
+            attrs={"instance": ent.instance})
+        ent.wake()
+        logger.info("actor %s alive at %s", spec.name, ent.address)
+
+    def _release_actor_resources(self, ent: _ActorEntry):
+        if not ent.resources_held:
+            return  # already released for this instance (idempotent)
+        ent.resources_held = False
+        if ent.node_id is not None:
+            node = self.nodes.get(ent.node_id)
+            if node is not None and node.liveness != "DEAD":
+                self._release(ent.node_id, ent.spec, ResourceSet(_raw=ent.spec.resources))
+            self._kick()
+
+    async def _h_get_actor_info(self, conn, a):
+        actor_id = a.get("actor_id")
+        if actor_id is None:
+            key = (a.get("namespace", "default"), a["name"])
+            actor_id = self.named_actors.get(key)
+            if actor_id is None:
+                return {"status": "not_found"}
+        ent = self.actors.get(actor_id)
+        if ent is None:
+            return {"status": "not_found"}
+        deadline = time.monotonic() + a.get("timeout", 60.0)
+        while ent.state in ("PENDING", "RESTARTING", "RECOVERING") and a.get("wait", True):
+            fut = asyncio.get_running_loop().create_future()
+            ent.waiters.append(fut)
+            try:
+                await asyncio.wait_for(fut, max(0.0, deadline - time.monotonic()))
+            except asyncio.TimeoutError:
+                break
+        return {
+            "status": "ok",
+            "actor_id": actor_id,
+            "state": ent.state,
+            "address": ent.address,
+            "instance": ent.instance,
+            "worker_id": ent.worker_id,
+            "death_cause": ent.death_cause,
+            "max_task_retries": ent.spec.max_task_retries,
+        }
+
+    async def _reap_owned_actors(self, owner: str, owner_mode):
+        """Ownership fate-sharing (reference gcs_actor_manager
+        OnWorkerDead/OnJobFinished): when a DRIVER or an actor-hosting
+        worker disconnects, its non-detached actors die with it. Pooled
+        task workers are exempt — they exit routinely (idle reaping) and a
+        task-created actor must outlive the transient worker that ran the
+        creating task."""
+        if owner_mode != "driver" and owner not in self._actor_host_workers:
+            return
+        for aid, ent in list(self.actors.items()):
+            if (ent.spec.owner_id == owner and ent.state != "DEAD"
+                    and ent.spec.lifetime != "detached"):
+                logger.info("actor %s dies with its owner %s (fate-sharing)",
+                            aid[:8], owner[:8])
+                ent.spec.max_restarts = 0
+                if ent.state in ("RESTARTING", "PENDING"):
+                    # No live instance to kill and _actor_worker_died would
+                    # no-op: cancel the queued respawn and bury it directly.
+                    for spec in list(self.pending):
+                        if spec.actor_id == aid:
+                            self.pending.remove(spec)
+                    self._bury_actor(ent, "owner disconnected (fate-sharing)")
+                    continue
+                wid = ent.worker_id
+                if wid is not None and ent.node_id in self.node_conns:
+                    try:
+                        await self.node_conns[ent.node_id].push(
+                            "kill_worker", worker_id=wid)
+                    except Exception:
+                        pass
+                await self._actor_worker_died(
+                    aid, "owner disconnected (fate-sharing)", worker_id=wid)
+
+    def _bury_actor(self, ent, reason: str):
+        from ray_tpu_torch._private.serialization import dumps_oob
+
+        ent.state = "DEAD"
+        self._publish_actor_state(ent)
+        aid = ent.spec.actor_id
+        self._emit_event("actor_death",
+                         f"actor {ent.spec.name} ({aid[:12]}) died: {reason}",
+                         entity=(aid,), attrs={"reason": reason})
+        h, b = dumps_oob({"type": "ActorDiedError",
+                          "message": reason + self._event_hint(aid)})
+        ent.death_cause = [h, *b]
+        self._release_actor_resources(ent)
+        self._mark_dirty()
+        ent.wake()
+        if ent.name:
+            self.named_actors.pop((ent.namespace, ent.name), None)
+
+    async def _h_kill_actor(self, conn, a):
+        ent = self.actors.get(a["actor_id"])
+        if ent is None:
+            return {}
+        if a.get("no_restart", True):
+            ent.spec.max_restarts = 0
+        wid = ent.worker_id
+        if wid is not None and ent.node_id in self.node_conns:
+            try:
+                await self.node_conns[ent.node_id].push("kill_worker", worker_id=wid)
+            except Exception:
+                pass
+        await self._actor_worker_died(a["actor_id"], "killed via kill()", worker_id=wid)
+        return {}
+
+    async def _maybe_restart_actor(self, actor_id: str, reason: str):
+        ent = self.actors.get(actor_id)
+        if ent is None:
+            return
+        max_restarts = ent.spec.max_restarts
+        if max_restarts == -1 or ent.restarts_used < max_restarts:
+            ent.restarts_used += 1
+            ent.state = "RESTARTING"
+            self._publish_actor_state(ent)
+            ent.address = None
+            logger.info("restarting actor %s (%d used): %s", ent.spec.name, ent.restarts_used, reason)
+            self._emit_event(
+                "actor_restart",
+                f"actor {ent.spec.name} ({actor_id[:12]}) restarting "
+                f"({ent.restarts_used} used): {reason}",
+                entity=(actor_id,),
+                attrs={"restarts_used": ent.restarts_used,
+                       "reason": reason})
+            respawn = ent.spec
+            respawn.attempt += 1
+            self.pending.append(respawn)
+            self._kick()
+        else:
+            ent.state = "DEAD"
+            self._publish_actor_state(ent)
+            from ray_tpu_torch._private.serialization import dumps_oob
+
+            self._emit_event(
+                "actor_death",
+                f"actor {ent.spec.name} ({actor_id[:12]}) died: {reason}",
+                entity=(actor_id,), attrs={"reason": reason})
+            # Error enrichment (README "Cluster events"): the error a
+            # caller sees names the event seqs that explain the death.
+            h, b = dumps_oob({"type": "ActorDiedError",
+                              "message": reason + self._event_hint(actor_id)})
+            ent.death_cause = [h, *b]
+            self._release_actor_resources(ent)
+            self._mark_dirty()
+            ent.wake()
+            if ent.name:
+                self.named_actors.pop((ent.namespace, ent.name), None)
+
+    def _device_index_drop(self, ent, oid: str) -> None:
+        if ent.device_worker:
+            s = self._device_index.get(ent.device_worker)
+            if s is not None:
+                s.discard(oid)
+                if not s:
+                    self._device_index.pop(ent.device_worker, None)
+
+    async def _mark_device_lost(self, oid: str, ent, message: str):
+        """One device entry's payload died with its producer: flip the
+        entry to lost and tell the owner, so a consumer's get() surfaces a
+        clean ObjectLostError NAMING the lost producer instead of hanging
+        on a dead address."""
+        ent.state = "lost"
+        ent.inline = None
+        ent.wake()
+        self._device_index_drop(ent, oid)
+        oconn = self.client_conns.get(ent.owner)
+        if oconn is not None and not oconn.closed:
+            try:
+                await oconn.push("object_lost", oid=oid, message=message)
+            except Exception:
+                pass
+
+    async def _device_objects_lost(self, worker_id: str, why: str):
+        """A worker process died taking its DeviceObjectTable with it.
+        Idempotent: already-lost entries are skipped. O(that worker's
+        entries) via the device index — routine worker exits on clusters
+        that never touch the plane cost nothing."""
+        oids = self._device_index.pop(worker_id, None)
+        if not oids:
+            return
+        self._emit_event(
+            "device_objects_lost",
+            f"{len(oids)} device object(s) lost: producing worker "
+            f"{worker_id[:12]} {why}",
+            entity=(worker_id,), attrs={"count": len(oids)})
+        hint = self._event_hint(worker_id)
+        for oid in oids:
+            ent = self.objects.get(oid)
+            if ent is None or ent.plane != "device" or ent.state != "ready":
+                continue
+            await self._mark_device_lost(
+                oid, ent,
+                f"device object {oid[:16]} lost: producing worker "
+                f"{worker_id[:12]} {why}" + hint)
+
+    async def _actor_worker_died(self, actor_id: str, reason: str,
+                                 worker_id: str | None = None,
+                                 device_swept: bool = False):
+        """Process the death of one actor *instance*. Idempotent: each
+        instance's death is consumed exactly once (keyed by the instance's
+        worker_id), so a kill() followed by the agent's worker_died report
+        cannot double-release resources or double-restart (reference keys restarts by actor instance in
+        gcs_actor_manager.cc)."""
+        ent = self.actors.get(actor_id)
+        if ent is None or ent.state == "DEAD":
+            return
+        if worker_id is not None:
+            if ent.worker_id != worker_id:
+                return  # stale report for an already-handled instance
+        elif ent.state == "RESTARTING":
+            return  # death already being handled; a restart is in flight
+        # Device objects pinned in this instance die with it (kill() skips
+        # the agent's worker_died report, so this is the kill path's sweep;
+        # _p_worker_died already swept when it is the caller).
+        wid = worker_id or ent.worker_id
+        if wid and not device_swept:
+            await self._device_objects_lost(wid, f"died ({reason})")
+            self._telem_purge_worker(wid)
+        # Drop any in-flight creation bookkeeping.
+        self.dispatched.pop(ent.spec.task_id, None)
+        self._release_actor_resources(ent)
+        ent.worker_id = None  # instance death consumed
+        ent.address = None
+        await self._maybe_restart_actor(actor_id, reason)
+
+    async def _p_worker_died(self, conn, a):
+        """Node agent reports a worker process exit. `cause="oom"` marks a
+        memory-monitor kill so owners surface OutOfMemoryError."""
+        if conn is not None and conn.meta.get("kind") == "node" \
+                and self._fenced_node(conn, a) is None:
+            return  # stale-incarnation zombie: must not kill current state
+        # The agent's pending events (incl. this death's worker_exit) ride
+        # the report itself, so their seqs land BEFORE the restart/failover
+        # events this handler mints — causal chains stay ordered.
+        evs = a.get("events")
+        if evs:
+            self._ingest_events(evs, default_node=a.get("node_id"))
+        cause = a.get("cause")
+        if a.get("worker_id"):
+            await self._device_objects_lost(a["worker_id"], "process died")
+            await self._lease_worker_died(a["worker_id"], cause=cause)
+            self._telem_purge_worker(a["worker_id"])
+        actor_id = a.get("actor_id")
+        task_id = a.get("task_id")
+        if actor_id:
+            await self._actor_worker_died(
+                actor_id, f"worker process died: {a.get('reason', '')}",
+                worker_id=a.get("worker_id"),
+                device_swept=bool(a.get("worker_id")))
+        if task_id:
+            info = self.dispatched.pop(task_id, None)
+            if info is not None:
+                spec = info["spec"]
+                if spec.kind != ACTOR_CREATE:
+                    self._release(info["node_id"], spec, ResourceSet(_raw=spec.resources))
+                await self._retry_or_fail(
+                    spec, a.get("reason") or "worker process died",
+                    error_type="OutOfMemoryError" if cause == "oom" else None)
+                self._kick()
+
+    # ------------------------------------------------------- node failure
+    async def _node_suspect(self, nid: str, conn=None):
+        """The node's control connection closed. Instead of declaring it
+        dead (and restarting ALIVE actors whose workers are still serving
+        their direct pipes — split-brain duplicate actors on a TCP blip),
+        move it to SUSPECT for a grace window: leases and actors are
+        FROZEN — kept, charged, not restarted — and the node is
+        unschedulable. An agent re-registration within the window
+        reconciles in place (_h_register); only expiry promotes to DEAD."""
+        node = self.nodes.get(nid)
+        if node is None or node.liveness != "ALIVE":
+            return
+        if conn is not None and conn.meta.get("incarnation") != node.incarnation:
+            # The agent re-registered between the close callback's fence
+            # check and this task running: the close belongs to a previous
+            # life, and suspecting the NEW life would kill a healthy node
+            # at grace expiry (nothing would ever clear the suspicion).
+            return
+        grace = CONFIG.node_suspect_grace_s
+        if grace <= 0:  # configured off: the old kill-on-close behavior
+            await self._node_died(nid)
+            return
+        node.liveness = "SUSPECT"
+        node.suspect_since = time.monotonic()
+        incarnation = node.incarnation
+        if conn is None or self.node_conns.get(nid) is conn:
+            self.node_conns.pop(nid, None)
+        logger.warning("node %s connection lost; SUSPECT for %.1fs grace "
+                       "(incarnation %d)", nid[:8], grace, incarnation)
+        self._emit_event(
+            "node_suspect",
+            f"node {nid[:8]} connection lost; SUSPECT for {grace:.1f}s",
+            entity=(nid,), node_id=nid,
+            attrs={"incarnation": incarnation, "grace_s": grace})
+        self._publish("node", {"node_id": nid, "alive": False,
+                               "liveness": "SUSPECT"})
+        await asyncio.sleep(grace)
+        current = self.nodes.get(nid)
+        if (current is node and node.liveness == "SUSPECT"
+                and node.incarnation == incarnation):
+            logger.warning("node %s suspicion grace expired; declaring dead",
+                           nid[:8])
+            await self._node_died(nid)
+
+    async def _reconcile_returned_node(self, nid: str, node: NodeState,
+                                       reported: list):
+        """A SUSPECT (or racing-ALIVE) node's agent re-registered within the
+        grace window. The NodeState — and with it all resource accounting —
+        survived the blip, so only the DIFF needs work: anything the agent
+        no longer reports died during the outage and takes the normal death
+        paths now; everything else stays bound exactly as it was (running
+        calls on direct worker pipes never noticed)."""
+        by_wid = {w["worker_id"]: w for w in reported}
+        # ALIVE actors hosted here: re-bind to their surviving workers (and
+        # cancel any queued re-creation a racing path produced); restart the
+        # ones whose workers died during the blip.
+        for aid, ent in list(self.actors.items()):
+            if ent.node_id != nid or ent.state != "ALIVE":
+                continue
+            w = by_wid.get(ent.worker_id)
+            if w is not None and (w.get("actor_id") in (None, aid)):
+                for spec in list(self.pending):
+                    if spec.actor_id == aid:
+                        self.pending.remove(spec)  # cancel queued re-creation
+                if w.get("address"):
+                    ent.address = tuple(w["address"])
+            else:
+                await self._actor_worker_died(
+                    aid, f"worker died during node {nid[:8]} suspicion blip",
+                    worker_id=ent.worker_id)
+        # Tasks this controller dispatched to the node: retry the ones whose
+        # workers are gone (their task_done can never come). A worker can be
+        # missing from inventory while still SPAWNING (no address yet), so
+        # reap it explicitly — its work is being retried elsewhere, and a
+        # dedicated worker finishing startup later would otherwise be
+        # orphaned on the node forever with its accounting already released.
+        nconn = self.node_conns.get(nid)
+        for task_id, info in list(self.dispatched.items()):
+            if info["node_id"] != nid or info["worker_id"] in by_wid:
+                continue
+            self.dispatched.pop(task_id, None)
+            if nconn is not None and not nconn.closed:
+                try:
+                    await nconn.push("kill_worker",
+                                     worker_id=info["worker_id"])
+                except Exception:
+                    pass
+            spec = info["spec"]
+            if spec.kind == ACTOR_CREATE:
+                # The idempotent instance-death path: releases the held
+                # resources before deciding restart-vs-bury.
+                await self._actor_worker_died(
+                    spec.actor_id,
+                    f"worker died during node {nid[:8]} suspicion blip",
+                    worker_id=info["worker_id"])
+                continue
+            self._release(nid, spec, ResourceSet(_raw=spec.resources))
+            await self._retry_or_fail(
+                spec, f"worker died during node {nid[:8]} suspicion blip")
+        # Leases whose workers died during the blip: invalidate so owners
+        # requeue their in-flight specs (surviving leases stay untouched —
+        # their direct pipes were never involved in the outage).
+        for lease_id, ent in list(self.leases.items()):
+            if ent["node_id"] == nid and ent["worker_id"] not in by_wid:
+                await self._lease_worker_died(ent["worker_id"])
+        # Inventory sweep for bindings that dissolved DURING the blip, when
+        # no kill/unlease push could reach the agent: an actor that was
+        # kill()ed or restarted away leaves a zombie instance still serving
+        # its pipes (exactly one instance may live — reap it); a lease that
+        # was returned/reaped leaves the slot stuck 'leased' forever.
+        # Warm-pool entries are forgotten first so their slots fall to the
+        # sweep's unlease too (pool regrants must not outlive a blip).
+        self._drop_node_pool(nid)
+        lease_wids = {l["worker_id"] for l in self.leases.values()}
+        nconn = self.node_conns.get(nid)
+        for w in reported:
+            wid = w["worker_id"]
+            aid = w.get("actor_id")
+            if aid:
+                ent = self.actors.get(aid)
+                # PENDING/RECOVERING stay: an in-flight creation's worker is
+                # judged by the dispatched-tasks loop above, not reaped.
+                if ent is None or ent.state not in ("DEAD", "RESTARTING",
+                                                    "ALIVE"):
+                    continue
+                if ent.state == "ALIVE" and ent.worker_id == wid:
+                    continue  # correctly re-bound above
+                await self._reap_stale_worker(
+                    nid, wid, aid, f"entry is {ent.state} after the blip")
+            elif w.get("state") == "leased" and wid not in lease_wids:
+                if nconn is not None and not nconn.closed:
+                    try:
+                        await nconn.push("unlease_worker", worker_id=wid)
+                    except Exception:
+                        pass
+        self._kick()
+
+    async def _node_died(self, nid: str):
+        node = self.nodes.get(nid)
+        if node is None or node.liveness == "DEAD":
+            return
+        node.liveness = "DEAD"
+        self.node_conns.pop(nid, None)
+        self._drop_node_pool(nid)
+        self._task_beacons.pop(nid, None)
+        self._reconciled_busy = {
+            t: (n, r) for t, (n, r) in self._reconciled_busy.items()
+            if n != nid}
+        logger.warning("node %s died", nid[:8])
+        self._emit_event("node_dead", f"node {nid[:8]} declared dead",
+                         entity=(nid,), node_id=nid)
+        self._publish("node", {"node_id": nid, "alive": False})
+        # Invalidate leases whose worker lived there — same event + cause
+        # vocabulary as the single-worker death path (_lease_worker_died),
+        # so node-death failovers are queryable too.
+        from ray_tpu_torch._private import events as _events
+
+        for lease_id, ent in list(self.leases.items()):
+            if ent["node_id"] == nid:
+                self._drop_lease(lease_id)  # node dead: release is a no-op
+                self._emit_event(
+                    "lease_failover",
+                    f"lease {lease_id[:8]} invalidated: node {nid[:8]} "
+                    f"died with worker {ent['worker_id'][:12]}; in-flight "
+                    f"specs fail over",
+                    entity=(lease_id, ent["worker_id"], ent["owner"], nid),
+                    node_id=nid, attrs={"cause": _events.CAUSE_CRASH})
+                oconn = self.client_conns.get(ent["owner"])
+                if oconn is not None and not oconn.closed:
+                    try:
+                        await oconn.push("lease_invalid", lease_id=lease_id,
+                                         cause=_events.CAUSE_CRASH)
+                    except Exception:
+                        pass
+        # Retry tasks that were running there.
+        for task_id, info in list(self.dispatched.items()):
+            if info["node_id"] == nid:
+                self.dispatched.pop(task_id, None)
+                await self._retry_or_fail(info["spec"], f"node {nid[:8]} died")
+        # Jobs whose driver ran there can't finish.
+        for job in self.jobs.values():
+            if job["node_id"] == nid and job["status"] in ("PENDING", "RUNNING"):
+                job["status"] = "FAILED"
+                job["message"] = f"node {nid[:8]} hosting the job driver died"
+                job["end_time"] = time.time()
+                self._emit_event(
+                    "job_stop",
+                    f"job {job['submission_id']} -> FAILED (node {nid[:8]} "
+                    f"hosting the job driver died)", severity="warning",
+                    entity=(job["submission_id"], nid), node_id=nid,
+                    attrs={"status": "FAILED"})
+        # Restart/kill its actors.
+        for actor_id, ent in list(self.actors.items()):
+            if ent.node_id == nid and ent.state in ("ALIVE", "PENDING", "RESTARTING"):
+                ent.resources_held = False  # node gone; nothing to give back
+                ent.worker_id = None
+                ent.address = None
+                await self._maybe_restart_actor(actor_id, f"node {nid[:8]} died")
+        # Mark objects whose only copies were there as lost -> owners may
+        # reconstruct from lineage (reference object_recovery_manager.cc:26).
+        dead_addr = node.address
+        for oid, ent in list(self.objects.items()):  # handlers may insert during awaits
+            if ent.plane == "device":
+                # Device entries hold only a placeholder inline; the payload
+                # lived in a worker on the node. Every producer there died
+                # with it.
+                if ent.device_node == nid and ent.state == "ready":
+                    await self._mark_device_lost(
+                        oid, ent,
+                        f"device object {oid[:16]} lost: producing worker "
+                        f"{(ent.device_worker or '?')[:12]} died with node "
+                        f"{nid[:8]}" + self._event_hint(nid))
+                continue
+            if ent.state != "ready" or ent.inline is not None:
+                continue
+            ent.holders = {h for h in ent.holders if tuple(h) != tuple(dead_addr)}
+            if not ent.holders and ent.error is None:
+                ent.state = "lost"
+                ent.wake()
+                owner_conn = self.client_conns.get(ent.owner)
+                if owner_conn is not None and not owner_conn.closed:
+                    try:
+                        await owner_conn.push("object_lost", oid=oid)
+                    except Exception:
+                        pass
+        # PG bundles on the node are lost.
+        for (pgid, idx), b in list(self.pg_bundles.items()):
+            if b["node"] == nid:
+                self.pgs[pgid]["state"] = "RESCHEDULING"
+        self._kick()
+
+    async def _health_loop(self):
+        interval = CONFIG.heartbeat_interval_s
+        timeout = interval * CONFIG.num_heartbeats_timeout
+        while True:
+            await asyncio.sleep(interval)
+            now = time.monotonic()
+            for nid, node in list(self.nodes.items()):
+                if node.alive and node.last_beat and now - node.last_beat > timeout:
+                    await self._node_died(nid)
+                elif (node.liveness == "SUSPECT" and now - node.suspect_since
+                        > CONFIG.node_suspect_grace_s + interval):
+                    # Belt and braces: the per-suspicion expiry task owns
+                    # promotion to DEAD; this catches it getting lost.
+                    await self._node_died(nid)
+            try:
+                await self._sweep_dying()
+            except Exception:
+                logger.exception("dying-object sweep failed")
+            try:
+                if self.lease_pool:
+                    await self._sweep_lease_pool()
+            except Exception:
+                logger.exception("lease-pool sweep failed")
+
+    # ----------------------------------------------------- placement groups
+    async def _h_create_pg(self, conn, a):
+        pg_id = a["pg_id"]
+        bundles = [ResourceSet(_raw=raw) for raw in a["bundles"]]
+        strategy = a.get("strategy", "PACK")
+        placed = self._place_bundles(bundles, strategy)
+        if placed is None:
+            self.pgs[pg_id] = {"state": "PENDING", "bundles_raw": a["bundles"], "strategy": strategy, "name": a.get("name")}
+            return {"state": "PENDING"}
+        for idx, (nid, rs) in enumerate(placed):
+            self.nodes[nid].available.subtract(rs)
+            self.pg_bundles[(pg_id, idx)] = {"node": nid, "available": rs.copy(), "reserved": rs}
+        self.pgs[pg_id] = {"state": "CREATED", "bundles_raw": a["bundles"], "strategy": strategy, "name": a.get("name")}
+        self._mark_dirty()
+        self._kick()
+        return {"state": "CREATED"}
+
+    def _place_bundles(self, bundles: list[ResourceSet], strategy: str):
+        """2-phase prepare/commit is unnecessary with a central scheduler —
+        placement is atomic here (cf. reference GcsPlacementGroupScheduler)."""
+        avail = {nid: n.available.copy() for nid, n in self.nodes.items()
+                 if n.alive and not n.draining}
+        placed: list[tuple[str, ResourceSet]] = []
+        used_nodes: set[str] = set()
+        for rs in bundles:
+            candidates = [nid for nid, av in avail.items() if av.fits(rs)]
+            if strategy in ("STRICT_SPREAD", "SPREAD"):
+                fresh = [nid for nid in candidates if nid not in used_nodes]
+                if strategy == "STRICT_SPREAD":
+                    candidates = fresh
+                elif fresh:
+                    candidates = fresh
+            elif strategy == "STRICT_PACK":
+                if used_nodes:
+                    candidates = [nid for nid in candidates if nid in used_nodes]
+            else:  # PACK: prefer already-used nodes
+                pref = [nid for nid in candidates if nid in used_nodes]
+                if pref:
+                    candidates = pref
+            if not candidates:
+                return None
+            nid = sorted(candidates)[0]
+            avail[nid].subtract(rs)
+            placed.append((nid, rs))
+            used_nodes.add(nid)
+        return placed
+
+    def _try_place_pg(self, pg_id: str, pg: dict) -> bool:
+        """Place + commit a PG's bundles; True on success (state CREATED,
+        dirty marked). The ONE implementation all creation/retry paths use."""
+        bundles = [ResourceSet(_raw=raw) for raw in pg["bundles_raw"]]
+        placed = self._place_bundles(bundles, pg["strategy"])
+        if placed is None:
+            return False
+        for idx, (nid, rs) in enumerate(placed):
+            self.nodes[nid].available.subtract(rs)
+            self.pg_bundles[(pg_id, idx)] = {
+                "node": nid, "available": rs.copy(), "reserved": rs}
+        pg["state"] = "CREATED"
+        self._mark_dirty()
+        return True
+
+    def _retry_pending_pgs(self):
+        """Place PENDING placement groups (restored from a snapshot or
+        waiting for capacity) — runs when nodes join."""
+        for pg_id, pg in self.pgs.items():
+            if pg["state"] == "PENDING":
+                self._try_place_pg(pg_id, pg)
+
+    async def _h_pg_wait_ready(self, conn, a):
+        deadline = time.monotonic() + a.get("timeout", 30.0)
+        pg_id = a["pg_id"]
+        while time.monotonic() < deadline:
+            pg = self.pgs.get(pg_id)
+            if pg is None:
+                return {"ready": False, "reason": "removed"}
+            if pg["state"] == "CREATED":
+                return {"ready": True}
+            # Retry placement (nodes may have joined/freed).
+            if self._try_place_pg(pg_id, pg):
+                self._kick()
+                return {"ready": True}
+            await asyncio.sleep(0.05)
+        return {"ready": False, "reason": "timeout"}
+
+    async def _h_remove_pg(self, conn, a):
+        pg_id = a["pg_id"]
+        self.pgs.pop(pg_id, None)
+        self._mark_dirty()
+        for (pgid, idx) in list(self.pg_bundles):
+            if pgid == pg_id:
+                b = self.pg_bundles.pop((pgid, idx))
+                node = self.nodes.get(b["node"])
+                # SUSPECT accounting is frozen, not discarded: skipping the
+                # release would leave the node permanently undercounted
+                # after it reconciles back to ALIVE.
+                if node is not None and node.liveness != "DEAD":
+                    node.available.add(b["reserved"])
+        self._kick()
+        return {}
+
+    # ------------------------------------------------------------------ KV
+    async def _h_kv_put(self, conn, a):
+        key = (a.get("ns", ""), a["key"])
+        if a.get("overwrite", True) or key not in self.kv:
+            self.kv[key] = a["value"]
+            self._mark_dirty()
+            return {"added": True}
+        return {"added": False}
+
+    async def _h_kv_get(self, conn, a):
+        return {"value": self.kv.get((a.get("ns", ""), a["key"]))}
+
+    async def _h_kv_del(self, conn, a):
+        deleted = self.kv.pop((a.get("ns", ""), a["key"]), None) is not None
+        if deleted:
+            self._mark_dirty()
+        return {"deleted": deleted}
+
+    async def _h_kv_exists(self, conn, a):
+        return {"exists": (a.get("ns", ""), a["key"]) in self.kv}
+
+    async def _h_kv_keys(self, conn, a):
+        ns = a.get("ns", "")
+        prefix = a.get("prefix", "")
+        return {"keys": [k for (n, k) in self.kv if n == ns and k.startswith(prefix)]}
+
+    # ------------------------------------------------------------ state API
+    async def _h_kill_node(self, conn, a):
+        """Explicit node removal (cluster_utils.remove_node, scale-down
+        termination): skips the suspicion grace window — an operator kill
+        is a fact, not a connection blip — and runs the death path now."""
+        nid = a["node_id"]
+        if nid not in self.nodes:
+            return {"ok": False}
+        await self._node_died(nid)
+        return {"ok": True}
+
+    async def _h_drain_node(self, conn, a):
+        """Mark a node unschedulable (autoscaler scale-down handshake;
+        reference DrainNode, gcs_node_manager). Running work is untouched;
+        the caller re-checks idleness before terminating."""
+        node = self.nodes.get(a["node_id"])
+        if node is None:
+            return {"ok": False}
+        node.draining = bool(a.get("on", True))
+        return {"ok": True}
+
+    async def _h_resource_demand(self, conn, a):
+        """Aggregate unmet resource demand (reference autoscaler v2's
+        ClusterStatus demand summary, autoscaler/v2/autoscaler.py:42): the
+        resource shapes of queued tasks/actor creations plus the bundles of
+        placement groups that could not be placed. Drives scale-up."""
+        unit = CONFIG.resource_unit
+        demands: list[dict] = []
+        for spec in self.pending:
+            demands.append({k: v / unit for k, v in (spec.resources or {}).items()})
+        for ent in self.actors.values():
+            if ent.state == "PENDING" and not ent.resources_held:
+                demands.append({k: v / unit
+                                for k, v in (ent.spec.resources or {}).items()})
+        pg_demands: list[dict] = []
+        for pg in self.pgs.values():
+            if pg.get("state") == "PENDING":
+                for raw in pg.get("bundles_raw", []):
+                    pg_demands.append({k: v / unit for k, v in raw.items()})
+        return {"demand": demands, "pg_demand": pg_demands}
+
+    async def _h_object_store_stats(self, conn, a):
+        """Cluster shm usage (backs the Data executor's resource-based
+        backpressure; reference streaming_executor_state's
+        object-store-memory policy). Usage comes from node-agent heartbeats
+        — the stores' own accounting — NOT the object directory, whose
+        entries stay 'live' after a block spills to disk (directory-based
+        counting latched backpressure on permanently)."""
+        shm = sum(n.shm_used for n in self.nodes.values() if n.alive)
+        n_nodes = max(1, sum(1 for n in self.nodes.values() if n.alive))
+        return {"shm_bytes": shm,
+                "capacity": n_nodes * CONFIG.object_store_memory_bytes}
+
+    async def _h_cluster_resources(self, conn, a):
+        total: dict[str, float] = {}
+        avail: dict[str, float] = {}
+        for n in self.nodes.values():
+            if not n.alive:
+                continue
+            for k, v in n.total.to_dict().items():
+                total[k] = total.get(k, 0) + v
+            for k, v in n.available.to_dict().items():
+                avail[k] = avail.get(k, 0) + v
+        return {"total": total, "available": avail}
+
+    async def _h_state_snapshot(self, conn, a):
+        # Job driver subprocesses consume no scheduler-visible resources, so
+        # a node hosting one looks fully idle; surface the count so the
+        # autoscaler never drains a node out from under a running driver.
+        jobs_per_node: dict = {}
+        for job in self.jobs.values():
+            if job["status"] in ("PENDING", "RUNNING"):
+                jn = job["node_id"]
+                jobs_per_node[jn] = jobs_per_node.get(jn, 0) + 1
+        return {
+            "nodes": {
+                nid: {
+                    "alive": n.alive,
+                    "liveness": n.liveness,
+                    "incarnation": n.incarnation,
+                    "address": n.address,
+                    "total": n.total.to_dict(),
+                    "available": n.available.to_dict(),
+                    "labels": n.labels,
+                    "active_jobs": jobs_per_node.get(nid, 0),
+                    # Heartbeat freshness: consumers that must not trust a
+                    # dead-but-undetected node (elastic sizing) filter on it.
+                    "beat_age": time.monotonic() - n.last_beat,
+                }
+                for nid, n in self.nodes.items()
+            },
+            "actors": {
+                aid: {
+                    "state": e.state,
+                    "name": e.name,
+                    "node_id": e.node_id,
+                    "class": e.spec.name,
+                    "restarts_used": e.restarts_used,
+                }
+                for aid, e in self.actors.items()
+            },
+            "pending_tasks": len(self.pending),
+            "dispatched_tasks": len(self.dispatched),
+            "num_objects": len(self.objects),
+            "pgs": {pid: {"state": p["state"], "strategy": p["strategy"]} for pid, p in self.pgs.items()},
+        }
+
+    async def _h_worker_stacks(self, conn, a):
+        """Route a live stack-dump request to the agent hosting the worker
+        (reference: dashboard -> reporter agent py-spy)."""
+        nid = a.get("node_id")
+        if nid is None:
+            hits = self._find_worker_nodes(a["worker_id"])
+            if len(hits) > 1:
+                return {"found": False,
+                        "stacks": f"worker id prefix "
+                                  f"{a['worker_id'][:12]!r} is ambiguous "
+                                  f"({len(hits)} nodes match) — use a "
+                                  f"longer prefix"}
+            if not hits:
+                return {"found": False,
+                        "stacks": f"worker {a['worker_id'][:12]} not found "
+                                  f"in the actor, lease, or dispatch tables"}
+            nid = next(iter(hits))
+        nconn = self.node_conns.get(nid)
+        if nconn is None or nconn.closed:
+            return {"found": False, "stacks": "node not found"}
+        return await nconn.call("worker_stacks", worker_id=a["worker_id"],
+                                _timeout=10)
+
+    async def _h_ping(self, conn, a):
+        return {"pong": True, "session_id": self.session_id}

@@ -1,0 +1,1501 @@
+"""Per-node agent: worker pool, task dispatch, object serving, heartbeats.
+
+Counterpart: ray_tpu/_private/node_agent.py. The port's workers start as
+`ray_tpu_torch._private.worker_proc`, GPU tasks get dedicated workers, and
+the device profile mode is "torch".
+
+Parity target: the reference raylet (src/ray/raylet/raylet.h:33 +
+node_manager.h:122): WorkerPool (worker_pool.h:228 — process prestart and
+reuse), LocalTaskManager dispatch (local_task_manager.cc:124), object serving
+(object_manager.h:106 Push/Pull), heartbeat/health (gcs_health_check_manager).
+Scheduling decisions live in the controller (see controller.py); the agent
+only executes dispatch orders — no local queueing/spillback.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import subprocess
+import sys
+import time
+from collections import deque
+from typing import Optional
+
+from ray_tpu_torch._private import events as events_mod
+from ray_tpu_torch._private import rpc, telemetry
+from ray_tpu_torch._private.ids import WorkerID
+from ray_tpu_torch._private.object_store import LocalStore
+from ray_tpu_torch._private.rtconfig import CONFIG
+from ray_tpu_torch._private.task_spec import ACTOR_CREATE, TaskSpec
+
+logger = logging.getLogger(__name__)
+
+
+class _WorkerSlot:
+    __slots__ = ("worker_id", "proc", "conn", "state", "task_id", "actor_id", "address",
+                 "registered", "dedicated", "idle_since", "assigned_at",
+                 "held_resources", "device_pinned",
+                 "beacon_task", "beacon_at", "beacon_silence",
+                 "exit_emitted")
+
+    def __init__(self, worker_id: str, proc, dedicated: bool = False):
+        self.worker_id = worker_id
+        self.proc = proc
+        self.conn: Optional[rpc.Connection] = None
+        self.state = "starting"  # starting | idle | reserved | busy | actor | dead
+        self.task_id: Optional[str] = None
+        self.actor_id: Optional[str] = None
+        self.address = None
+        self.registered = asyncio.Event()
+        self.dedicated = dedicated  # spawned for an actor; never joins the pool
+        self.idle_since: float = 0.0
+        self.assigned_at: float = 0.0  # last task/lease/actor assignment time
+        # Raw resources this slot's lease/task/actor holds — reported on
+        # re-registration so a RESTARTED controller can rebuild accounting
+        # (reference RayletNotifyGCSRestart reconciliation).
+        self.held_resources: Optional[dict] = None
+        # True while the worker reports live DeviceObjectTable pins: an
+        # idle pool worker is still the STORAGE for those objects, so the
+        # idle reaper must not kill it (README "Device objects").
+        self.device_pinned = False
+        # Stall-watchdog beacons (README "Stall detection & watchdogs"):
+        # the executing task the worker last beaconed about, when, and its
+        # self-reported progress silence. Beacons STOPPING while a task
+        # runs trips the agent-side backstop (worker wedged in native code
+        # can't run its own monitor thread).
+        self.beacon_task: Optional[str] = None
+        self.beacon_at: float = 0.0
+        self.beacon_silence: float = 0.0
+        # Event-plane dedup: exactly ONE worker_exit event per slot, no
+        # matter which order the exit paths fire in (reap tick vs
+        # _kill_slot vs idle reap vs OOM/stall report-then-kill).
+        self.exit_emitted = False
+
+
+class NodeAgent:
+    def __init__(
+        self,
+        node_id: str,
+        session_id: str,
+        controller_addr: tuple,
+        resources_raw: dict,
+        labels: dict | None = None,
+        host: str = "127.0.0.1",
+        env: dict | None = None,
+    ):
+        self.node_id = node_id
+        self.session_id = session_id
+        self.controller_addr = controller_addr
+        self.resources_raw = resources_raw
+        self.labels = labels or {}
+        self.host = host
+        self.extra_env = env or {}
+        self.server = rpc.RpcServer(self._on_request, self._on_push, self._on_worker_conn_close)
+        self.store = LocalStore(session_id, CONFIG.object_store_memory_bytes, CONFIG.object_spill_dir, CONFIG.shm_dir)
+        self.controller: Optional[rpc.Connection] = None
+        self.workers: dict[str, _WorkerSlot] = {}
+        self.jobs: dict[str, dict] = {}  # submission_id -> {proc, log_path, stopped}
+        self._idle_waiters: deque = None  # set in start
+        self._tasks: list[asyncio.Task] = []
+        self._stopping = False
+        self._reconnecting = False  # single-flight controller reconnect
+        self.port = 0
+        # Controller-minted at registration, echoed on every push so the
+        # controller can fence messages from a previous life of this node.
+        self.incarnation = 0
+        # pid -> lock serializing stack-dump requests: two concurrent
+        # /api/stacks probes share one append-mode dump file per pid, and
+        # an unserialized second truncate would cut the first's read short.
+        self._stack_locks: dict[int, asyncio.Lock] = {}
+        # Telemetry plane (README "Telemetry & profiling"): sample batches
+        # awaiting the next heartbeat (None while RT_TELEMETRY_INTERVAL_S
+        # is unset — the heartbeat frame then stays byte-identical, pinned
+        # by test) and the latest device-side series each worker pushed.
+        self._telem_pending: deque | None = None
+        self._worker_device_series: dict[str, dict] = {}
+        self._node_cpu: telemetry.CpuTracker | None = None
+        self._worker_cpu: telemetry.PidCpuTracker | None = None
+        # Cluster event plane (README "Cluster events"): lifecycle events
+        # this agent observed (worker start/exit with normalized cause,
+        # dedup replays), awaiting the next heartbeat — or the next
+        # worker_died push, which carries them so an exit event's seq lands
+        # before the controller's restart/failover bookkeeping events.
+        # None when the plane is off (RT_EVENTS_BUFFER=0): the heartbeat
+        # frame stays byte-identical.
+        self._pending_events: deque | None = (
+            deque(maxlen=max(64, int(CONFIG.events_buffer)))
+            if int(CONFIG.events_buffer) > 0 else None)
+        # Direct-path task dedup (at-most-once across owner failover): a
+        # leased worker whose owner connection severed reports the spec it
+        # is still running (`ltask_running`) and its eventual outcome
+        # (`ltask_done`). A controller re-dispatch of the same task id —
+        # the owner failing the spec over — waits for the running entry to
+        # resolve, then replies `dup` with the recorded results instead of
+        # executing twice. task_id -> {"state", "worker_id", "results",
+        # "error", "retryable", "event", "expires"}.
+        self._direct_tasks: dict[str, dict] = {}
+
+    async def start(self) -> int:
+        self._idle_waiters = deque()
+        self.port = await self.server.start(self.host, 0)
+        # Initial connect retries like the reconnect path: a node joining
+        # while the controller restarts (or before it finishes binding)
+        # must not crash out on one refused connection.
+        deadline = time.monotonic() + CONFIG.connect_timeout_s
+        while True:
+            try:
+                self.controller = await rpc.connect(
+                    *self.controller_addr,
+                    on_request=self._on_ctrl_request,
+                    on_push=self._on_ctrl_push,
+                    on_close=self._on_ctrl_conn_close,
+                    label="ctrl",
+                )
+                break
+            except OSError:
+                if time.monotonic() >= deadline:
+                    raise
+                await asyncio.sleep(0.5)
+        rep = await self.controller.call(
+            "register",
+            kind="node",
+            node_id=self.node_id,
+            address=(self.host, self.port),
+            resources=self.resources_raw,
+            labels=self.labels,
+        )
+        self.incarnation = rep.get("incarnation") or 0
+        CONFIG.load_snapshot(rep["config"])
+        self.logs_enabled = bool(rep.get("log_sub", False))
+        self._tasks.append(asyncio.ensure_future(self._heartbeat_loop()))
+        self._tasks.append(asyncio.ensure_future(self._reap_loop()))
+        if telemetry.interval_s() > 0:
+            # Bounded: a controller outage must not grow an unbounded
+            # sample backlog — oldest batches shed, ring discipline. Sized
+            # so a full heartbeat interval of ticks fits with slack (a
+            # fast sampler under a slow heartbeat must not shed in steady
+            # state), never below the 16-batch outage floor.
+            per_beat = CONFIG.heartbeat_interval_s / max(
+                0.05, telemetry.interval_s())
+            self._telem_pending = deque(maxlen=max(16, int(per_beat) + 8))
+            self._node_cpu = telemetry.CpuTracker()
+            self._worker_cpu = telemetry.PidCpuTracker()
+            self._tasks.append(asyncio.ensure_future(self._telemetry_loop()))
+        if CONFIG.memory_monitor_refresh_ms > 0:
+            self._tasks.append(asyncio.ensure_future(self._memory_monitor_loop()))
+        if CONFIG.prestart_workers and self.resources_raw.get("CPU", 0) > 0:
+            self._spawn_worker()  # hide first-task process startup latency
+        return self.port
+
+    async def stop(self):
+        self._stopping = True
+        for t in self._tasks:
+            t.cancel()
+        for slot in list(self.workers.values()):
+            self._kill_slot(slot, cause=events_mod.CAUSE_SHUTDOWN,
+                            why="node agent shutdown")
+        # Final best-effort heartbeat carrying the shutdown worker_exits:
+        # the heartbeat loop is already cancelled, and undelivered events
+        # here would leave every worker_start without its exit pair when
+        # the controller outlives this agent.
+        evs = self._drain_events()
+        if evs and self.controller is not None and not self.controller.closed:
+            try:
+                await self.controller.push(
+                    "heartbeat", node_id=self.node_id,
+                    incarnation=self.incarnation,
+                    shm_used=self.store.shm_dir_usage(), events=evs)
+            except Exception:
+                pass
+        await self.server.stop()
+        if self.controller is not None:
+            await self.controller.close()
+        self.store.shutdown()
+
+    # -------------------------------------------------- controller channel
+    def _on_ctrl_conn_close(self, conn):
+        """The controller went away. Agents OUTLIVE a controller restart
+        (reference: raylets tolerate a GCS restart and re-register via
+        RayletNotifyGCSRestart, core_worker.proto:459): retry the same
+        address, then re-register with the current worker inventory so the
+        restarted controller can rebuild its accounting. Running work keeps
+        running throughout — leases/actor pipes are direct connections."""
+        if self._stopping:
+            return
+        asyncio.ensure_future(self._ctrl_reconnect())
+
+    def _worker_inventory(self) -> list:
+        out = []
+        for slot in self.workers.values():
+            if slot.proc.poll() is not None or slot.address is None:
+                continue
+            out.append({
+                "worker_id": slot.worker_id,
+                "address": tuple(slot.address),
+                "state": slot.state,
+                "task_id": slot.task_id,
+                "actor_id": slot.actor_id,
+                "dedicated": slot.dedicated,
+                "resources": slot.held_resources,
+            })
+        return out
+
+    async def _ctrl_reconnect(self):
+        if self._reconnecting:
+            return  # single-flight: abandoned conns' on_close must not fork
+        self._reconnecting = True
+        try:
+            await self._ctrl_reconnect_inner()
+        finally:
+            self._reconnecting = False
+
+    async def _ctrl_reconnect_inner(self):
+        deadline = time.monotonic() + CONFIG.controller_reconnect_timeout_s
+        logger.warning("agent %s: controller connection lost; retrying %s",
+                       self.node_id[:8], self.controller_addr)
+        while not self._stopping and time.monotonic() < deadline:
+            conn = None
+            try:
+                conn = await rpc.connect(
+                    *self.controller_addr,
+                    on_request=self._on_ctrl_request,
+                    on_push=self._on_ctrl_push,
+                    on_close=self._on_ctrl_conn_close,
+                    timeout=5,
+                    label="ctrl",
+                )
+                rep = await conn.call(
+                    "register", kind="node", node_id=self.node_id,
+                    address=(self.host, self.port),
+                    resources=self.resources_raw, labels=self.labels,
+                    workers=self._worker_inventory(), _timeout=10)
+                self.controller = conn
+                self.incarnation = rep.get("incarnation") or 0
+                CONFIG.load_snapshot(rep["config"])
+                self.logs_enabled = bool(rep.get("log_sub", False))
+                logger.info("agent %s: re-registered with restarted "
+                            "controller", self.node_id[:8])
+                return
+            except Exception:
+                if conn is not None and not conn.closed:
+                    try:
+                        await conn.close()
+                    except Exception:
+                        pass
+                await asyncio.sleep(0.5)
+        if self._stopping:
+            return
+        logger.error("agent %s: controller gone for %.0fs; shutting down",
+                     self.node_id[:8], CONFIG.controller_reconnect_timeout_s)
+        if os.environ.get("RT_AGENT_STANDALONE"):
+            os._exit(1)
+
+    async def _on_ctrl_request(self, conn, method, a):
+        if method == "dispatch":
+            return await self._dispatch(a["spec"])
+        if method == "dispatch_batch":
+            # One frame per scheduling pass per node; worker acquisition
+            # fans out concurrently and each spec is reported EAGERLY via a
+            # `dispatched` push the moment its acquisition resolves (frames
+            # coalesce on the wire) — a warm pool hit must not wait for a
+            # cold spawn sharing its batch. The call reply is the barrier:
+            # it follows every push on this ordered connection.
+            async def _one(spec):
+                dup = await self._consume_direct_dup(spec.task_id,
+                                                     spec.attempt)
+                if dup is not None:
+                    self._emit_event(
+                        "lease_dedup_replay",
+                        f"replayed recorded outcome for task "
+                        f"{spec.task_id[:12]} a{spec.attempt} (failover "
+                        f"re-dispatch absorbed; exactly-once)",
+                        entity=(spec.task_id, dup.get("worker_id")),
+                        attrs={"attempt": spec.attempt})
+                    out = {"task_id": spec.task_id, "ok": True, "dup": True,
+                           "worker_id": None, "results": dup.get("results"),
+                           "error": dup.get("error"),
+                           "retryable": dup.get("retryable", False)}
+                    try:
+                        await conn.push("dispatched", **out)
+                    except Exception:
+                        pass
+                    return out
+                try:
+                    rep = await self._dispatch(spec)
+                    out = {"task_id": spec.task_id, "ok": True,
+                           "worker_id": rep["worker_id"]}
+                except Exception as e:
+                    out = {"task_id": spec.task_id, "ok": False,
+                           "error": repr(e)}
+                try:
+                    await conn.push("dispatched", **out)
+                except Exception:
+                    pass  # conn died: the controller's barrier requeues
+                return out
+
+            results = await asyncio.gather(*[_one(s) for s in a["specs"]])
+            return {"results": list(results)}
+        if method in ("lease_worker", "lease_workers"):
+            count = max(1, int(a.get("count", 1)))
+
+            async def _lease_one():
+                try:
+                    slot = await self._acquire_pool_worker()
+                except Exception:
+                    return None
+                if conn.closed:
+                    # The controller died while we were acquiring: the reply
+                    # can never be delivered, and marking the slot leased
+                    # would orphan it FOREVER (no owner will ever return it)
+                    # while its ghost acquisition starves real waiters after
+                    # the controller restarts. Re-idle the slot.
+                    self._worker_became_idle(slot)
+                    return None
+                slot.state = "leased"
+                slot.assigned_at = time.monotonic()
+                slot.held_resources = a.get("resources")
+                return {"worker_id": slot.worker_id, "address": slot.address}
+
+            # The whole batch acquires concurrently (slot reservation is
+            # synchronous, so no double-grant) and partial fills are fine —
+            # the controller releases what it placed but didn't get.
+            out = [w for w in await asyncio.gather(
+                *[_lease_one() for _ in range(count)]) if w is not None]
+            if method == "lease_worker":  # single-grant wire compat
+                if not out:
+                    raise rpc.RpcError("no worker available for lease")
+                return out[0]
+            return {"workers": out}
+        if method == "worker_stacks":
+            return await self._worker_stacks(a["worker_id"])
+        if method == "profile_worker":
+            return await self._profile_worker(a)
+        if method == "run_job":
+            return self._run_job(a)
+        if method == "stop_job":
+            return self._stop_job(a["submission_id"])
+        if method == "job_logs":
+            return self._job_logs(a["submission_id"], int(a.get("offset", 0)))
+        raise rpc.RpcError(f"agent: unknown ctrl method {method}")
+
+    async def _worker_stacks(self, worker_id: str) -> dict:
+        """Live thread stacks of one worker (the py-spy/reporter-agent
+        role, dashboard/modules/reporter/): SIGUSR1 triggers the worker's
+        faulthandler dump; the agent reads the per-pid file back."""
+        import signal
+
+        from ray_tpu_torch._private.rtconfig import stack_dump_path
+
+        wid = self._resolve_worker_id(worker_id)
+        slot = self.workers.get(wid) if wid else None
+        if slot is None or slot.proc.poll() is not None:
+            return {"found": False, "stacks": ""}
+        pid = slot.proc.pid
+        path = stack_dump_path(self.session_id, pid)
+        # Serialize per pid: concurrent probes share one append-mode dump
+        # file, and a second request's truncate would cut the first's
+        # read short mid-dump.
+        lock = self._stack_locks.setdefault(pid, asyncio.Lock())
+        async with lock:
+            if len(self._stack_locks) > 64:  # prune locks of gone workers
+                live = {s.proc.pid for s in self.workers.values()}
+                for p in [p for p in self._stack_locks
+                          if p not in live and p != pid]:
+                    self._stack_locks.pop(p, None)
+            # Truncate between requests: dumps append (C-level faulthandler
+            # on an O_APPEND-style fd), and a polled endpoint would
+            # otherwise grow the file unboundedly over a long-lived
+            # worker's life.
+            try:
+                os.truncate(path, 0)
+            except OSError:
+                pass
+            offset = 0
+            try:
+                os.kill(pid, signal.SIGUSR1)
+            except OSError as e:
+                return {"found": False, "stacks": f"signal failed: {e}"}
+            # Dumps APPEND (C-level faulthandler on a pre-opened fd); wait
+            # for growth past our offset, then for one quiet tick so a
+            # mid-write read can't return a truncated dump.
+            last = offset
+            for _ in range(20):  # up to 1s
+                await asyncio.sleep(0.05)
+                try:
+                    size = os.path.getsize(path)
+                except OSError:
+                    continue
+                if size > offset and size == last:
+                    # Read off the loop: the dump is usually small, but this
+                    # loop also carries heartbeats and every worker's RPC —
+                    # a slow /tmp (or a huge threaded-actor dump) must not
+                    # stall them.
+                    def _read_dump(path=path, offset=offset):
+                        with open(path) as f:
+                            f.seek(offset)
+                            return f.read()
+
+                    stacks = await asyncio.get_running_loop(
+                        ).run_in_executor(None, _read_dump)
+                    return {"found": True, "pid": pid, "stacks": stacks}
+                last = size
+            return {"found": False, "stacks": "worker did not dump in time"}
+
+    # ------------------------------------------------- stall escalation
+    async def _handle_stall_report(self, report: dict):
+        """One escalation stage from a worker's watchdog (or the backstop
+        below). warn: forward only. dump: capture the worker's live thread
+        stacks through the SAME per-pid dump path /api/stacks uses (one
+        implementation, one per-pid lock) and persist the whole report
+        through the storage plane under <flight_dir>/. kill: all of that,
+        then fell the worker — the death rides the ordinary worker_died /
+        lease-failover machinery, so the stalled attempt retries instead of
+        hanging its owner's get() forever."""
+        stage = report.get("stage")
+        wid = report.get("worker_id")
+        slot = self.workers.get(wid) if wid else None
+        if stage in ("dump", "kill"):
+            try:
+                stacks = await self._worker_stacks(wid)
+                report["stacks"] = (stacks.get("stacks")
+                                    if stacks.get("found") else None)
+            except Exception:
+                report["stacks"] = None
+            await self._persist_flight_dump(report)
+        try:
+            await self.controller.push(
+                "stall_report", report=report, node_id=self.node_id,
+                incarnation=self.incarnation)
+        except Exception:
+            pass
+        if stage == "kill" and slot is not None and slot.proc.poll() is None \
+                and slot.state != "dead":
+            # Re-validate against the worker's LATEST beacon before the
+            # kill: the stack capture + flight dump above took real time,
+            # and a task that finished right at the threshold may have
+            # handed the worker to NEW work. Beacons keep naming the
+            # stalest executing task, so a mismatch means the worker moved
+            # on — killing it now would fail an innocent attempt.
+            # (Backstop reports skip this: their whole premise is that
+            # beacons stopped.)
+            expected = report.get("task_id")
+            if (not report.get("backstop") and expected is not None
+                    and slot.beacon_task != expected):
+                logger.info(
+                    "stall kill aborted: worker %s no longer executing "
+                    "task %s (moved on)", wid[:8], str(expected)[:12])
+                return
+            reason = (f"stalled: task {report.get('name')!r} made no "
+                      f"progress for {report.get('silence_s')}s "
+                      f"(watchdog kill escalation)")
+            if report.get("trace_id"):
+                # Traced task: name the trace so the failure message links
+                # straight to `ray-tpu timeline --trace <id>`.
+                reason += f" [trace {str(report['trace_id'])[:16]}]"
+            logger.warning("stall watchdog: killing worker %s — %s",
+                           wid[:8], reason)
+            # Report BEFORE terminating (the OOM-kill pattern) so owners
+            # see an attributed death, then kill; retries ride the
+            # existing paths from here.
+            await self._worker_exited(slot, reason, cause="stall")
+            self._kill_slot(slot)
+
+    async def _persist_flight_dump(self, report: dict):
+        """Write the StallReport (flight-recorder ring + stacks included)
+        through the storage backend so it survives the process. Train
+        runs route this under <run>/flight/ via RT_STALL_FLIGHT_DIR."""
+        import json as _json
+
+        try:
+            from ray_tpu_torch import storage
+
+            flight_dir = report.get("flight_dir") or os.path.join(
+                CONFIG.session_dir, self.session_id, "flight")
+            name = (f"{int((report.get('time') or time.time()) * 1000)}"
+                    f"_{report.get('pid')}_{report.get('stage')}.json")
+            path = storage.join(flight_dir, name)
+            blob = _json.dumps(report, default=str).encode()
+
+            def _put():
+                storage.makedirs(flight_dir)
+                storage.put(path, blob)
+
+            await asyncio.to_thread(_put)
+            report["flight_path"] = path
+        except Exception:
+            logger.exception("stall watchdog: flight dump failed")
+
+    def _beacon_ages(self) -> dict | None:
+        """task_id -> seconds since the executing worker's last progress,
+        shipped with heartbeats so `get(timeout=)` failures and
+        `task_status` can name how long the producer has been silent."""
+        now = time.monotonic()
+        out = {}
+        for slot in self.workers.values():
+            if slot.beacon_task is not None and slot.beacon_at:
+                out[slot.beacon_task] = round(
+                    slot.beacon_silence + (now - slot.beacon_at), 3)
+        return out or None
+
+    # ------------------------------------------------------------- jobs
+    # Reference: the job supervisor runs the entrypoint as a shell
+    # subprocess with RAY_ADDRESS injected and streams its output to a
+    # per-job log file (dashboard/modules/job/job_manager.py:60,
+    # job_supervisor's _exec_entrypoint). Same shape here: the agent owns
+    # the driver subprocess; the controller owns the status table.
+    def _run_job(self, a: dict) -> dict:
+        sid = a["submission_id"]
+        env = dict(os.environ)
+        env.update(self.extra_env)
+        import ray_tpu_torch
+
+        pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(ray_tpu_torch.__file__)))
+        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        env["RT_ADDRESS"] = f"{self.controller_addr[0]}:{self.controller_addr[1]}"
+        env["RT_JOB_SUBMISSION_ID"] = sid
+        for k, v in ((a.get("runtime_env") or {}).get("env_vars") or {}).items():
+            env[k] = str(v)
+        log_dir = os.path.join(CONFIG.session_dir, self.session_id, "logs")
+        os.makedirs(log_dir, exist_ok=True)
+        log_path = os.path.join(log_dir, f"job-{sid}.log")
+        log_f = open(log_path, "ab")
+        cwd = (a.get("runtime_env") or {}).get("working_dir") or None
+        try:
+            proc = subprocess.Popen(
+                a["entrypoint"], shell=True, env=env, cwd=cwd,
+                stdout=log_f, stderr=subprocess.STDOUT,
+                start_new_session=True)  # own pgid: stop_job kills the tree
+        except Exception as e:
+            return {"status": "failed", "message": f"spawn failed: {e!r}"}
+        finally:
+            log_f.close()  # the child holds its own inherited fd
+        self.jobs[sid] = {"proc": proc, "log_path": log_path, "stopped": False}
+        asyncio.ensure_future(self._watch_job(sid, proc))
+        return {"status": "running", "pid": proc.pid, "log_path": log_path}
+
+    async def _watch_job(self, sid: str, proc: subprocess.Popen):
+        while proc.poll() is None:
+            await asyncio.sleep(0.1)
+        ent = self.jobs.get(sid)
+        stopped = bool(ent and ent["stopped"])
+        try:
+            await self.controller.push(
+                "job_done", submission_id=sid, returncode=proc.returncode,
+                stopped=stopped, node_id=self.node_id,
+                incarnation=self.incarnation)
+        except Exception:
+            pass
+
+    def _stop_job(self, sid: str) -> dict:
+        import signal
+
+        ent = self.jobs.get(sid)
+        if ent is None or ent["proc"].poll() is not None:
+            return {"stopped": False}
+        ent["stopped"] = True
+        try:
+            os.killpg(ent["proc"].pid, signal.SIGTERM)
+        except Exception:
+            ent["proc"].terminate()
+
+        async def _escalate(proc=ent["proc"]):
+            for _ in range(30):  # 3s grace, then SIGKILL the group
+                if proc.poll() is not None:
+                    return
+                await asyncio.sleep(0.1)
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except Exception:
+                proc.kill()
+
+        asyncio.ensure_future(_escalate())
+        return {"stopped": True}
+
+    #: Per-call byte cap for job_logs replies (the uniform truncation
+    #: discipline): an unbounded tail-from-offset read would buffer a whole
+    #: multi-GB log into ONE RPC reply frame. Callers loop while
+    #: `truncated` is true (job_submission._read_logs_from).
+    JOB_LOG_CHUNK_BYTES = 1 << 20
+
+    def _job_logs(self, sid: str, offset: int) -> dict:
+        ent = self.jobs.get(sid)
+        if ent is None:
+            return {"data": b"", "offset": offset, "found": False,
+                    "truncated": False}
+        try:
+            with open(ent["log_path"], "rb") as f:
+                f.seek(offset)
+                data = f.read(self.JOB_LOG_CHUNK_BYTES)
+                truncated = bool(f.read(1))  # more bytes remain past the cap
+            return {"data": data, "offset": offset + len(data),
+                    "found": True, "truncated": truncated}
+        except OSError:
+            return {"data": b"", "offset": offset, "found": False,
+                    "truncated": False}
+
+    async def _on_ctrl_push(self, conn, method, a):
+        if method == "free":
+            # Covers device-object EXPORT segments too; the pin itself is
+            # unpinned by the controller's targeted device_free push on the
+            # producer's own client connection.
+            for oid in a["oids"]:
+                self.store.purge(oid)
+        elif method == "kill_worker":
+            slot = self.workers.get(a["worker_id"])
+            if slot is not None:
+                self._kill_slot(slot)
+        elif method == "unlease_worker":
+            slot = self.workers.get(a["worker_id"])
+            if slot is not None and slot.state == "leased":
+                self._worker_became_idle(slot)
+        elif method == "cancel_task":
+            slot = self.workers.get(a["worker_id"])
+            if slot is None or slot.task_id != a["task_id"]:
+                return
+            if a.get("force"):
+                self._kill_slot(slot)
+            elif slot.conn is not None and not slot.conn.closed:
+                try:
+                    await slot.conn.push("cancel", task_id=a["task_id"])
+                except Exception:
+                    pass
+        elif method == "log_sub_state":
+            self.logs_enabled = bool(a.get("on", False))
+        elif method == "shutdown":
+            await self.stop()
+
+    # ------------------------------------------------------- event plane
+    def _emit_event(self, kind: str, message: str = "", *,
+                    severity: str | None = None, entity=(),
+                    attrs: dict | None = None) -> None:
+        """Queue one lifecycle event; it rides the next heartbeat (or the
+        next worker_died push). No-op when the plane is off."""
+        if self._pending_events is None:
+            return
+        self._pending_events.append(events_mod.build_event(
+            kind, message, severity=severity, entity=entity,
+            node_id=self.node_id, attrs=attrs,
+            src=f"agent:{self.node_id[:12]}"))
+
+    def _emit_worker_exit(self, slot: _WorkerSlot, cause: str, reason: str,
+                          prev_state: str | None = None) -> None:
+        """Exactly one worker_exit event per slot, whichever exit path
+        observes it first (the slot-level flag dedups the report-then-kill
+        shapes: OOM/stall `_worker_exited` + `_kill_slot`, idle reap's
+        emit + kill)."""
+        if slot.exit_emitted:
+            return
+        slot.exit_emitted = True
+        self._emit_event(
+            "worker_exit",
+            f"worker {slot.worker_id[:12]} exited ({cause}): {reason}",
+            severity=("info" if cause in (events_mod.CAUSE_SHUTDOWN,
+                                          events_mod.CAUSE_IDLE_REAP)
+                      else "warning"),
+            entity=(slot.worker_id, slot.actor_id,
+                    slot.task_id if prev_state == "busy" else None),
+            attrs={"cause": cause, "state": prev_state or slot.state,
+                   "pid": slot.proc.pid})
+
+    def _drain_events(self) -> list | None:
+        if not self._pending_events:
+            return None
+        return [self._pending_events.popleft()
+                for _ in range(len(self._pending_events))]
+
+    @staticmethod
+    def _requeue_front(dq: deque | None, items: list | None) -> None:
+        """Requeue drained-but-unsent batches BEHIND anything appended
+        during the failed push (shed-oldest under a long outage). ONE
+        discipline for every heartbeat-piggybacked plane — the shared
+        rebuild lives in events.requeue_front; no lock here, the agent
+        loop owns both deques."""
+        events_mod.requeue_front(dq, items)
+
+    def _requeue_events(self, evs: list) -> None:
+        self._requeue_front(self._pending_events, evs)
+
+    async def _heartbeat_loop(self):
+        # ONE loop for the agent's lifetime: it reads self.controller every
+        # beat, so it follows reconnects; failed pushes during an outage
+        # are simply skipped (respawning a loop per reconnect would
+        # accumulate duplicates).
+        while True:
+            await asyncio.sleep(CONFIG.heartbeat_interval_s)
+            telem = None
+            evs = None
+            try:
+                beat = dict(node_id=self.node_id,
+                            incarnation=self.incarnation,
+                            shm_used=self.store.shm_dir_usage())
+                beacons = self._beacon_ages()
+                if beacons:  # frame unchanged when the watchdog is idle
+                    beat["beacons"] = beacons
+                if self._telem_pending:
+                    # Telemetry piggybacks on the heartbeat (no new
+                    # connection or cadence — the span-drain shape);
+                    # with sampling off the frame is byte-identical.
+                    telem = [self._telem_pending.popleft()
+                             for _ in range(len(self._telem_pending))]
+                    beat["telemetry"] = telem
+                evs = self._drain_events()
+                if evs:  # frame unchanged when no lifecycle event is queued
+                    beat["events"] = evs
+                await self.controller.push("heartbeat", **beat)
+            except Exception:
+                # Controller away: requeue both piggybacked planes for the
+                # next beat (shed-oldest discipline — see _requeue_front).
+                self._requeue_front(self._telem_pending, telem)
+                self._requeue_front(self._pending_events, evs)
+                continue
+
+    # ----------------------------------------------------------- telemetry
+    async def _telemetry_loop(self):
+        """Per-node resource sampling (README "Telemetry & profiling"):
+        node CPU/mem/disk + per-worker RSS/CPU% each tick, merged with the
+        device-side series workers push (`worker_telemetry`). Batches park
+        in a bounded ring until the next heartbeat carries them."""
+        interval = max(0.05, telemetry.interval_s())
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                self._telem_pending.append(self._sample_telemetry())
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.debug("telemetry sample tick failed", exc_info=True)
+
+    def _sample_telemetry(self) -> dict:
+        """One sample batch (sync — /proc reads are microseconds; the same
+        off-loop-call shape as _memory_usage_fraction)."""
+        workers: dict[str, dict] = {}
+        total_rss = 0
+        running = 0
+        live_pids = []
+        for wid, slot in self.workers.items():
+            if slot.proc.poll() is not None:
+                continue
+            pid = slot.proc.pid
+            live_pids.append(pid)
+            if slot.state in ("busy", "actor"):
+                running += 1
+            w: dict = {"cpu": self._worker_cpu.percent(pid)}
+            rss = telemetry.pid_rss_bytes(pid)
+            if rss is not None:
+                w["rss"] = rss
+                total_rss += rss
+            dev = self._worker_device_series.get(wid)
+            if dev:
+                # Staleness bound: a worker whose sampler stopped pushing
+                # (GIL-holding native call, failed pushes) must not have
+                # its last hbm/compile values re-stamped as fresh forever.
+                series, pushed = dev
+                if time.monotonic() - pushed < 3.0 * max(
+                        0.05, telemetry.interval_s()) + 1.0:
+                    w.update(series)
+                else:
+                    self._worker_device_series.pop(wid, None)
+            workers[wid] = w
+        self._worker_cpu.prune(live_pids)
+        node = {
+            "cpu": self._node_cpu.percent(),
+            "mem": telemetry.mem_percent(),
+            "disk": telemetry.disk_percent(CONFIG.session_dir),
+            "rss": total_rss,
+            "tasks_running": running,
+        }
+        return {"ts": time.time(), "node": node, "workers": workers}
+
+    async def _profile_worker(self, a: dict) -> dict:
+        """On-demand profile capture of a live worker (reference: the
+        reporter agent's py-spy endpoints). The worker runs the sampler
+        in-process (its IO loop stays free while the exec thread works);
+        the agent persists the rendered profile through the storage plane
+        under <session>/profiles/ and returns the metadata row. A worker
+        dying mid-capture is an attributed error, never a hang (the
+        capture call is bounded and the conn close fails it fast)."""
+        req = a.get("worker_id") or ""
+        wid = self._resolve_worker_id(req)
+        slot = self.workers.get(wid) if wid else None
+        if slot is None or slot.proc.poll() is not None or slot.conn is None \
+                or slot.conn.closed:
+            nmatch = sum(1 for w in self.workers if w.startswith(req))
+            if wid is None and nmatch > 1:
+                return {"found": False,
+                        "error": f"worker id prefix {req[:12]!r} is "
+                                 f"ambiguous on node {self.node_id[:8]} "
+                                 f"({nmatch} workers match) — use a "
+                                 f"longer prefix"}
+            return {"found": False,
+                    "error": f"worker {req[:12]} not "
+                             f"alive on node {self.node_id[:8]}"}
+        seconds = telemetry.clamp_profile_seconds(a.get("seconds"))
+        mode = a.get("mode") or "cpu"
+        if mode not in ("cpu", "torch"):
+            return {"found": False, "error": f"unknown profile mode {mode!r}"}
+        try:
+            rep = await slot.conn.call(
+                "profile", mode=mode, seconds=seconds, hz=a.get("hz"),
+                _timeout=seconds + 30.0)
+        except Exception as e:
+            return {"found": False,
+                    "error": f"worker {wid[:12]} died or failed mid-capture "
+                             f"({type(e).__name__}: {e}); profile aborted"}
+        rep.update(worker_id=wid, node_id=self.node_id,
+                   task_id=slot.task_id, actor_id=slot.actor_id,
+                   created=time.time())
+        try:
+            meta = await asyncio.to_thread(self._persist_profile, wid, rep)
+        except Exception as e:
+            return {"found": False,
+                    "error": f"profile captured but persist failed: {e!r}"}
+        try:
+            # Authoritative KV registration: a persist slower than the
+            # controller's profile_worker timeout means the reply below is
+            # dropped — this push still indexes the document so it never
+            # orphans in the storage plane (controller dedups with the
+            # reply-path registration).
+            await self.controller.push("profile_persisted", profile=meta)
+        except Exception:
+            pass  # reply path registers; a lost push costs nothing
+        return {"found": True, "profile": meta}
+
+    def _resolve_worker_id(self, wid: str) -> str | None:
+        """Exact worker id, or a unique prefix (CLI ergonomics — `ray-tpu
+        top` prints 12-char prefixes)."""
+        if wid in self.workers:
+            return wid
+        matches = [w for w in self.workers if w.startswith(wid)] if wid else []
+        return matches[0] if len(matches) == 1 else None
+
+    def _persist_profile(self, wid: str, rep: dict) -> dict:
+        """Write the captured profile through the storage backend
+        (sync; runs in a thread). cpu -> one JSON doc (meta + collapsed
+        stacks + Chrome-trace events); torch -> JSON meta + sibling .zip of
+        the torch.profiler Chrome trace."""
+        import json as _json
+
+        from ray_tpu_torch import storage
+
+        pdir = telemetry.default_profile_dir(self.session_id)
+        name = (f"{int((rep.get('created') or time.time()) * 1000)}"
+                f"_{wid[:12]}_{rep.get('mode')}")
+        storage.makedirs(pdir)
+        doc = dict(rep)
+        archive = doc.pop("archive", None)
+        if archive is not None:
+            apath = storage.join(pdir, name + ".zip")
+            storage.put(apath, archive)
+            doc["archive_path"] = apath
+        path = storage.join(pdir, name + ".json")
+        doc["name"] = name
+        doc["path"] = path
+        storage.put(path, _json.dumps(doc, default=str).encode())
+        meta = {k: doc.get(k) for k in
+                ("name", "path", "archive_path", "mode", "worker_id",
+                 "node_id", "task_id", "actor_id", "pid", "seconds", "hz",
+                 "samples", "files", "created")}
+        meta["stacks"] = len(doc.get("collapsed") or {})
+        return {k: v for k, v in meta.items() if v is not None}
+
+    # ----------------------------------------------------- worker channel
+    async def _on_request(self, conn, method, a):
+        if method == "register_worker":
+            slot = self.workers.get(a["worker_id"])
+            if slot is None:
+                raise rpc.RpcError("unknown worker")
+            slot.conn = conn
+            slot.address = tuple(a["address"])
+            conn.label = conn.label or "worker"
+            conn.meta["worker_id"] = a["worker_id"]
+            slot.registered.set()
+            if slot.dedicated:
+                slot.state = "reserved"
+            else:
+                self._worker_became_idle(slot)
+            return {"node_id": self.node_id, "config": CONFIG.snapshot()}
+        if method == "fetch_object":
+            mv = self.store.get(a["oid"])
+            if mv is None:
+                return {"found": False}
+            off = a.get("offset")
+            if off is None:
+                return {"found": True, "data": mv, "size": len(mv)}
+            return {"found": True, "size": len(mv),
+                    "data": mv[off : off + a["length"]]}
+        raise rpc.RpcError(f"agent: unknown method {method}")
+
+    async def _on_push(self, conn, method, a):
+        if method == "worker_idle":
+            slot = self.workers.get(a["worker_id"])
+            if slot is not None and slot.state == "busy":
+                if slot.dedicated:
+                    # One-shot worker (GPU task): the card lease dies with it.
+                    self._kill_slot(slot, cause=events_mod.CAUSE_SHUTDOWN,
+                                    why="one-shot dedicated worker finished")
+                else:
+                    self._worker_became_idle(slot)
+        elif method == "ltask_running":
+            # A leased worker's owner connection severed mid-task: the spec
+            # it is still executing is recorded so an owner-failover
+            # re-dispatch of the same id parks instead of double-executing.
+            rec = self._direct_tasks.get(a["task_id"])
+            if rec is None:  # an already-arrived ltask_done wins
+                self._direct_tasks[a["task_id"]] = {
+                    "state": "running", "worker_id": a.get("worker_id"),
+                    "attempt": a.get("attempt", 0),
+                    "event": asyncio.Event(),
+                    "expires": time.monotonic() + 600.0}
+        elif method == "ltask_done":
+            rec = self._direct_tasks.get(a["task_id"])
+            if rec is None:
+                rec = self._direct_tasks[a["task_id"]] = {
+                    "event": asyncio.Event()}
+            rec.update(state="done", worker_id=a.get("worker_id"),
+                       attempt=a.get("attempt", 0),
+                       results=a.get("results"), error=a.get("error"),
+                       retryable=a.get("retryable", False),
+                       expires=time.monotonic() + 600.0)
+            rec["event"].set()
+        elif method == "device_pins":
+            slot = self.workers.get(a["worker_id"])
+            if slot is not None:
+                slot.device_pinned = bool(a.get("pinned"))
+        elif method == "worker_telemetry":
+            # Latest device-side series from a worker's sampler thread;
+            # merged into the next node sample batch. Unknown worker ids
+            # (a late push racing the exit path) are dropped.
+            if a["worker_id"] in self.workers:
+                self._worker_device_series[a["worker_id"]] = (
+                    a["series"], time.monotonic())
+        elif method == "watchdog_beacon":
+            slot = self.workers.get(a["worker_id"])
+            if slot is not None:
+                slot.beacon_task = a.get("task_id")
+                slot.beacon_at = time.monotonic()
+                slot.beacon_silence = float(a.get("silence") or 0.0)
+        elif method == "stall_report":
+            asyncio.ensure_future(self._handle_stall_report(a["report"]))
+
+    def _on_worker_conn_close(self, conn):
+        wid = conn.meta.get("worker_id")
+        if wid and wid in self.workers:
+            asyncio.ensure_future(self._worker_exited(self.workers[wid], "connection lost"))
+
+    # ---------------------------------------------------------- dispatch
+    async def _consume_direct_dup(self, task_id: str, attempt: int = 0):
+        """At-most-once guard for owner failover: if this (task id,
+        attempt) already ran (or is still running) on a leased worker
+        whose owner connection severed, return the recorded outcome
+        instead of letting the dispatch execute it a second time. None =
+        never seen here, execute normally. The attempt must match: a
+        lineage-reconstruction resubmit of the same task id carries
+        attempt+1 and MUST re-execute, not replay a stale record whose
+        holders may point at the very object that was lost. A running
+        record resolves on the worker's ltask_done or its death (death
+        clears the record — the task never finished, so the re-dispatch
+        may run); the wait is bounded so a lost ltask_done push cannot
+        park the dispatch forever."""
+        rec = self._direct_tasks.get(task_id)
+        if rec is None or rec.get("attempt", 0) != attempt:
+            return None
+        if rec.get("state") == "running":
+            try:
+                await asyncio.wait_for(rec["event"].wait(), 600.0)
+            except asyncio.TimeoutError:
+                pass  # worker alive but outcome lost: fall through, execute
+        rec = self._direct_tasks.pop(task_id, None)
+        if rec is None or rec.get("state") != "done" \
+                or rec.get("attempt", 0) != attempt:
+            return None
+        return rec
+
+    def _purge_direct_tasks(self, worker_id: str):
+        """The worker behind running dedup records died: the tasks never
+        finished, so clear the records and unpark waiting dispatches."""
+        for tid, rec in list(self._direct_tasks.items()):
+            if rec.get("state") == "running" and rec.get("worker_id") == worker_id:
+                self._direct_tasks.pop(tid, None)
+                rec["event"].set()
+
+    async def _dispatch(self, spec: TaskSpec) -> dict:
+        slot = await self._acquire_worker(spec)
+        slot.task_id = spec.task_id
+        slot.assigned_at = time.monotonic()
+        slot.held_resources = dict(spec.resources or {})
+        if spec.kind == ACTOR_CREATE:
+            slot.state = "actor"
+            slot.actor_id = spec.actor_id
+        else:
+            slot.state = "busy"
+        await slot.conn.push("execute", spec=spec)
+        return {"worker_id": slot.worker_id}
+
+    def _pool_cap(self) -> int:
+        """Max concurrently running pool (non-actor) workers ~ CPU slots
+        (reference WorkerPool keys by resource demand; we cap by node CPUs)."""
+        cpu = self.resources_raw.get("CPU", 0) / CONFIG.resource_unit
+        return max(1, int(cpu))
+
+    @staticmethod
+    def _needs_gpu(spec: TaskSpec) -> bool:
+        return any(k.startswith("GPU") for k in (spec.resources or {}))
+
+    async def _acquire_worker(self, spec: TaskSpec) -> _WorkerSlot:
+        # Actors always get a dedicated fresh process (reference: dedicated
+        # workers for actors, worker_pool.cc PopWorker for actor creation).
+        # GPU-requesting tasks also get a dedicated worker: the card's
+        # CUDA context and memory die with the process (reference: GPU
+        # workers are not reused across owners).
+        if spec.kind == ACTOR_CREATE or self._needs_gpu(spec):
+            slot = self._spawn_worker(spec.runtime_env, dedicated=True)
+            await asyncio.wait_for(slot.registered.wait(), CONFIG.worker_register_timeout_s)
+            return slot
+        return await self._acquire_pool_worker()
+
+    async def _acquire_pool_worker(self) -> _WorkerSlot:
+        while True:
+            for slot in self.workers.values():
+                if slot.state == "idle":
+                    slot.state = "reserved"
+                    return slot
+            pool_active = sum(
+                1
+                for s in self.workers.values()
+                if not s.dedicated and s.state in ("starting", "reserved", "busy", "idle")
+            )
+            if pool_active < self._pool_cap():
+                self._spawn_worker()
+            fut = asyncio.get_running_loop().create_future()
+            self._idle_waiters.append(fut)
+            await asyncio.wait_for(fut, CONFIG.worker_register_timeout_s)
+
+    def _worker_became_idle(self, slot: _WorkerSlot):
+        slot.state = "idle"
+        slot.task_id = None
+        import time
+
+        slot.idle_since = time.monotonic()
+        while self._idle_waiters:
+            fut = self._idle_waiters.popleft()
+            if not fut.done():
+                fut.set_result(None)
+                break
+
+    def _spawn_worker(self, runtime_env: dict | None = None,
+                      dedicated: bool = False) -> _WorkerSlot:
+        wid = WorkerID.from_random().hex()
+        env = dict(os.environ)
+        env.update(self.extra_env)
+        # Make sure spawned workers can import ray_tpu_torch wherever the driver ran.
+        import ray_tpu_torch
+
+        pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(ray_tpu_torch.__file__)))
+        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        env.update(
+            RT_HOST=self.host,
+            RT_WORKER_ID=wid,
+            RT_NODE_ID=self.node_id,
+            RT_SESSION=self.session_id,
+            RT_CONTROLLER=f"{self.controller_addr[0]}:{self.controller_addr[1]}",
+            RT_AGENT=f"{self.host}:{self.port}",
+        )
+        # Only dedicated (actor) workers bake the runtime env into the
+        # process; pool workers apply+restore env per task instead, so a
+        # reused worker can't leak a previous task's env (reference keys the
+        # pool by runtime env, worker_pool.h:228).
+        if runtime_env and dedicated:
+            for k, v in (runtime_env.get("env_vars") or {}).items():
+                env[k] = str(v)
+        # Capture worker output and stream it to the driver via the
+        # controller (reference log_monitor.py role): one reader thread per
+        # worker into a bounded shared buffer, one timed flusher for all.
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch._private.worker_proc"],
+            env=env,
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+        )
+        import threading
+
+        self._ensure_log_flusher()
+        threading.Thread(target=self._pump_worker_logs, args=(wid, proc),
+                         daemon=True, name=f"logs-{wid[:6]}").start()
+        slot = _WorkerSlot(wid, proc, dedicated=dedicated)
+        self.workers[wid] = slot
+        self._emit_event("worker_start",
+                         f"worker {wid[:12]} spawned (pid {proc.pid})",
+                         entity=(wid,),
+                         attrs={"pid": proc.pid, "dedicated": dedicated})
+        return slot
+
+    MAX_LOG_BUF_LINES = 1000
+
+    def _ensure_log_flusher(self):
+        import threading
+
+        if getattr(self, "_log_flusher", None) is None:
+            self._log_bufs: dict = {}  # wid -> [pid, [lines]]
+            self._log_lock = threading.Lock()
+            self._log_flusher = threading.Thread(
+                target=self._log_flush_loop, daemon=True, name="log-flush")
+            self._log_flusher.start()
+
+    def _pump_worker_logs(self, wid: str, proc):
+        """Reader thread: drain the pipe (ALWAYS — a full pipe blocks the
+        worker) into the bounded shared buffer; the flusher ships it."""
+        try:
+            for raw in iter(proc.stdout.readline, b""):
+                line = raw.decode("utf-8", "replace").rstrip("\n")
+                with self._log_lock:
+                    ent = self._log_bufs.setdefault(wid, [proc.pid, []])
+                    ent[1].append(line)
+                    if len(ent[1]) > self.MAX_LOG_BUF_LINES:
+                        del ent[1][: len(ent[1]) - self.MAX_LOG_BUF_LINES]
+        except Exception:
+            pass
+        finally:
+            try:
+                proc.stdout.close()
+            except Exception:
+                pass
+
+    def _log_flush_loop(self):
+        """Timed flush (100ms): the last line of a burst must not wait for
+        the NEXT line. Lines are dropped (bounded buffer) rather than
+        shipped when no driver subscribed or the controller is away."""
+        import time as _time
+
+        while True:
+            _time.sleep(0.1)
+            with self._log_lock:
+                batches, self._log_bufs = self._log_bufs, {}
+            if not batches:
+                continue
+            if (not getattr(self, "logs_enabled", False)
+                    or self.controller is None or self.controller.closed):
+                continue  # nobody is listening: drop, don't accumulate
+            for wid, (pid, lines) in batches.items():
+                try:
+                    self.controller.push_threadsafe(
+                        "worker_logs", worker_id=wid, pid=pid,
+                        node_id=self.node_id, lines=lines)
+                except Exception:
+                    pass
+
+    def _kill_slot(self, slot: _WorkerSlot,
+                   cause: str = events_mod.CAUSE_KILLED,
+                   why: str = "explicit kill"):
+        # Kills that no worker_died report precedes (ray_tpu_torch.kill routed
+        # via kill_worker, force-cancel, zombie reap) would otherwise leave
+        # the causal chain without its worker_exit link — the dead-state
+        # guards downstream skip the emission (the documented CAUSE_KILLED
+        # would be unreachable). Report-then-kill paths (OOM/stall) already
+        # emitted; the slot flag dedups.
+        self._emit_worker_exit(slot, cause, why)
+        slot.state = "dead"
+        try:
+            slot.proc.terminate()
+        except Exception:
+            pass
+        # SIGTERM escalation: a worker wedged in native code (or whose main
+        # thread can't reach the signal handler) survives terminate() — the
+        # kill must not depend on the victim's cooperation (the reference
+        # worker killer ends with SIGKILL for the same reason). The
+        # callback also poll()s, so the child is reaped even if the reap
+        # loop is momentarily behind.
+        def _escalate(proc=slot.proc):
+            try:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.poll()
+            except Exception:
+                pass
+
+        try:
+            asyncio.get_running_loop().call_later(2.0, _escalate)
+        except RuntimeError:
+            _escalate()  # no loop (teardown path): escalate immediately
+
+    async def _reap_loop(self):
+        """Detect worker process exits (reference: raylet learns via socket
+        disconnect + waitpid; we poll) and reap long-idle pool workers
+        (reference worker_pool.cc TryKillingIdleWorkers,
+        idle_worker_killing_time_threshold_ms), keeping one warm."""
+        while True:
+            await asyncio.sleep(0.2)
+            try:
+                await self._reap_tick()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # ONE bad tick (a report push racing a reconnecting
+                # controller conn, a stall-report failure) must not fell
+                # the loop for the agent's lifetime: with it dead, worker
+                # exits go undetected and killed workers linger as
+                # unreaped zombies whose pids stay probe-alive.
+                logger.exception("agent reap tick failed; retrying")
+
+    async def _reap_tick(self):
+        for wid, slot in list(self.workers.items()):
+            if slot.proc.poll() is not None and slot.state != "dead":
+                await self._worker_exited(slot, f"exit code {slot.proc.returncode}")
+        if self._direct_tasks:
+            now = time.monotonic()
+            for tid, rec in list(self._direct_tasks.items()):
+                if rec.get("state") == "done" and rec["expires"] < now:
+                    self._direct_tasks.pop(tid, None)
+        # Stall backstop: a worker whose beacons STOPPED mid-task is too
+        # wedged to run its own monitor thread (native code holding the
+        # GIL) — its self-reported kill stage will never arrive, so the
+        # agent synthesizes it once the beacon goes stale past the kill
+        # threshold.
+        kill_s = CONFIG.stall_kill_s
+        if kill_s and kill_s > 0:
+            interval = max(0.05, CONFIG.stall_beacon_interval_s)
+            now = time.monotonic()
+            for slot in list(self.workers.values()):
+                # Beacons flow every tick from ANY armed worker, task or
+                # no task — so the trigger is the beacon STREAM going
+                # stale, not the task it names (a task that wedges in
+                # native code before its first named beacon leaves
+                # beacon_task None forever; the worker is just as dead).
+                # beacon_at == 0 means the worker never armed a
+                # watchdog (old build / just spawned): nothing to judge.
+                if (not slot.beacon_at
+                        or slot.state in ("dead", "starting")
+                        or slot.proc.poll() is not None):
+                    continue
+                stale = now - slot.beacon_at
+                if stale <= kill_s + 5 * interval:
+                    continue
+                report = {
+                    "scope": "task", "stage": "kill", "backstop": True,
+                    "task_id": slot.beacon_task or slot.task_id,
+                    "name": None, "attempt": None, "kind": None,
+                    "worker_id": slot.worker_id,
+                    "node_id": self.node_id, "pid": slot.proc.pid,
+                    "silence_s": round(slot.beacon_silence + stale, 3),
+                    "time": time.time(),
+                    "reason": (f"progress beacons stopped for "
+                               f"{stale:.1f}s (watchdog starved — "
+                               f"worker wedged in native code?)"),
+                    "events": [], "flight_dir": None,
+                }
+                slot.beacon_at = 0.0  # escalate once
+                slot.beacon_task = None
+                await self._handle_stall_report(report)
+        keep = CONFIG.idle_worker_keep_s
+        if keep > 0:
+            # Workers still pinning device objects are the storage for
+            # those objects — exempt from the idle reap until the
+            # owner-tracked frees drain their table.
+            idle = [s for s in self.workers.values()
+                    if s.state == "idle" and not s.dedicated
+                    and not s.device_pinned]
+            now = time.monotonic()
+            warm = 1 if CONFIG.prestart_workers else 0
+            for slot in sorted(idle, key=lambda s: s.idle_since)[: max(0, len(idle) - warm)]:
+                if now - slot.idle_since > keep:
+                    # Kill FIRST (atomic with the idle check — no await
+                    # between them, so a lease/dispatch cannot claim the
+                    # slot mid-reap), then report. The kill path skips
+                    # the worker_died report (_worker_exited sees
+                    # state=="dead"), but a pin could have landed since
+                    # the last device_pins report: tell the controller
+                    # so any device entries it produced go cleanly LOST
+                    # instead of pointing at a dead address forever.
+                    # Plane off => no pins possible, reap stays silent.
+                    self._kill_slot(slot, cause=events_mod.CAUSE_IDLE_REAP,
+                                    why=f"idle past {keep:.0f}s")
+                    if CONFIG.device_objects:
+                        # Pending events ride this push too (like
+                        # _worker_exited's): the reap's worker_exit must
+                        # get its seq BEFORE the device_objects_lost
+                        # event this report's processing mints.
+                        evs = self._drain_events()
+                        kw = dict(worker_id=slot.worker_id,
+                                  task_id=None, actor_id=None,
+                                  reason="idle worker reaped",
+                                  cause=events_mod.CAUSE_IDLE_REAP,
+                                  node_id=self.node_id,
+                                  incarnation=self.incarnation)
+                        if evs:
+                            kw["events"] = evs
+                        try:
+                            await self.controller.push("worker_died", **kw)
+                        except Exception:
+                            self._requeue_events(evs or [])
+
+    async def _worker_exited(self, slot: _WorkerSlot, reason: str,
+                             cause: str | None = None):
+        if slot.state == "dead":
+            # Reap the child BEFORE dropping the slot: this pop removes the
+            # Popen from the reap loop's poll() sweep, and an unreaped
+            # kill()ed worker lingers as a zombie whose pid still probes
+            # alive (observed as a rare chaos-test flake — the zombie's
+            # reaping then depended on GC/_cleanup luck). poll() here wins
+            # almost always (the conn close that routes us here fires at
+            # process exit); _kill_slot's escalation callback backstops the
+            # not-yet-exited case.
+            slot.proc.poll()
+            self.workers.pop(slot.worker_id, None)
+            self._purge_direct_tasks(slot.worker_id)
+            self._worker_device_series.pop(slot.worker_id, None)
+            return
+        prev_state = slot.state
+        slot.state = "dead"
+        self.workers.pop(slot.worker_id, None)
+        self._purge_direct_tasks(slot.worker_id)
+        self._worker_device_series.pop(slot.worker_id, None)
+        # ONE cause vocabulary for every exit path (README "Cluster
+        # events"): the reap loop's raw exit codes, the OOM/stall kills,
+        # and the idle reaper all collapse into events.EXIT_CAUSES, so the
+        # worker_died report, the worker_exit event, and the owner-side
+        # failure message all agree.
+        cause = events_mod.normalize_exit_cause(cause, reason)
+        self._emit_worker_exit(slot, cause, reason, prev_state)
+        if prev_state in ("busy", "actor", "leased") or slot.actor_id:
+            try:
+                kw = dict(
+                    worker_id=slot.worker_id,
+                    task_id=slot.task_id if prev_state == "busy" else None,
+                    actor_id=slot.actor_id,
+                    reason=reason,
+                    cause=cause,
+                    node_id=self.node_id,
+                    incarnation=self.incarnation,
+                )
+                # The pending events (incl. this exit's) ride the report
+                # itself: the controller ingests them BEFORE minting its
+                # restart/failover events, so causal chains stay ordered
+                # under arrival-order seq minting.
+                evs = self._drain_events()
+                if evs:
+                    kw["events"] = evs
+                try:
+                    await self.controller.push("worker_died", **kw)
+                except Exception:
+                    if evs:
+                        self._requeue_events(evs)  # next heartbeat delivers
+                    raise
+            except Exception:
+                pass
+
+    # ------------------------------------------------------- OOM defense
+    # Reference: memory_monitor.h (threshold poll over cgroup/meminfo) +
+    # worker_killing_policy.h (prefer retriable, newest first). The agent
+    # reports the kill BEFORE terminating the process so owners can surface
+    # OutOfMemoryError instead of a generic crash.
+    @staticmethod
+    def _memory_usage_fraction() -> float:
+        try:  # cgroup v2 (containers): respect the limit we actually have
+            with open("/sys/fs/cgroup/memory.max") as f:
+                lim = f.read().strip()
+            if lim != "max":
+                with open("/sys/fs/cgroup/memory.current") as f:
+                    cur = int(f.read().strip())
+                return cur / max(1, int(lim))
+        except OSError:
+            pass
+        try:
+            total = avail = None
+            with open("/proc/meminfo") as f:
+                for line in f:
+                    if line.startswith("MemTotal:"):
+                        total = int(line.split()[1])
+                    elif line.startswith("MemAvailable:"):
+                        avail = int(line.split()[1])
+                    if total is not None and avail is not None:
+                        return 1.0 - avail / max(1, total)
+        except OSError:
+            pass
+        return 0.0
+
+    def _pick_oom_victim(self) -> "_WorkerSlot | None":
+        """Newest-first, retriable-first: pool task workers (tasks retry by
+        default), then leased workers, then actors (restarts are opt-in)."""
+        for states in (("busy",), ("leased",), ("actor",)):
+            cands = [s for s in self.workers.values()
+                     if s.state in states and s.proc.poll() is None]
+            if cands:
+                return max(cands, key=lambda s: s.assigned_at)
+        return None
+
+    async def _memory_monitor_loop(self):
+        period = max(0.05, CONFIG.memory_monitor_refresh_ms / 1000.0)
+        while True:
+            await asyncio.sleep(period)
+            threshold = CONFIG.memory_usage_threshold
+            if threshold >= 1.0:
+                continue
+            frac = self._memory_usage_fraction()
+            if frac < threshold:
+                continue
+            victim = self._pick_oom_victim()
+            if victim is None:
+                continue
+            reason = (f"killed by the memory monitor: node memory usage "
+                      f"{frac:.1%} exceeds threshold {threshold:.1%}")
+            logger.warning("OOM defense: worker %s %s",
+                           victim.worker_id[:8], reason)
+            await self._worker_exited(victim, reason, cause="oom")
+            self._kill_slot(victim)
+            await asyncio.sleep(period)  # let the kill take effect
+
+
+async def run_agent_until_cancelled(agent: NodeAgent):
+    await agent.start()
+    try:
+        while True:
+            await asyncio.sleep(3600)
+    except asyncio.CancelledError:
+        await agent.stop()
+
+
+def main():
+    """Standalone entry: `python -m ray_tpu_torch._private.node_agent` (used by
+    cluster_utils to start extra nodes, and by `ray-tpu start` CLI)."""
+    import argparse
+    import json
+    import signal
+
+    def _term(signum, frame):
+        rpc.cleanup_sockets()
+        os._exit(0)
+
+    signal.signal(signal.SIGTERM, _term)
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--controller", required=True)
+    p.add_argument("--node-id", required=True)
+    p.add_argument("--session", required=True)
+    p.add_argument("--resources", required=True, help="json fixed-point raw map")
+    p.add_argument("--labels", default="{}")
+    args = p.parse_args()
+    host, port = args.controller.rsplit(":", 1)
+    os.environ["RT_AGENT_STANDALONE"] = "1"
+    logging.basicConfig(level=logging.INFO)
+    agent = NodeAgent(
+        node_id=args.node_id,
+        session_id=args.session,
+        controller_addr=(host, int(port)),
+        resources_raw=json.loads(args.resources),
+        labels=json.loads(args.labels),
+    )
+
+    async def _run():
+        await agent.start()
+        while True:
+            await asyncio.sleep(3600)
+
+    try:
+        asyncio.run(_run())
+    except KeyboardInterrupt:
+        pass
+
+
+if __name__ == "__main__":
+    main()

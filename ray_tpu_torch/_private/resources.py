@@ -1,0 +1,95 @@
+"""Fixed-point resource arithmetic and resource sets.
+
+Parity target: reference src/ray/common/scheduling/fixed_point.h (1e-4 units)
+and resource_set.h / cluster_resource_data.h. CUDA cards are the "GPU"
+resource, as in the reference.
+
+Counterpart: ray_tpu/_private/resources.py (there the accelerator is "TPU").
+"""
+
+from __future__ import annotations
+
+from ray_tpu_torch._private.rtconfig import CONFIG
+
+
+def _unit() -> int:
+    return CONFIG.resource_unit
+
+
+class ResourceSet:
+    """Mapping resource name -> fixed-point quantity (ints, 1/10000 units)."""
+
+    __slots__ = ("_r",)
+
+    def __init__(self, mapping: dict[str, float] | None = None, _raw: dict[str, int] | None = None):
+        if _raw is not None:
+            self._r = {k: v for k, v in _raw.items() if v != 0}
+        else:
+            u = _unit()
+            self._r = {}
+            for k, v in (mapping or {}).items():
+                q = round(float(v) * u)
+                if q != 0:
+                    self._r[k] = q
+
+    def to_dict(self) -> dict[str, float]:
+        u = _unit()
+        return {k: v / u for k, v in self._r.items()}
+
+    def raw(self) -> dict[str, int]:
+        return dict(self._r)
+
+    def get(self, name: str) -> float:
+        return self._r.get(name, 0) / _unit()
+
+    def is_empty(self) -> bool:
+        return not self._r
+
+    def fits(self, other: "ResourceSet") -> bool:
+        """True if `other` (a demand) fits within self (availability)."""
+        return all(self._r.get(k, 0) >= v for k, v in other._r.items())
+
+    def subtract(self, other: "ResourceSet") -> None:
+        for k, v in other._r.items():
+            self._r[k] = self._r.get(k, 0) - v
+            if self._r[k] == 0:
+                del self._r[k]
+
+    def add(self, other: "ResourceSet") -> None:
+        for k, v in other._r.items():
+            self._r[k] = self._r.get(k, 0) + v
+            if self._r[k] == 0:
+                del self._r[k]
+
+    def copy(self) -> "ResourceSet":
+        return ResourceSet(_raw=dict(self._r))
+
+    def __bool__(self):
+        return bool(self._r)
+
+    def __eq__(self, other):
+        return isinstance(other, ResourceSet) and self._r == other._r
+
+    def __repr__(self):
+        return f"ResourceSet({self.to_dict()})"
+
+    def __reduce__(self):
+        return (ResourceSet, (None, dict(self._r)))
+
+
+def normalize_resources(
+    num_cpus: float | None = None,
+    num_gpus: float | None = None,
+    resources: dict[str, float] | None = None,
+    memory: float | None = None,
+    default_cpus: float = 1.0,
+) -> ResourceSet:
+    """Build a task/actor resource demand (cf. reference remote_function.py
+    options resolution — default 1 CPU for tasks, 0 for actors)."""
+    r = dict(resources or {})
+    r["CPU"] = float(num_cpus) if num_cpus is not None else default_cpus
+    if num_gpus is not None:
+        r["GPU"] = float(num_gpus)
+    if memory is not None:
+        r["memory"] = float(memory)
+    return ResourceSet({k: v for k, v in r.items() if v})

@@ -1,36 +1,457 @@
-"""The runtime flags the port reads, each overridable by its environment
-variable `RT_<NAME>` (the same names as the reference's registry).
+"""Global runtime flag table, env-overridable.
 
-Counterpart: ray_tpu/_private/rtconfig.py, of which only the flags below
-are copied.
+Parity target: reference src/ray/common/ray_config_def.h (224 RAY_CONFIG
+entries, overridden by RAY_<name> env vars or ray.init(_system_config=...)).
+Here: a typed registry; each flag is overridable via env var `RT_<NAME>` or
+`init(_system_config={...})`.
+
+Counterpart: ray_tpu/_private/rtconfig.py (the same registry; the session
+and spill directories default under the temp dir that TMPDIR names).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import tempfile
+from typing import Any, Callable
 
-_DEFAULTS = {
-    # Continuous-engine prefill lane: admissions (prefill + first-token
-    # sample) run on their own thread and splice into the running batch at
-    # chunk boundaries. False restores inline admission in the scheduler.
-    "llm_prefill_lane": True,
-}
+_REGISTRY: dict[str, tuple[type, Any]] = {}
+
+
+def _flag(name: str, typ: type, default: Any) -> None:
+    _REGISTRY[name] = (typ, default)
+
+
+# --- core timings / limits -------------------------------------------------
+_flag("heartbeat_interval_s", float, 0.5)
+# Node dead after N missed beats. 20 (=10s) rather than a twitchy few
+# seconds: an agent spawning a burst of worker processes on a loaded host
+# can starve its event loop for several seconds, and declaring it dead
+# kills every actor it hosts (reference health checks tolerate ~30s:
+# health_check_timeout_ms + failure_threshold). TCP disconnects still
+# detect true death instantly via the connection-close path.
+_flag("num_heartbeats_timeout", int, 20)
+_flag("task_retry_delay_s", float, 0.05)
+_flag("default_max_task_retries", int, 3)
+_flag("default_max_actor_restarts", int, 0)
+_flag("worker_register_timeout_s", float, 30.0)
+_flag("connect_timeout_s", float, 30.0)
+_flag("rpc_max_frame_bytes", int, 1 << 31)
+# Objects smaller than this are passed inline in RPC messages instead of the
+# shared-memory store (cf. reference max_direct_call_object_size, 100KB).
+_flag("max_inline_object_bytes", int, 100 * 1024)
+# Per-node shared-memory store capacity before spilling to disk.
+_flag("object_store_memory_bytes", int, 2 * 1024 * 1024 * 1024)
+_flag("object_spill_dir", str,
+      os.path.join(tempfile.gettempdir(), "ray_tpu_torch", "spill"))
+# Controller state snapshots (KV, named actors, PG defs) for
+# restart-survival; empty = disabled (reference redis_store_client.h role).
+_flag("controller_persist_dir", str, "")
+_flag("shm_dir", str, "/dev/shm")
+_flag("session_dir", str, os.path.join(tempfile.gettempdir(), "ray_tpu_torch"))
+_flag("min_workers_per_node", int, 0)
+_flag("prestart_workers", bool, True)
+_flag("idle_worker_keep_s", float, 300.0)
+_flag("scheduler_spread_threshold", float, 0.5)  # hybrid policy pack->spread knob
+_flag("lineage_reconstruction_enabled", bool, True)
+# Controller-restart FT (reference RayletNotifyGCSRestart,
+# core_worker.proto:459): agents/workers/drivers retry the controller
+# address this long before giving up (workers exit; drivers error).
+_flag("controller_reconnect_timeout_s", float, 30.0)
+# Node-liveness suspicion window (reference GCS: a raylet connection drop
+# does NOT immediately declare the node dead — health checks tolerate a
+# reconnect). When the controller<->agent connection closes, the node goes
+# SUSPECT for this long: leases and ALIVE actors are frozen, not restarted.
+# An agent re-registering within the window reconciles in place; only
+# expiry (or an explicit kill) runs the death path. <= 0 restores the old
+# kill-on-close behavior.
+_flag("node_suspect_grace_s", float, 2.0)
+# Deterministic RPC fault injection (tests): enables rpc.FaultInjector so
+# chaos tests can sever/drop/delay/duplicate frames on named connection
+# classes. Zero-cost on the frame path when off.
+_flag("fault_injection", bool, False)
+# Borrower protocol: how long an owner-freed ESCAPED object survives at the
+# controller waiting for a borrower to register (covers the in-flight window
+# between the owner shipping a ref inside a payload and the receiving process
+# materializing it; cf. reference reference_count.h borrower handshake).
+_flag("borrowed_free_grace_s", float, 60.0)
+# OOM defense (reference memory_monitor.h + worker_killing_policy.h): when
+# node memory usage crosses the threshold, the agent kills the newest
+# retriable worker. refresh_ms <= 0 disables the monitor.
+_flag("memory_usage_threshold", float, 0.95)
+_flag("memory_monitor_refresh_ms", int, 250)
+# Object transfer: chunk size for remote fetches and the cap on bytes in
+# flight across concurrent pulls (reference object_manager chunked transfer
+# + pull_manager admission control).
+_flag("object_chunk_bytes", int, 16 * 1024 * 1024)
+_flag("pull_max_inflight_bytes", int, 512 * 1024 * 1024)
+_flag("max_pending_calls_default", int, -1)
+# Owner-side direct task dispatch (README "Ownership & direct dispatch"):
+# owners lease workers from the controller and push plain-task specs to
+# them directly, keeping the controller off the per-task hot path. False
+# routes every plain task through controller dispatch (the classic path —
+# also the failover target when a direct connection severs).
+_flag("direct_dispatch", bool, True)
+# Max leases granted/requested per batch (one grant amortizes over many
+# tasks; the agent acquires a node's whole batch concurrently in one RPC).
+_flag("lease_batch", int, 16)
+# Idle lease lifecycle: owners return leases idle for this long, and the
+# controller keeps returned leases warm in a per-node pool for the same
+# window before telling the agent to unlease the worker (a regrant from
+# the pool costs no agent round trip and usually no new owner connection).
+_flag("lease_idle_s", float, 0.5)
+# Streaming generators: executor pauses once this many yielded items are
+# unacknowledged by the consumer (reference
+# _generator_backpressure_num_objects); <=0 disables backpressure.
+_flag("generator_backpressure_items", int, 64)
+_flag("log_to_driver", bool, True)
+# Device object plane (README "Device objects"): single-device jax.Arrays
+# returned from tasks/actors (or put()) stay pinned in the producing
+# process's DeviceObjectTable behind a placeholder ObjectRef instead of
+# being copied through the host store; resolution is tiered (in-process
+# zero-copy / same-host shm export / cross-host streamed fetch). False
+# restores the host-store path everywhere, byte-identically.
+_flag("device_objects", bool, True)
+# Arrays below this ride the host path (inline) as before — pinning tiny
+# arrays costs more bookkeeping than the copy it saves.
+_flag("device_object_min_bytes", int, 100 * 1024)
+# RPC write coalescing (see README "Transport"): frames buffer per
+# connection and flush with ONE drain per event-loop burst. rpc_coalesce
+# False restores the legacy one-drain-per-frame path; wbuf_high_bytes is
+# the writer-backpressure high-water mark; parts up to join_bytes are
+# joined into one transport write (larger oob buffers go zero-copy).
+_flag("rpc_coalesce", bool, True)
+_flag("rpc_wbuf_high_bytes", int, 4 << 20)
+_flag("rpc_join_bytes", int, 128 << 10)
+# Fixed-point resource arithmetic granularity (reference fixed_point.h uses 1e-4).
+_flag("resource_unit", int, 10000)
+# --- storage plane / checkpoint engine (README "Checkpointing & storage") --
+# Async checkpointing: save_async snapshots device->host synchronously and
+# streams shards to the storage backend off the step path; the manifest
+# rename is the commit point. False restores fully synchronous saves
+# (byte-identical output, report()/save() block until committed).
+_flag("ckpt_async", bool, True)
+# Keep-last-K retention enforced by the engine after each commit (pinned
+# checkpoints — e.g. a PBT clone's restore source — are never collected).
+# 0 = unlimited.
+_flag("ckpt_keep", int, 0)
+# Snapshot safety: host-view shard snapshots that do not own their memory
+# (zero-copy views on CPU/TPU-host backends) are copied before save_async
+# returns, so XLA buffer donation in the next step cannot corrupt the
+# in-flight write. 0 = keep zero-copy views (donation-free loops only).
+_flag("ckpt_snapshot_copy", bool, True)
+# Transient storage failures (StorageTransientError: sim:// injected
+# faults, real network blips) are retried this many times with exponential
+# backoff starting at ckpt_retry_base_s before the save fails.
+_flag("ckpt_retries", int, 4)
+_flag("ckpt_retry_base_s", float, 0.05)
+# Multi-rank commit: rank 0 waits this long for every rank's shard
+# metadata to appear in storage before declaring the save failed (the
+# barrier rides storage, not RPC — a crashed rank simply never commits).
+_flag("ckpt_commit_timeout_s", float, 120.0)
+# Uncommitted partial checkpoint dirs (no manifest) younger than this are
+# presumed in-flight and skipped by GC; older ones are collected.
+_flag("ckpt_partial_grace_s", float, 600.0)
+# sim:// backend shaping (storage/sim.py): per-op latency, put/get
+# bandwidth cap (GB/s, 0 = unlimited), and a hard "network partition"
+# switch under which every op raises StorageTransientError.
+_flag("sim_storage_latency_s", float, 0.0)
+_flag("sim_storage_gbps", float, 0.0)
+_flag("sim_storage_severed", bool, False)
+# --- stall detection & flight recorder (README "Stall detection") ----------
+# Escalation ladder thresholds, seconds of per-task progress silence before
+# each stage fires: warn (StallReport only), dump (+ stack capture + flight
+# dump through the storage plane), kill (+ the node agent fells the worker
+# so the attempt fails over through the ordinary retry path). 0/unset
+# disables that stage; with ALL stages off the watchdog thread never starts
+# and nothing beacons — byte-identical to a watchdog-free build.
+_flag("stall_warn_s", float, 0.0)
+_flag("stall_dump_s", float, 0.0)
+_flag("stall_kill_s", float, 0.0)
+# Monitor/beacon cadence: the watchdog wakes (and beacons the node agent)
+# this often while a task executes. The agent's backstop treats beacons
+# STOPPING as the stall signal for workers too wedged to self-report.
+_flag("stall_beacon_interval_s", float, 0.5)
+# Flight recorder ring size (recent runtime events dumped into each
+# StallReport); 0 disables recording entirely.
+_flag("flight_recorder_events", int, 256)
+# Storage-plane URI escalation dumps are written under (any backend:
+# local://, mem://, sim://, bare path); "" = <session_dir>/<session>/flight.
+# Train runs point their workers at <run>/flight via RT_STALL_FLIGHT_DIR.
+_flag("stall_flight_dir", str, "")
+# Per-op deadline for host-tier collectives (util.collective): a recv that
+# waits longer than this aborts the op with CollectiveTimeoutError naming
+# the op, group, and the peer it was waiting on. <=0 falls back to the
+# module default (120s) — a wedged ring never hangs forever either way.
+_flag("collective_timeout_s", float, 0.0)
+# --- distributed tracing (README "Tracing & timeline") ----------------------
+# Master switch for the causal tracing plane: spans from submit to decode,
+# propagated through task/actor wire tuples and serve requests, exported as
+# Perfetto timelines (`ray-tpu timeline`). Unset/False is byte-identical
+# off: no contextvar writes on hot paths, no span ring, no rpc hook, and
+# the wire tuples keep their pre-tracing arity (pinned by test).
+_flag("tracing", bool, False)
+# Head-based sampling: the decision is rolled ONCE at the trace root (a
+# top-level submit or an ingress request) and carried by propagation —
+# children never re-roll. 1.0 = trace everything.
+_flag("trace_sample", float, 1.0)
+# Per-process span ring capacity (flight-recorder idiom): spans beyond this
+# between metrics-flush ticks drop oldest-first.
+_flag("trace_buffer_spans", int, 4096)
+# Controller-side trace index capacity: completed/evicted traces beyond
+# this are dropped from memory (persisted ones remain readable from the
+# storage plane).
+_flag("trace_max_traces", int, 512)
+# Storage-plane URI completed traces persist under (any backend; "" =
+# <session_dir>/<session>/traces). "none" disables persistence.
+_flag("trace_dir", str, "")
+# Always-sample escalation for serve requests: an UNSAMPLED request slower
+# than this records a root span anyway, so tail latency outliers stay
+# visible under tight head sampling. <=0 disables the escalation.
+_flag("trace_slow_s", float, 0.0)
+# --- cluster telemetry & profiling (README "Telemetry & profiling") ---------
+# Continuous resource sampling cadence: each node agent samples node
+# CPU/mem/disk + per-worker RSS/CPU%, and each worker samples device-side
+# series (jax HBM in-use/peak, compile count/seconds, device-object bytes)
+# on this tick; samples piggyback on the existing agent heartbeats. <= 0 /
+# unset disables the plane entirely: no sampler thread anywhere, heartbeat
+# frames byte-identical (pinned by test).
+_flag("telemetry_interval_s", float, 0.0)
+# Controller-side retention: a per-(node, series) downsampling ring keeps
+# raw recent points plus decimated history; series with no new point for
+# window_s age out (a dead agent's series disappear instead of freezing).
+_flag("telemetry_window_s", float, 600.0)
+# Points kept per series tier (raw + decimated history each hold this many).
+_flag("telemetry_points", int, 240)
+# On-demand CPU profiling (`ray-tpu profile --mode cpu`): the in-process
+# sampling profiler walks every worker thread's stack this many times per
+# second for the capture window.
+_flag("profile_hz", int, 100)
+# Storage-plane URI captured profiles persist under (any backend);
+# "" = <session_dir>/<session>/profiles.
+_flag("profile_dir", str, "")
+# --- cluster event plane (README "Cluster events") --------------------------
+# Ring capacity for lifecycle events: the controller's arrival-order ring,
+# each process's emission buffer, and the node agents' heartbeat-piggyback
+# deques are all bounded by this. 0 disables the plane entirely (no rings,
+# no `events=` keys on any frame); the default keeps it always-on — events
+# are emitted at lifecycle-transition rate, never on the per-task hot path
+# (pinned by the bench `events_overhead` lane).
+_flag("events_buffer", int, 2048)
+# Persist settled events through the storage plane as segmented JSONL under
+# events_dir, so history survives controller restarts. False = in-memory
+# ring only.
+_flag("events_persist", bool, True)
+# Storage-plane URI event segments land under (any backend: local://,
+# mem://, sim://, bare path); "" = <session_dir>/<session>/events.
+_flag("events_dir", str, "")
+# Events per JSONL segment: a full segment is written once and never
+# rewritten; the in-progress tail rewrites atomically each sweep tick.
+_flag("events_segment_events", int, 512)
+# Keep-last-K segment rotation: oldest segments beyond this are deleted.
+_flag("events_keep_segments", int, 16)
+# --- serving hot loop (README "Serving hot loop") ---------------------------
+# Token-batch stream ring: streaming serve responses (SSE) ride a shm
+# StreamRing from the replica straight to the HTTP proxy — one host hop
+# per token BATCH instead of one ObjectRef round trip per token. False
+# restores the per-item streaming-generator reply path byte-identically
+# (pinned by test).
+_flag("token_ring", bool, True)
+# Per-stream ring capacity in bytes (bounded: a stalled SSE consumer
+# parks the producer instead of buffering unboundedly; a record may be at
+# most half this).
+_flag("token_ring_bytes", int, 1 << 20)
+# Continuous-engine prefill lane: admissions (bucketed prefill + first-
+# token sample) dispatch on a dedicated thread and splice into the
+# running batch at chunk boundaries, so a new request's prefill compile/
+# dispatch never stalls the decode loop. False restores inline admission.
+_flag("llm_prefill_lane", bool, True)
+# --- serve admission control (README "Overload & admission control") --------
+# Master switch for the serve admission/degradation plane: per-deployment
+# concurrency budgets, bounded router queues with deadlines (sheds raise
+# a typed BackPressureError -> HTTP 429/503 + Retry-After), the per-route
+# token bucket, and jittered replica-death retries. False restores the
+# pre-admission behavior byte-identically — no queue, no shed, no budget
+# fields on routing frames (pinned by test).
+_flag("serve_admission", bool, True)
+# Default queue deadline (seconds) for deployments that do not set
+# queue_deadline_s: a request that cannot be assigned a replica slot
+# within this long is shed, not stalled. Matches the legacy assign
+# timeout so default-on admission changes no existing behavior.
+_flag("serve_queue_deadline_s", float, 30.0)
+# HTTP proxy per-route token bucket refill rate (requests/second);
+# 0 disables rate limiting. Excess requests get 429 + Retry-After
+# before touching the router queue.
+_flag("serve_rps", float, 0.0)
+# Token bucket capacity: bursts up to this many requests pass at once
+# before the refill rate governs.
+_flag("serve_burst", int, 16)
+# Per-request retry budget for replica-death (and cross-router
+# replica-busy) assignment failures: the router re-assigns against
+# surviving replicas up to this many times with jittered backoff.
+_flag("serve_retries", int, 2)
+# Base for the jittered exponential backoff between those retries.
+_flag("serve_retry_base_s", float, 0.05)
+# --- cross-host streaming & multi-proxy (README section of same name) -------
+# Push-stream transport: when a replica cannot attach the same-host shm
+# StreamRing (cross-host replica, no shared /dev/shm), token-batch records
+# ride the rpc transport to the proxy's per-process stream hub instead of
+# degrading to the per-item classic reply path. Same record contract,
+# bounded send window, burst coalescing into single frames. False restores
+# the nak -> per-item fallback for remote replicas.
+_flag("stream_push", bool, True)
+# Push-stream send window in bytes: the producer may have at most this
+# many un-acknowledged record bytes in flight (the consumer credits bytes
+# back as it drains). A stalled consumer parks the pump — bounded
+# buffering, exactly like the shm ring. A record may be at most half this.
+_flag("stream_window_bytes", int, 256 * 1024)
+# Test/bench hook: replicas skip the same-host shm attach so the push
+# transport is exercised on a single box (simulates a cross-host replica).
+# Never set in production — shm is strictly cheaper when it is available.
+_flag("stream_force_push", bool, False)
+# Number of HTTP proxy processes serve.run starts (serve.run(num_proxies=)
+# overrides). Proxy 0 binds the requested port, extras auto-bind; ports
+# are discoverable via serve.proxy_ports(). All proxies share replica-set
+# routing via the controller's versioned long-poll and run their own
+# admission queues — the replica-side concurrency backstop keeps racing
+# routers safe.
+_flag("serve_proxies", int, 1)
+# --- compiled dataflow graphs (README "Compiled graphs") --------------------
+# Max invocations a compiled DAG keeps in flight: execute() returns a
+# DagRef immediately and only blocks once this many invocations are still
+# unfulfilled (per-invocation sequence numbers ride every edge, so stages
+# stay in lockstep without a barrier).
+_flag("dag_max_inflight", int, 8)
+# Device-object edges: a stage output that is a large single-device
+# jax.Array stays pinned in the producing stage's DeviceObjectTable and
+# the channel carries only the ~200B placeholder — co-located consumers
+# resolve it zero-copy (same process) or one-copy (same-host shm export)
+# through the device plane's tier ladder. False pickles every value through the shm
+# ring, byte-identically to the host path.
+_flag("dag_device_edges", bool, True)
+# Compiled-driver stage-liveness monitor cadence: stage actor/worker death
+# surfaces as a typed DagStageError on every in-flight DagRef within a few
+# of these polls (plus the runtime's own death-detection latency).
+_flag("dag_monitor_interval_s", float, 0.2)
+# Per-edge shm channel capacity (one in-flight message per edge; a
+# message may be at most this large).
+_flag("dag_channel_bytes", int, 1 << 20)
+# Device-edge eligibility threshold (bytes). DAG edges are pre-negotiated
+# point-to-point with a bounded retention window, so the plane pays for
+# itself on much smaller arrays than the general object plane's
+# RT_DEVICE_OBJECT_MIN_BYTES — a pipeline-parallel decode step's
+# activation is a few KB and must still ride as a placeholder.
+_flag("dag_edge_min_bytes", int, 1024)
+# --- pipeline-parallel serving (README "Pipeline-parallel serving") ---------
+# Stage count for the OpenAI serving surface: >1 builds a PipelinedEngine
+# (model split into this many DAG stage actors) behind the same
+# submit()/GenStream API; 0/1 keeps the single-process ContinuousEngine.
+_flag("pp_stages", int, 0)
+# Microbatch SIZE (slots per microbatch) for the pipelined engine;
+# 0 = auto (max_batch split into 2*n_stages microbatches, enough to keep
+# every stage busy with headroom under RT_DAG_MAX_INFLIGHT).
+_flag("pp_microbatch", int, 0)
+# Consecutive graph-rebuild attempts after stage death before the engine
+# gives up and drains every open stream with the attributed error.
+_flag("pp_rebuild_max", int, 3)
+# --- kernels / diagnostics --------------------------------------------------
+# --- data plane (README "Data plane") ---------------------------------------
+# Pipelined all-to-all exchange: map tasks push partition shards the moment
+# they're produced and reduce-side merges start on first input (bounded
+# fan-in). False restores the barrier exchange (all maps complete before any
+# reduce submits) — kept as the bench A/B leg and an escape hatch.
+_flag("data_pipelined_exchange", bool, True)
+# Per-operator in-flight budget: at most this many block tasks are
+# outstanding per executor stage (submission also brakes on the cluster
+# store-backpressure signal, STORE_BACKPRESSURE_FRACTION).
+_flag("data_max_inflight_blocks", int, 16)
+# Reduce-side fan-in bound: when a partition has accumulated this many
+# pending shards mid-exchange, they are consolidated by an incremental
+# merge task — no reduce ever takes an unbounded argument list.
+_flag("data_reduce_fanin", int, 8)
+# Target bytes per block for file reads: small files group toward this
+# size, files larger than it split into row-sliced read tasks, so the
+# exchange has real parallelism regardless of the on-disk file layout.
+_flag("data_block_bytes", int, 128 * 1024 * 1024)
+# Exchange shard memory cap (bytes): a consolidated partition shard larger
+# than this spills through the storage plane instead of staying in shm
+# (0 disables size-triggered spill; store backpressure still forces it).
+_flag("data_mem_cap_bytes", int, 0)
+# Storage-plane URI exchange shards spill under (any backend: local://,
+# mem://, sim://); "" = local://<session_dir>/data_spill. Spilled shards
+# are restored transparently when the reduce consumes them.
+_flag("data_spill_uri", str, "")
+# Decode-attention kernel selection: "pallas" / "xla" force a path, ""
+# keeps the size-based dispatch (ops/decode_attention.py
+# PALLAS_MIN_CACHE_BYTES).
+_flag("decode_kernel", str, "")
+# Non-empty: worker processes run under cProfile and write
+# <dir>/worker_<pid>.pstats at exit (dev profiling; costs ~2x on hot paths).
+_flag("profile_worker", str, "")
 
 
 class _Config:
-    """Attribute access to the flags: `RT_<NAME>` when set, else the
-    default. Booleans read "1", "true" and "yes" as true."""
+    """Attribute access to flags, resolved in precedence order:
+
+    1. explicit `init(_system_config={...})` overrides (this process)
+    2. the process's own `RT_<NAME>` env var
+    3. the cluster snapshot received at registration
+    4. the registry default
+
+    Env sits ABOVE the snapshot deliberately: the snapshot carries the
+    controller-side resolved table to every node, but a per-process env
+    injection (e.g. train pointing each worker's RT_STALL_FLIGHT_DIR at
+    <run>/flight, or arming RT_PROFILE_WORKER on one worker) must win on
+    that process — it is the most specific setting there is."""
+
+    def __init__(self):
+        self._overrides: dict[str, Any] = {}
+        self._snapshot: dict[str, Any] = {}
+
+    def apply_system_config(self, overrides: dict[str, Any] | None) -> None:
+        if not overrides:
+            return
+        for k, v in overrides.items():
+            if k not in _REGISTRY:
+                raise ValueError(f"Unknown system config flag: {k}")
+            typ, _ = _REGISTRY[k]
+            self._overrides[k] = typ(v)
+
+    def snapshot(self) -> dict[str, Any]:
+        """Full resolved table — propagated to all nodes at cluster start
+        (cf. reference NodeManager GetSystemConfig node_manager.proto:451)."""
+        return {k: getattr(self, k) for k in _REGISTRY}
+
+    def load_snapshot(self, snap: dict[str, Any]) -> None:
+        self._snapshot.update(snap)
 
     def __getattr__(self, name: str):
-        if name not in _DEFAULTS:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if name in self._overrides:
+            return self._overrides[name]
+        if name not in _REGISTRY:
             raise AttributeError(f"Unknown config flag {name}")
-        default = _DEFAULTS[name]
+        typ, default = _REGISTRY[name]
         env = os.environ.get(f"RT_{name.upper()}")
-        if env is None:
-            return default
-        if isinstance(default, bool):
-            return env.lower() in ("1", "true", "yes")
-        return type(default)(env)
+        if env is not None:
+            if typ is bool:
+                return env.lower() in ("1", "true", "yes")
+            if typ in (dict, list):
+                return json.loads(env)
+            return typ(env)
+        if name in self._snapshot:
+            return self._snapshot[name]
+        return default
 
 
 CONFIG = _Config()
+
+
+def stack_dump_path(session_id: str, pid: int) -> str:
+    """Where a worker's faulthandler stack dumps land (written by
+    worker_proc's SIGUSR1 registration, read back by the node agent for
+    /api/stacks). ONE definition so the two sides can't drift."""
+    return os.path.join(CONFIG.session_dir, session_id, "stacks",
+                        f"{pid}.txt")

@@ -1,0 +1,429 @@
+"""Distributed tracing: causal spans from submit to decode.
+
+Parity target: the role OpenTelemetry + the timeline half of the dashboard
+plays in the reference (python/ray/util/tracing/ hooks task/actor calls with
+propagated trace contexts; the dashboard renders task timelines). Here the
+plane is runtime-native: a `TraceContext` (trace_id, span_id) minted at the
+root — a driver-side submit or a serve HTTP request — rides a contextvar
+through user code and the compact task/actor wire tuples, so every hop a
+request makes (submit -> lease dispatch -> execute -> nested calls -> RPC
+frames -> collective steps -> device-object resolution -> storage ops ->
+engine decode iterations) lands as a span in one causally linked tree.
+
+Life of a span:
+
+- worker side: `record_span` appends to a bounded per-process ring (the
+  flight-recorder idiom from _private/watchdog.py); the ring drains to the
+  controller piggybacked on the existing metrics-flusher batches (one push
+  per flush tick, no new connection or cadence).
+- controller side: spans index per trace_id in a bounded ring; completed
+  traces persist through the storage plane under
+  `<session>/traces/<trace_id>.json` and export as Chrome-trace-event /
+  Perfetto JSON via `ray-tpu timeline`, `util.state.list_traces()` /
+  `get_trace()`, and the dashboard's `/api/traces`.
+
+Cost discipline (pinned by test + the bench `tracing_overhead` lane):
+
+- RT_TRACING unset: byte-identical off. `enabled()` is one cached-bool
+  check; no contextvar is ever written, no ring exists, the rpc trace hook
+  stays None (the same zero-cost-when-off pattern as the fault injector and
+  the flight-recorder hook), and the wire tuples keep their pre-tracing arity.
+- RT_TRACING=1, request unsampled (head-based `RT_TRACE_SAMPLE` decided at
+  the ROOT and carried by propagation — children never re-roll): one
+  contextvar read + one random() per root, nothing else.
+- sampled: spans are dict appends to a deque; draining rides the metrics
+  flusher.
+
+Escalation overrides head sampling where it matters: serve requests slower
+than RT_TRACE_SLOW_S record a root span even when unsampled, and stall
+reports carry the wedged task's trace id so a `ray-tpu stalls` hit links
+straight to its timeline.
+
+Counterpart: ray_tpu/_private/tracing.py (copied).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import sys
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from contextvars import ContextVar
+from typing import Any, Optional
+
+from ray_tpu_torch._private.ids import random_id_bytes
+from ray_tpu_torch._private.rtconfig import CONFIG
+
+#: Current trace context: (trace_id, span_id) of the innermost open span, or
+#: None. Written ONLY while tracing is enabled and the root sampled.
+_ctx: ContextVar[Optional[tuple]] = ContextVar("rt_trace_ctx", default=None)
+
+# Cached enabled flag (None = not yet resolved). Resolved lazily and
+# re-resolved by refresh() after the cluster config snapshot lands at
+# register time, so _system_config={"tracing": True} reaches every process.
+_ON: Optional[bool] = None
+# Cached head-sampling rate (refresh() re-reads it with _ON): a CONFIG
+# attribute read is an os.environ lookup, and _sampled() sits on the
+# submit hot path — profiled at ~2.5% of driver throughput uncached.
+_RATE: Optional[float] = None
+
+# Bounded per-process span ring (created on first record while enabled).
+_ring: Optional[deque] = None
+_ring_lock = threading.Lock()
+_flusher_kicked = False
+
+_pid = os.getpid()
+
+
+def enabled() -> bool:
+    global _ON
+    if _ON is None:
+        try:
+            _ON = bool(CONFIG.tracing)
+        except Exception:
+            _ON = False
+    return _ON
+
+
+def refresh() -> None:
+    """Re-resolve the enabled flag (called after Worker.connect loads the
+    cluster config snapshot) and arm/disarm the rpc frame hook."""
+    global _ON, _RATE
+    try:
+        _ON = bool(CONFIG.tracing)
+    except Exception:
+        _ON = False
+    try:
+        _RATE = float(CONFIG.trace_sample)
+    except Exception:
+        _RATE = 1.0
+    from ray_tpu_torch._private import rpc
+
+    rpc.set_trace_hook(on_rpc if _ON else None)
+    if not _ON and _ring:
+        # A previous session's undrained spans must not leak into a new
+        # (untraced) session's controller via the shared flusher.
+        _ring.clear()
+
+
+def _new_id(nbytes: int) -> str:
+    return random_id_bytes(nbytes).hex()
+
+
+def _sampled() -> bool:
+    global _RATE
+    rate = _RATE
+    if rate is None:
+        try:
+            rate = float(CONFIG.trace_sample)
+        except Exception:
+            rate = 1.0
+        _RATE = rate
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    return random.random() < rate
+
+
+def current() -> Optional[tuple]:
+    """The live (trace_id, span_id) context, or None."""
+    return _ctx.get()
+
+
+def current_trace_id() -> Optional[str]:
+    ctx = _ctx.get()
+    return ctx[0] if ctx is not None else None
+
+
+def _get_ring() -> deque:
+    global _ring
+    ring = _ring
+    if ring is None:
+        with _ring_lock:
+            if _ring is None:
+                _ring = deque(maxlen=max(64, int(CONFIG.trace_buffer_spans)))
+            ring = _ring
+    return ring
+
+
+def _label() -> str:
+    # Shared with the event plane: one worker-id/pidN resolution (and its
+    # pidN-never-cached upgrade subtlety) for span AND event records.
+    from ray_tpu_torch._private import events as _events
+
+    return _events.proc_label()
+
+
+def record_span(trace_id: str, span_id: str, parent: Optional[str],
+                name: str, kind: str, start: float, end: float,
+                attrs: Optional[dict] = None) -> None:
+    """Append one finished span to the process ring. Compact keys — spans
+    ride metrics-flush frames at 1 Hz: t/s/p ids, n(ame), k(ind),
+    a/b start/end wall time, w(orker), pid, tid (thread lane)."""
+    global _flusher_kicked
+    sp: dict[str, Any] = {
+        "t": trace_id, "s": span_id, "p": parent, "n": name, "k": kind,
+        "a": start, "b": end, "w": _label(), "pid": _pid,
+        "tid": threading.get_ident() % 1_000_000,
+    }
+    if attrs:
+        sp["at"] = attrs
+    _get_ring().append(sp)
+    if not _flusher_kicked:
+        _flusher_kicked = True
+        try:
+            from ray_tpu_torch.util import metrics
+
+            metrics.ensure_flusher()
+        except Exception:
+            pass
+
+
+def record_span_in(wire_ctx: Optional[tuple], name: str, kind: str,
+                   start: float, end: float,
+                   attrs: Optional[dict] = None) -> None:
+    """Record a span parented to an explicit wire context — for threads that
+    carry no contextvar (the llm engine scheduler, the checkpoint writer)."""
+    if wire_ctx is None or not enabled():
+        return
+    record_span(wire_ctx[0], _new_id(8), wire_ctx[1], name, kind, start, end,
+                attrs)
+
+
+def record_instant(wire_ctx: Optional[tuple], name: str, kind: str,
+                   attrs: Optional[dict] = None) -> None:
+    if wire_ctx is None:
+        return
+    now = time.time()
+    record_span(wire_ctx[0], _new_id(8), wire_ctx[1], name, kind, now, now,
+                attrs)
+
+
+def drain() -> list:
+    """Pop all buffered spans (called from the metrics flusher)."""
+    from ray_tpu_torch._private import events as _events
+
+    return _events.drain_ring(_ring)
+
+
+def requeue(spans: list) -> None:
+    """Put drained-but-unsent spans back at the FRONT of the ring in their
+    original order (the metrics flusher raced a shutdown and could not
+    push) so the forced final flush still delivers them. Shares the
+    events-plane shed-oldest rebuild (locked: the engine scheduler and
+    checkpoint writer record spans from other threads)."""
+    from ray_tpu_torch._private import events as _events
+
+    _events.requeue_front(_ring, spans, _ring_lock)
+
+
+# ------------------------------------------------------------- propagation
+def on_submit(name: str, task_id: str = "",
+              kind: str = "submit") -> Optional[tuple]:
+    """Task/actor-call submit hook (owner side). Inside a traced context the
+    submit span chains to it; at top level this IS the root, subject to the
+    head-based RT_TRACE_SAMPLE decision. Returns the wire TraceContext
+    (trace_id, submit_span_id) to ride the spec, or None (unsampled)."""
+    ctx = _ctx.get()
+    if ctx is None:
+        if not _sampled():
+            return None
+        trace_id, parent = _new_id(16), None
+    else:
+        trace_id, parent = ctx
+    span_id = _new_id(8)
+    now = time.time()
+    record_span(trace_id, span_id, parent, name, kind, now, now,
+                {"task": task_id} if task_id else None)
+    return (trace_id, span_id)
+
+
+def task_execute_begin(spec) -> Optional[list]:
+    """Executor-side: open the execute span and install the trace context so
+    everything the task does (nested submits, RPC frames, collectives,
+    storage ops) chains under it. Returns an opaque handle for
+    task_execute_end, or None when the spec carries no trace."""
+    if not enabled():
+        return None
+    tr = getattr(spec, "trace", None)
+    if tr is None:
+        return None
+    trace_id, parent = tr
+    span_id = _new_id(8)
+    token = _ctx.set((trace_id, span_id))
+    return [trace_id, span_id, parent, spec.name, spec.task_id,
+            spec.attempt, time.time(), token]
+
+
+def task_execute_end(handle: Optional[list], ok: bool = True) -> None:
+    if handle is None:
+        return
+    trace_id, span_id, parent, name, task_id, attempt, start, token = handle
+    try:
+        _ctx.reset(token)
+    except ValueError:
+        _ctx.set(None)  # crossed a thread/context boundary; clear instead
+    record_span(trace_id, span_id, parent, name, "execute", start,
+                time.time(), {"task": task_id, "attempt": attempt, "ok": ok})
+
+
+def open_root(name: str, kind: str = "op"):
+    """Open a root-or-child span WITHOUT installing the contextvar, for
+    operations fulfilled on a DIFFERENT thread than the one that opened
+    them (the compiled-DAG driver opens `dag.execute` at submit time; its
+    collector thread closes it at fulfillment). Returns an opaque handle —
+    None when tracing is off or an unsampled root — whose first two slots
+    are the wire TraceContext children parent to."""
+    if not enabled():
+        return None
+    ctx = _ctx.get()
+    if ctx is None:
+        if not _sampled():
+            return None
+        trace_id, parent = _new_id(16), None
+    else:
+        trace_id, parent = ctx
+    return [trace_id, _new_id(8), parent, name, kind, time.time()]
+
+
+def close_root(handle, attrs: Optional[dict] = None) -> Optional[str]:
+    """Close an open_root handle, recording the span with its real
+    duration. Safe from any thread; returns the trace id (None no-op)."""
+    if handle is None:
+        return None
+    trace_id, span_id, parent, name, kind, start = handle
+    record_span(trace_id, span_id, parent, name, kind, start, time.time(),
+                attrs)
+    return trace_id
+
+
+@contextmanager
+def span(name: str, kind: str = "op", attrs: Optional[dict] = None):
+    """Span a code block under the current context; no-op when tracing is
+    off or the surrounding request was not sampled."""
+    if not enabled():
+        yield
+        return
+    ctx = _ctx.get()
+    if ctx is None:
+        yield
+        return
+    trace_id, parent = ctx
+    span_id = _new_id(8)
+    token = _ctx.set((trace_id, span_id))
+    start = time.time()
+    try:
+        yield
+    finally:
+        try:
+            _ctx.reset(token)
+        except ValueError:
+            _ctx.set((trace_id, parent))
+        record_span(trace_id, span_id, parent, name, kind, start, time.time(),
+                    attrs)
+
+
+# ----------------------------------------------------------- serve requests
+def start_request(name: str):
+    """Root-span hook for ingress (serve HTTP/gRPC proxy). Returns an opaque
+    handle; None when tracing is off. An unsampled request still gets a
+    timing handle so end_request can apply the RT_TRACE_SLOW_S
+    always-sample escalation."""
+    if not enabled():
+        return None
+    if not _sampled():
+        return ("unsampled", time.time())
+    trace_id, span_id = _new_id(16), _new_id(8)
+    token = _ctx.set((trace_id, span_id))
+    return (trace_id, span_id, time.time(), token)
+
+
+def request_trace_id(handle) -> Optional[str]:
+    if handle is None or handle[0] == "unsampled":
+        return None
+    return handle[0]
+
+
+def end_request(handle, name: str,
+                attrs: Optional[dict] = None) -> Optional[str]:
+    """Close a request root span. Unsampled requests slower than
+    RT_TRACE_SLOW_S escalate to always-sample: they record a (childless)
+    root so slow outliers are visible in the trace index even under tight
+    head sampling. Returns the trace id when one was recorded."""
+    if handle is None:
+        return None
+    if handle[0] == "unsampled":
+        t0 = handle[1]
+        end = time.time()
+        try:
+            slow = float(CONFIG.trace_slow_s)
+        except Exception:
+            slow = 0.0
+        if slow > 0 and end - t0 >= slow:
+            trace_id = _new_id(16)
+            a = dict(attrs or {})
+            a.update(slow=True, sampled=False)
+            record_span(trace_id, _new_id(8), None, name, "request", t0, end,
+                        a)
+            return trace_id
+        return None
+    trace_id, span_id, t0, token = handle
+    try:
+        _ctx.reset(token)
+    except ValueError:
+        _ctx.set(None)
+    record_span(trace_id, span_id, None, name, "request", t0, time.time(),
+                attrs)
+    return trace_id
+
+
+def escalation_root(st: dict) -> Optional[str]:
+    """Always-sample escalation for stall reports: a stalled task whose
+    root was NOT sampled still gets a (childless) trace root spanning its
+    execution so far, so every `ray-tpu stalls` row links to a timeline.
+    `st` is a watchdog executing-task state dict. Returns the minted
+    trace id (None when tracing is off)."""
+    if not enabled():
+        return None
+    trace_id = _new_id(16)
+    now = time.time()
+    # st["started"] is monotonic; recover the wall-clock start.
+    started_wall = now - max(0.0, time.monotonic() - st.get("started", 0.0))
+    record_span(trace_id, _new_id(8), None,
+                str(st.get("name") or "stalled-task"), "stall",
+                started_wall, now,
+                {"task": st.get("task_id"), "attempt": st.get("attempt"),
+                 "stalled": True, "sampled": False})
+    return trace_id
+
+
+# ---------------------------------------------------------------- rpc hook
+def on_rpc(event: str, method: str, dur: float = 0.0) -> None:
+    """rpc.py trace hook (the zero-cost-when-off pattern): frame
+    send/recv become instant spans, request round trips ("rpc_call") become
+    duration spans + the rt_rpc_frame_seconds histogram — all only inside a
+    sampled context, so the unsampled hot path pays one contextvar read."""
+    ctx = _ctx.get()
+    if ctx is None:
+        return
+    now = time.time()
+    if event == "rpc_call":
+        record_span(ctx[0], _new_id(8), ctx[1], f"rpc:{method}", "rpc",
+                    now - dur, now)
+        m = sys.modules.get("ray_tpu_torch.util.metrics")
+        if m is not None:
+            try:
+                m.RPC_FRAME_SECONDS.observe(dur, tags={"method": method})
+            except Exception:
+                pass
+    else:
+        record_span(ctx[0], _new_id(8), ctx[1], f"{event}:{method}", "rpc",
+                    now, now)
+
+
+def default_trace_dir(session_id: str) -> str:
+    return os.path.join(CONFIG.session_dir, session_id, "traces")

@@ -4,8 +4,10 @@ engine.
 Counterpart: ray_tpu/llm/openai.py. `OpenAIServer.__call__` serves
 /v1/models, /v1/completions and /v1/chat/completions (with SSE-style
 streaming as a generator of chunk dicts) for any request object with
-`.path` and `.json()`. Prompts are strings (byte-level tokenizer) or raw
-token lists. `build_openai_app` waits for the port's own serve runtime.
+`.path` and `.json()`; `build_openai_app` deploys it on the port's Serve
+(HTTP proxy, router, replica actor). Prompts are strings (byte-level
+tokenizer) or raw token lists. The pipelined engine (`pipeline_stages`
+> 1) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ import os
 import time
 from typing import Optional
 
+import torch
+
+from ray_tpu_torch._private import kernels
+from ray_tpu_torch._private.rtconfig import CONFIG
 from ray_tpu_torch.llm import LLMConfig
 from ray_tpu_torch.llm.engine import ContinuousEngine, GenStream, SamplingParams
 
@@ -52,11 +58,18 @@ class OpenAIServer:
 
     def __init__(self, cfg: LLMConfig, model_id: str = "ray-tpu-llm",
                  max_batch: int = 8, decode_chunk: int = 8,
-                 default_max_tokens: int = 64, device="cuda"):
+                 default_max_tokens: int = 64,
+                 pipeline_stages: Optional[int] = None, device="cuda"):
         self.cfg = cfg
         self.model_id = model_id
         self.default_max_tokens = default_max_tokens
         self.tok = ByteTokenizer()
+        stages = (int(CONFIG.pp_stages) if pipeline_stages is None
+                  else int(pipeline_stages))
+        if stages > 1:
+            raise NotImplementedError(
+                f"pipeline_stages={stages}: the pipelined engine is not "
+                f"ported yet (ROADMAP A8); serve with pipeline_stages=1")
         self.engine = ContinuousEngine(
             cfg, max_batch=max_batch, decode_chunk=decode_chunk,
             device=device)
@@ -97,8 +110,18 @@ class OpenAIServer:
                     "data": [{"id": self.model_id, "object": "model",
                               "owned_by": "ray_tpu_torch"}]}
         if path.endswith("/v1/stats") or path.endswith("/stats"):
+            # Which process hosts the engine, on which device and with how
+            # many bytes allocated there, how many slots are live, its
+            # decode steps so far, and this process's kernel launch counts
+            # (the replica's, when served through build_openai_app).
+            dev = self.engine.device
             return {"pid": os.getpid(), "active": self.engine.num_active,
-                    "running": self.engine._running}
+                    "running": self.engine._running,
+                    "device": str(dev),
+                    "device_bytes": (torch.cuda.memory_allocated(dev)
+                                     if dev.type == "cuda" else 0),
+                    "decode_steps": self.engine.decode_steps,
+                    "kernel_launches": kernels.launch_counts()}
         body = request.json() or {}
         chat = "chat" in path or "messages" in body
         prompt = self._encode_prompt(body)
@@ -145,3 +168,34 @@ class OpenAIServer:
             self.engine.shutdown()
         except Exception:
             pass
+
+
+def build_openai_app(cfg: LLMConfig, *, name: str = "llm",
+                     model_id: str = "ray-tpu-llm", num_replicas: int = 1,
+                     max_batch: int = 8, decode_chunk: int = 8,
+                     default_max_tokens: int = 64,
+                     ray_actor_options: Optional[dict] = None,
+                     max_ongoing_requests: int = 16,
+                     max_queued_requests: int = -1,
+                     queue_deadline_s: Optional[float] = None,
+                     pipeline_stages: Optional[int] = None,
+                     device="cuda"):
+    """Serve application exposing the OpenAI surface (reference
+    build_openai_app, application_builders.py). The admission budgets
+    pass straight through to the deployment: cap ongoing requests near
+    max_batch so excess load sheds fast 429s at the proxy instead of
+    stacking onto the engine's queue. Each replica builds its engine on
+    `device` ("cuda" by default: give the replica a card with
+    `ray_actor_options={"num_gpus": 1}`)."""
+    from ray_tpu_torch import serve
+
+    dep = serve.deployment(
+        OpenAIServer, name=name, num_replicas=num_replicas,
+        ray_actor_options=ray_actor_options,
+        max_ongoing_requests=max_ongoing_requests,
+        max_queued_requests=max_queued_requests,
+        queue_deadline_s=queue_deadline_s)
+    return dep.bind(cfg, model_id=model_id, max_batch=max_batch,
+                    decode_chunk=decode_chunk,
+                    default_max_tokens=default_max_tokens,
+                    pipeline_stages=pipeline_stages, device=device)

