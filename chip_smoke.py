@@ -65,12 +65,37 @@ from the root of a checkout. Phases, each of which raises on failure
    launch count is read from the replica (/v1/stats). Then
    serve.shutdown() and ray_tpu_torch.shutdown(), which must leave no
    rt_* segment in /dev/shm.
+8. Training on the runtime: a second `ray_tpu_torch.init(num_cpus=4)`
+   (1 GPU), then `TorchTrainer` with one worker (`use_gpu=True`,
+   `FailureConfig(max_failures=1)`) over `data.from_numpy` of 48 int32
+   rows [1025] (the first four are phase 6's batch). The worker builds
+   phase 6's model from its seed on the card with Adam(lr=1e-3), takes
+   one batch of 4 per step for 12 steps and reports each loss, reports an
+   async checkpoint of the model and Adam state at step 5, and on its
+   first attempt exits (os._exit) after step 7's report. The restarted
+   worker restores the checkpoint on the card and runs steps 6-11. Step
+   0's loss equals phase 6's first within 1e-4 relative, steps 6 and 7
+   equal the first attempt's within 2e-3 relative (dQ's f32 atomics vary
+   the last bits), the group restarted once, the final checkpoint
+   restores in this process as numpy with the model's parameters and
+   Adam's two moments in f32, and each attempt's worker launched each
+   flash kernel once per layer per step it ran.
+9. Batch inference through `data`, on the same runtime: `batch_inference`
+   of the golden file's prompts on the float32 golden model gives the JAX
+   package's greedy tokens; then 8 prompts of 128 tokens, 32 new tokens,
+   in batches of 4 on phase 4's model, through the same `map_batches`
+   call with a predictor that also reads the actor's decode launch
+   count, equal to an in-process `LLMEngine` on the same batches. Then
+   ray_tpu_torch.shutdown(), which must leave no rt_* segment.
 
 Launch counts: the decode kernel's from phase 4, the flash forward's from
 phases 5 and 6, the flash backward's from phase 6, each path's counts set
 to 0 just before it and read just after; the decode row also carries the
 replica's count from phase 7 (`replica_launches`: a fresh process, read
-after its requests).
+after its requests) and the map actor's from phase 9 (`batch_launches`),
+and the flash rows the training workers' from phase 8
+(`trainer_launches`, the sum over both attempts, each counted from 0 in
+its worker).
 
 It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`, one JSON line {"kernels": [...]}, and last
@@ -1218,6 +1243,317 @@ def phase_http(lone) -> dict:
     return rec
 
 
+# ------------------------------------------------------- phases 8 and 9
+RUNTIME_TRAIN = dict(steps=12, save_at=5, die_at=7, batch=4)
+
+
+def _runtime_train_loop(config):
+    """Phase 8's train_loop_per_worker: phase 6's model from its seed on
+    the card, Adam(lr=1e-3), one batch of the dataset shard per step, the
+    loss reported every step, the model and Adam state checkpointed at
+    `save_at` through the async engine, and on the first attempt a crash
+    (os._exit) after step `die_at` has reported."""
+    import statistics
+    import time
+
+    import torch
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import model_config
+    from ray_tpu_torch.models.transformer import Transformer, loss_fn
+    from ray_tpu_torch.train import checkpoint as ck
+
+    loop_start = time.time()
+    session = train.get_session()
+    attempt = session.restart_index
+    model = Transformer(model_config(LLMConfig(**config["cfg"])),
+                        device="cuda", seed=1)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    extra = {"loop_start_unix": loop_start, "restore_s": None,
+             "n_params": sum(p.numel() for p in model.parameters())}
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        state = ck.restore(ckpt.path, device="cuda")
+        model.load_state_dict(state["model"])
+        opt.load_state_dict(state["optim"])
+        torch.cuda.synchronize()
+        extra["restore_s"] = time.perf_counter() - t0
+        start = state["step"] + 1
+    kernels.reset_launch_counts()
+    step_ms = []
+    batches = train.get_dataset_shard("train").iter_batches(
+        batch_size=config["batch"])
+    for step, batch in enumerate(batches):
+        if step == config["steps"]:
+            break
+        # The controller re-splits the dataset on a restart, from its
+        # first row: skip the batches of the steps already taken, so step
+        # k sees the same batch in both attempts.
+        if step < start:
+            continue
+        tokens = torch.from_numpy(batch["data"]).long().cuda()
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        opt.step()
+        end.record()
+        metrics = {"step": step, "loss": loss.item(), "attempt": attempt}
+        step_ms.append(begin.elapsed_time(end))
+        dies = attempt == 0 and step == config["die_at"]
+        if dies or step == config["steps"] - 1:
+            metrics.update(extra, launches=kernels.launch_counts(),
+                           ms_per_step=statistics.median(step_ms),
+                           steps_run=len(step_ms), end_unix=time.time())
+        if step == config["save_at"]:
+            t0, t_unix = time.perf_counter(), time.time()
+            train.report(metrics, checkpoint={
+                "model": model.state_dict(), "optim": opt.state_dict(),
+                "step": step})
+            extra.update(save_sync_s=time.perf_counter() - t0,
+                         save_start_unix=t_unix)
+        else:
+            train.report(metrics)
+        if dies:
+            # Crash only once the controller has this step's report and the
+            # checkpoint before it has committed.
+            session.flush_checkpoints()
+            deadline = time.monotonic() + 120
+            while session.reports and time.monotonic() < deadline:
+                time.sleep(0.05)
+            os._exit(1)
+
+
+def phase_runtime_train(phase6_loss0: float, phase6_ms: float) -> dict:
+    """Phase 8: TorchTrainer on the runtime, one worker holding the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchTrainer)
+    from ray_tpu_torch.train import checkpoint as ck
+
+    cfg = RUNTIME_TRAIN
+    vocab = SERVE["vocab_size"]
+    first = torch.randint(0, vocab, (4, 1025),
+                          generator=torch.Generator().manual_seed(2))
+    rest = np.random.RandomState(8).randint(
+        0, vocab, (cfg["steps"] * cfg["batch"] - 4, 1025))
+    rows = np.concatenate([first.numpy(), rest]).astype(np.int32)
+    storage = tempfile.mkdtemp(prefix="rt_train_")
+    try:
+        t_fit = time.time()
+        result = TorchTrainer(
+            _runtime_train_loop, train_loop_config={**cfg, "cfg": SERVE},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(
+                name="phase8", storage_path=storage,
+                failure_config=FailureConfig(max_failures=1)),
+            datasets={"train": data.from_numpy(rows)}).fit()
+        fit_s = time.time() - t_fit
+        if result.error is not None:
+            raise AssertionError(f"TorchTrainer failed: {result.error}")
+        hist = result.metrics_history
+        loss = {(m["attempt"], m["step"]): m["loss"] for m in hist}
+        ends = {m["attempt"]: m for m in hist if "launches" in m}
+        t0 = time.perf_counter()
+        state = ck.restore(result.checkpoint.path)
+        driver_restore_s = time.perf_counter() - t0
+        man = ck.load_manifest(result.checkpoint.path)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    attempts = sorted({a for a, _ in loss})
+    steps = {a: sorted(s for b, s in loss if b == a) for a in attempts}
+    rel0 = abs(loss[(0, 0)] - phase6_loss0) / abs(phase6_loss0)
+    resumed_rel = {s: abs(loss[(1, s)] - loss[(0, s)]) / abs(loss[(0, s)])
+                   for s in (6, 7) if (1, s) in loss and (0, s) in loss}
+    model_numel = sum(v.size for v in state["model"].values())
+    f32_numel = sum(v.size for v in _array_leaves(state)
+                    if v.dtype == np.float32)
+    save_end = man["created"]
+    first_end = ends.get(0, {})
+    rec = {"fit_s": fit_s, "attempts": attempts, "steps": steps,
+           "losses": {f"{a}/{s}": v for (a, s), v in sorted(loss.items())},
+           "step0_loss": loss[(0, 0)], "phase6_step0_loss": phase6_loss0,
+           "step0_rel_err": rel0, "resumed_rel_err": resumed_rel,
+           "launches": {a: e["launches"] for a, e in ends.items()},
+           "steps_run": {a: e["steps_run"] for a, e in ends.items()},
+           "ms_per_step": {a: e["ms_per_step"] for a, e in ends.items()},
+           "phase6_ms_per_step": phase6_ms,
+           "tokens_per_s": {a: cfg["batch"] * 1024 / e["ms_per_step"] * 1e3
+                            for a, e in ends.items()},
+           "save_sync_s": first_end.get("save_sync_s"),
+           "save_total_s": (save_end - first_end["save_start_unix"]
+                            if "save_start_unix" in first_end else None),
+           "save_bytes": man["bytes"], "checkpoint_step": state["step"],
+           "restore_s_in_worker": ends.get(1, {}).get("restore_s"),
+           "restore_s_in_driver_numpy": driver_restore_s,
+           "worker_start_s": (first_end["loop_start_unix"] - t_fit
+                              if first_end else None),
+           "restart_start_s": (ends[1]["loop_start_unix"]
+                               - first_end["end_unix"]
+                               if 1 in ends and first_end else None),
+           "n_params": first_end.get("n_params"),
+           "checkpoint_model_numel": model_numel,
+           "checkpoint_f32_numel": f32_numel}
+    log("runtime_train " + json.dumps(rec))
+    if attempts != [0, 1]:
+        raise AssertionError(f"the group ran attempts {attempts}, not one "
+                             f"restart")
+    if steps[0] != list(range(cfg["die_at"] + 1)) or \
+            steps[1] != list(range(cfg["save_at"] + 1, cfg["steps"])):
+        raise AssertionError(f"steps run per attempt: {steps}")
+    if not rel0 <= 1e-4:
+        raise AssertionError(f"step 0's loss {loss[(0, 0)]} differs from "
+                             f"phase 6's {phase6_loss0}")
+    if len(resumed_rel) != 2 or not max(resumed_rel.values()) <= 2e-3:
+        raise AssertionError(f"resumed losses differ: {resumed_rel}")
+    if state["step"] != cfg["save_at"] or \
+            model_numel != first_end.get("n_params") or \
+            f32_numel < 3 * model_numel:
+        raise AssertionError("the final checkpoint does not hold the model "
+                             "and Adam state of step "
+                             f"{cfg['save_at']}")
+    n_layers = SERVE["n_layers"]
+    for a, e in ends.items():
+        want = n_layers * e["steps_run"]
+        got = e["launches"]
+        if got["flash_attention"] != want or \
+                got["flash_attention_bwd"] != want:
+            raise AssertionError(f"attempt {a}: flash kernels launched "
+                                 f"{got}, not {want} each")
+    if set(ends) != {0, 1}:
+        raise AssertionError("an attempt did not report its kernel counts")
+    return rec
+
+
+def _array_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _array_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _array_leaves(v)
+    elif isinstance(tree, np.ndarray):
+        yield tree
+
+
+def _counting_predictor():
+    """LLMPredictor that adds a column: the decode kernel's launch count in
+    the actor's process after the batch."""
+    from ray_tpu_torch.llm import LLMPredictor
+
+    class CountingPredictor(LLMPredictor):
+        def __call__(self, batch):
+            from ray_tpu_torch._private import kernels
+
+            out = super().__call__(batch)
+            out["decode_launches"] = np.full(
+                len(out["generated"]), kernels.DECODE_ATTENTION.launches)
+            return out
+
+    return CountingPredictor
+
+
+def phase_batch() -> dict:
+    """Phase 9: batch_inference through `data`, a map actor on the card."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, batch_inference
+
+    g = _golden()
+    gcfg = _golden_config(g)
+    n_new = g["greedy"].shape[1]
+    gcfg.max_new_tokens = n_new
+    prompts = [g[f"prompt_{i}"] for i in range(g["greedy"].shape[0])]
+    rows = batch_inference(
+        data.from_items([{"tokens": p} for p in prompts],
+                        parallelism=len(prompts)),
+        gcfg, device="cuda").take_all()
+    got = {tuple(r["tokens"]): r["generated"][len(r["tokens"]):]
+           for r in rows}
+    for p, want in zip(prompts, g["greedy"]):
+        if not np.array_equal(got.get(tuple(p)), want):
+            raise AssertionError(f"batch_inference golden tokens differ for "
+                                 f"prompt {p.tolist()}: {got.get(tuple(p))} "
+                                 f"vs {want}")
+    log(f"batch: golden greedy tokens equal through batch_inference "
+        f"({g['greedy'].size} tokens)")
+
+    n_rows, plen, new, per_batch = 8, 128, 32, 4
+    cfg = LLMConfig(**SERVE, max_new_tokens=new)
+    prompts = np.random.RandomState(9).randint(
+        0, SERVE["vocab_size"], (n_rows, plen)).astype(np.int32)
+    ds = data.from_items([{"tokens": p} for p in prompts],
+                         parallelism=n_rows // per_batch)
+    t0 = time.perf_counter()
+    # the same map_batches call batch_inference makes, with a predictor
+    # that also reads the actor's decode launch count
+    out = ds.map_batches(_counting_predictor(), concurrency=1,
+                         fn_constructor_args=(cfg,),
+                         fn_constructor_kwargs={"device": "cuda"}).take_all()
+    wall = time.perf_counter() - t0
+    eng = LLMEngine(cfg, device="cuda")
+    want = np.concatenate([eng.generate(prompts[i:i + per_batch])
+                           for i in range(0, n_rows, per_batch)])
+    del eng
+    got = {tuple(r["tokens"]): r["generated"] for r in out}
+    same = sum(np.array_equal(got.get(tuple(p)), w)
+               for p, w in zip(prompts, want))
+    launches = max(int(r["decode_launches"]) for r in out)
+    rec = {"rows": n_rows, "prompt_len": plen, "new_tokens": new,
+           "rows_equal_in_process": same, "wall_s": wall,
+           "rows_per_s": n_rows / wall,
+           "generated_tokens_per_s": n_rows * new / wall,
+           "actor_decode_launches": launches}
+    log("batch " + json.dumps(rec))
+    if same != n_rows:
+        raise AssertionError(f"{n_rows - same} rows of batch inference "
+                             f"differ from the in-process LLMEngine")
+    want_launches = SERVE["n_layers"] * (new - 1) * (n_rows // per_batch)
+    if launches < want_launches:
+        raise AssertionError(f"the actor launched the decode kernel "
+                             f"{launches} times, fewer than the "
+                             f"{want_launches} layer-steps")
+    return rec
+
+
+def phase_runtime(train_rec: dict) -> tuple[dict, dict]:
+    """Phases 8 and 9 on one runtime (the node counting 1 GPU), which must
+    leave no rt_* segment in /dev/shm."""
+    import ray_tpu_torch as rt
+
+    shm_before = _rt_segments()
+    rt.init(num_cpus=4)
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError("the node does not count 1 GPU")
+        t0 = time.perf_counter()
+        runtime_train_rec = phase_runtime_train(train_rec["losses"][0],
+                                                train_rec["ms_per_step"])
+        runtime_train_rec["phase_s"] = time.perf_counter() - t0
+        _wait_gpu_free(rt)
+        t0 = time.perf_counter()
+        batch_rec = phase_batch()
+        batch_rec["phase_s"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    left = _rt_segments() - shm_before
+    if left:
+        raise AssertionError(f"shutdown left shm segments {sorted(left)}")
+    log(f"runtime phases: train {runtime_train_rec['phase_s']:.1f} s, "
+        f"batch {batch_rec['phase_s']:.1f} s")
+    return runtime_train_rec, batch_rec
+
+
 def _ptxas_summary(build_log: str) -> list[str]:
     """One line per kernel instance from nvcc -Xptxas -v: its name and
     template arguments, registers, shared memory and spills, plus any
@@ -1282,9 +1618,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rec = phase_train(kernels)
     http_rec = phase_http(lone)
+    runtime_train_rec, batch_rec = phase_runtime(train_rec)
+    trainer_launches = {
+        name: sum(c[name] for c in runtime_train_rec["launches"].values())
+        for name in ("flash_attention", "flash_attention_bwd")}
     if serve_rec["decode_launches"] == 0 or forward_rec["flash_launches"] == 0 \
             or train_rec["flash_bwd_launches"] == 0 \
-            or http_rec["replica_decode_launches"] == 0:
+            or http_rec["replica_decode_launches"] == 0 \
+            or 0 in trainer_launches.values() \
+            or batch_rec["actor_decode_launches"] == 0:
         raise AssertionError("a kernel of the main path never launched")
 
     def line(kernel, rec, launches, replaces):
@@ -1300,14 +1642,17 @@ def main() -> int:
         {**line(kernels.DECODE_ATTENTION, decode_rec,
                 serve_rec["decode_launches"],
                 "ray_tpu/ops/decode_attention.py:33"),
-         "replica_launches": http_rec["replica_decode_launches"]},
-        line(kernels.FLASH_ATTENTION, flash_rec,
-             forward_rec["flash_launches"] + train_rec["flash_launches"],
-             "ray_tpu/ops/flash_attention.py:74"),
-        line(kernels.FLASH_ATTENTION_BWD, bwd_rec,
-             train_rec["flash_bwd_launches"],
-             "gradient of ray_tpu/ops/flash_attention.py:74 (no Pallas "
-             "counterpart)"),
+         "replica_launches": http_rec["replica_decode_launches"],
+         "batch_launches": batch_rec["actor_decode_launches"]},
+        {**line(kernels.FLASH_ATTENTION, flash_rec,
+                forward_rec["flash_launches"] + train_rec["flash_launches"],
+                "ray_tpu/ops/flash_attention.py:74"),
+         "trainer_launches": trainer_launches["flash_attention"]},
+        {**line(kernels.FLASH_ATTENTION_BWD, bwd_rec,
+                train_rec["flash_bwd_launches"],
+                "gradient of ray_tpu/ops/flash_attention.py:74 (no Pallas "
+                "counterpart)"),
+         "trainer_launches": trainer_launches["flash_attention_bwd"]},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

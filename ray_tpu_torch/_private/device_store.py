@@ -10,7 +10,7 @@ producing process's DeviceObjectTable instead of being copied to host,
 pickled and flushed through the shm store; what crosses the wire is a tiny
 placeholder blob whose deserialization resolves through a tier ladder:
 
-  tier 0  same process   the live array, zero-copy (identity-preserving)
+  tier 0  same process   the pinned snapshot itself, no further copy
   tier 1  same host      the producer exports ONCE into the shm store (the
                          pickle-5 out-of-band buffer view of the device
                          bytes is written straight into the mmap — no
@@ -35,8 +35,8 @@ does not serve (non-contiguous tensors, tensors that require grad,
 sub-threshold tensors) take the host store.
 
 Counterpart: ray_tpu/_private/device_store.py, which pins single-device
-`jax.Array`s. Here the pinned value is a contiguous `torch.Tensor` on any
-device (a CPU tensor too, so the plane runs without a card); the
+`jax.Array`s. Here the pinned value is a copy, taken at pin time, of a
+contiguous `torch.Tensor` on any device (a CPU tensor too, so the plane runs without a card); the
 descriptor records its device and dtype, the export is its host bytes
 (bf16 through a uint16 view, since numpy has no bf16), and a consumer
 rebuilds it on the recorded device.
@@ -57,10 +57,11 @@ from ray_tpu_torch._private.rtconfig import CONFIG
 class DeviceObjectTable:
     """Per-process table of produced arrays pinned in (device) memory.
 
-    The pin holds the producer's live `torch.Tensor` — device memory included
-    — so consumers can read it later without the producer having paid a
-    host copy at production time. Entries die on the owner-tracked free
-    fan-out (`device_free`) or with the process."""
+    The pin holds a snapshot of the producer's `torch.Tensor`, taken at pin
+    time on its own device (`_snapshot`), so consumers can read it later
+    without the producer having paid a host copy at production time, and
+    without seeing the producer's later in-place writes. Entries die on the
+    owner-tracked free fan-out (`device_free`) or with the process."""
 
     __slots__ = ("_lock", "_entries", "_bytes")
 
@@ -246,11 +247,20 @@ def _make_desc(oid: str, value, nbytes: int, worker) -> dict:
     }
 
 
+def _snapshot(value):
+    """The pinned copy of a produced tensor. The reference pins a
+    `jax.Array`, which is immutable; a tensor is not (an optimizer steps
+    its parameters in place), so the pin is a clone taken now: on the card
+    a device-to-device copy on the current stream, on the CPU a host copy."""
+    return value.detach().clone()
+
+
 def pin_return(oid: str, value, worker) -> tuple:
-    """Producer side of a task/actor return: pin the live array and emit
+    """Producer side of a task/actor return: pin a snapshot and emit
     the standard result tuple (oid, inline, size, holder) with the
     placeholder as the inline payload and this worker's RPC address as the
     device-location hint."""
+    value = _snapshot(value)
     nbytes = int(value.nbytes)
     _TABLE.pin(oid, value, nbytes)
     _ensure_metrics_flusher()
@@ -262,6 +272,7 @@ def pin_return(oid: str, value, worker) -> tuple:
 def pin_put(oid: str, value, worker) -> tuple[bytes, int]:
     """Producer side of an owner-local put()/large-arg promotion: pin and
     return (placeholder_blob, nbytes)."""
+    value = _snapshot(value)
     nbytes = int(value.nbytes)
     _TABLE.pin(oid, value, nbytes)
     _ensure_metrics_flusher()
@@ -278,6 +289,7 @@ def pin_edge(oid: str, value, worker):
     advanced past the invocation (the edge protocol's retention window).
     Returns the placeholder object whose pickle is the ~200B wire payload
     and whose unpickle resolves through the ordinary tier ladder."""
+    value = _snapshot(value)
     nbytes = int(value.nbytes)
     _TABLE.pin(oid, value, nbytes)
     _RESOLVE_STATS["edge_pins"] += 1
@@ -402,7 +414,7 @@ def _resolve(desc: dict):
     arr = _TABLE.get(oid)
     if arr is not None:
         _RESOLVE_STATS["tier0"] += 1
-        return arr  # tier 0: same process, zero-copy, identity-preserving
+        return arr  # tier 0: same process, the pinned snapshot
     from ray_tpu_torch._private.worker import global_worker
 
     w = global_worker()

@@ -5,9 +5,9 @@ Counterpart: ray_tpu/llm/__init__.py. `LLMConfig`, the greedy
 `Transformer`: the decode kernel on the card), `LLMPredictor` and
 `build_llm_deployment` (a Serve application over HTTP). The
 continuous-batching engine is `llm/engine.py`, the OpenAI surface
-`llm/openai.py` (`build_openai_app`). Not ported yet: `batch_inference`,
-which runs on the data library, and the pipelined engine, which runs on
-the compiled DAG.
+`llm/openai.py` (`build_openai_app`). `batch_inference` runs
+`LLMPredictor` over a `data` Dataset on an actor pool. Not ported yet: the
+pipelined engine, which runs on the compiled DAG.
 """
 
 from __future__ import annotations
@@ -101,6 +101,17 @@ class LLMPredictor:
     def __call__(self, batch: dict) -> dict:
         out = self.engine.generate(np.asarray(batch["tokens"]))
         return {"tokens": batch["tokens"], "generated": out}
+
+
+def batch_inference(ds, cfg: LLMConfig, *, concurrency: int = 1,
+                    device="cuda"):
+    """Run generation over a Dataset of {'tokens': [S] int} rows
+    (reference llm batch processor: Data pipeline + engine actors). Each
+    map actor builds its `LLMEngine` on `device`; the default "cuda" raises
+    in the actor where there is no card."""
+    return ds.map_batches(LLMPredictor, concurrency=concurrency,
+                          fn_constructor_args=(cfg,),
+                          fn_constructor_kwargs={"device": device})
 
 
 def __getattr__(name):

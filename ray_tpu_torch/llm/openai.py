@@ -69,7 +69,7 @@ class OpenAIServer:
         if stages > 1:
             raise NotImplementedError(
                 f"pipeline_stages={stages}: the pipelined engine is not "
-                f"ported yet (ROADMAP A8); serve with pipeline_stages=1")
+                f"ported yet (ROADMAP A5); serve with pipeline_stages=1")
         self.engine = ContinuousEngine(
             cfg, max_batch=max_batch, decode_chunk=decode_chunk,
             device=device)

@@ -344,3 +344,79 @@ def test_adam_steps_on_the_card(gen):
     with torch.no_grad():
         assert abs(losses[0] - float(loss_fn(cpu, tokens))) <= 1e-5
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def _card_train_loop(config):
+    import torch
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig, loss_fn)
+
+    cfg = TransformerConfig(**config["shape"], dtype=torch.bfloat16)
+    model = Transformer(cfg, device="cuda", seed=0)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    kernels.reset_launch_counts()
+    tokens = torch.from_numpy(config["tokens"]).long().cuda()
+    loss = loss_fn(model, tokens)
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    train.report({"loss": loss.item(), "launches": kernels.launch_counts(),
+                  "device": str(next(model.parameters()).device)})
+
+
+def test_torch_trainer_step_on_the_card(gen, tmp_path):
+    """One TorchTrainer step in a worker that holds the card: its loss is
+    the in-process step's, and the flash kernels ran in the worker."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig, loss_fn)
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    shape = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=2,
+                 n_kv_heads=2, d_ff=256, max_seq=256)
+    tokens = np.random.RandomState(0).randint(0, 256, (2, 129)).astype(
+        np.int32)
+    rt.init(num_cpus=2)
+    try:
+        result = TorchTrainer(
+            _card_train_loop,
+            train_loop_config={"shape": shape, "tokens": tokens},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    finally:
+        rt.shutdown()
+    assert result.error is None, result.error
+    rep = result.metrics
+    assert rep["device"].startswith("cuda")
+    assert rep["launches"]["flash_attention"] == 2
+    assert rep["launches"]["flash_attention_bwd"] == 2
+    model = Transformer(TransformerConfig(**shape, dtype=torch.bfloat16),
+                        device="cuda", seed=0)
+    want = loss_fn(model, torch.from_numpy(tokens).long().cuda()).item()
+    assert rep["loss"] == pytest.approx(want, rel=1e-4)
+
+
+def test_batch_inference_of_two_rows_on_the_card(gen):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, batch_inference
+
+    # D = 64: the decode kernel takes head dims 64 and 128
+    cfg = LLMConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
+                    max_seq=64, max_new_tokens=8)
+    prompts = np.random.RandomState(1).randint(0, 256, (2, 6)).astype(
+        np.int32)
+    rt.init(num_cpus=2)
+    try:
+        rows = batch_inference(data.from_items([{"tokens": p}
+                                                for p in prompts]),
+                               cfg).take_all()
+    finally:
+        rt.shutdown()
+    want = LLMEngine(cfg, device="cpu").generate(prompts)
+    got = {tuple(r["tokens"]): r["generated"] for r in rows}
+    for p, w in zip(prompts, want):
+        np.testing.assert_array_equal(got[tuple(p)], w)

@@ -182,10 +182,61 @@ def test_tensor_rides_the_device_plane(cluster):
 
 
 def test_same_process_get_returns_the_pinned_tensor(cluster):
+    """Tier 0 resolves to the pinned snapshot: equal values, and the
+    producer's later in-place change does not reach it (the pin is a copy,
+    as a jax.Array pin is immutable in the reference)."""
     t = torch.arange(N, dtype=torch.float32)
     ref = rt.put(t)
-    assert rt.get(ref) is t  # tier 0: identity, no copy
+    assert torch.equal(rt.get(ref), torch.arange(N, dtype=torch.float32))
     assert device_objects.device_object_stats()["count"] >= 1
+    t.add_(5)
+    assert torch.equal(rt.get(ref), torch.arange(N, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_put_tensor_is_a_snapshot(cluster, dtype):
+    """`ref = put(t)`, then `t.add_(5)`: the ref keeps the put value, in
+    this process and in another one, as a numpy array's does."""
+    t = torch.zeros(N, dtype=getattr(torch, dtype))
+    ref = rt.put(t)
+    t.add_(5)
+
+    @rt.remote
+    def total(x):
+        return float(x.float().sum())
+
+    assert float(rt.get(ref).float().sum()) == 0.0
+    assert rt.get(total.remote(ref), timeout=60) == 0.0
+    nd = np.zeros(N, dtype=np.float32)
+    ref_nd = rt.put(nd)
+    nd += 5
+    assert float(rt.get(ref_nd).sum()) == 0.0
+
+
+def test_actor_return_is_a_snapshot(cluster):
+    """An actor returns its buffer, then a later call changes the buffer in
+    place: the first ref still gives the returned values."""
+
+    @rt.remote(num_cpus=0)
+    class Holder:
+        def __init__(self):
+            import torch
+
+            self.buf = torch.zeros(N)
+
+        def get_buf(self):
+            return self.buf
+
+        def bump(self):
+            self.buf.add_(1)
+            return float(self.buf.sum())
+
+    h = Holder.remote()
+    first = h.get_buf.remote()
+    assert rt.get(h.bump.remote(), timeout=60) == float(N)
+    second = h.get_buf.remote()
+    assert float(rt.get(first, timeout=60).sum()) == 0.0
+    assert float(rt.get(second, timeout=60).sum()) == float(N)
 
 
 def test_tensors_the_plane_does_not_serve_take_the_host_path(cluster):
@@ -259,12 +310,20 @@ def _bad_imports(tree) -> set:
     return found & set(_FORBIDDEN)
 
 
+# The one name of the JAX package the port may write: the checkpoint tree
+# file's stub global, part of the shared on-disk format. The port maps it
+# to its own class when it reads and never imports it
+# (test_torch_checkpoint.py::test_port_reads_its_format_without_the_jax_package).
+_FORMAT_NAMES = {"ray_tpu.train.checkpoint"}
+
+
 def _bad_strings(tree) -> set:
     """String literals naming a module of the JAX package ("ray_tpu.x"):
     a sys.modules key or a `-m` target that would silently point there."""
     return {node.value for node in ast.walk(tree)
             if isinstance(node, ast.Constant) and isinstance(node.value, str)
-            and node.value.startswith("ray_tpu.")}
+            and node.value.startswith("ray_tpu.")
+            and node.value not in _FORMAT_NAMES}
 
 
 @pytest.mark.parametrize("check", [_bad_imports, _bad_strings],
@@ -278,3 +337,60 @@ def test_port_names_nothing_of_the_jax_package(check):
         if found:
             bad[str(f.relative_to(REPO))] = sorted(found)
     assert not bad, bad
+
+
+def test_collective_tensor_pytrees_over_two_actors(cluster):
+    """`util.collective` on tensor pytrees: allreduce sums as numpy does
+    (bf16 summed in f32, then rounded once), broadcast and allgather carry
+    each leaf whole; every leaf keeps its dtype and device, numpy leaves
+    stay numpy."""
+    import uuid
+
+    group = f"col-{uuid.uuid4().hex[:8]}"
+
+    @rt.remote(num_cpus=0)
+    class Rank:
+        def __init__(self, rank):
+            from ray_tpu_torch.util import collective
+
+            self.rank = rank
+            self.col = collective
+            collective.init_collective_group(2, rank, group)
+
+        def tree(self):
+            import numpy as np
+            import torch
+
+            g = torch.Generator().manual_seed(self.rank)
+            return {"f32": torch.randn(5, 3, generator=g),
+                    "bf16": torch.randn(7, generator=g).to(torch.bfloat16),
+                    "i64": torch.arange(4) * (self.rank + 1),
+                    "nd": [np.full(3, float(self.rank))]}
+
+        def run(self):
+            t = self.tree()
+            return (self.col.allreduce(t, group_name=group),
+                    self.col.broadcast(t, src_rank=1, group_name=group),
+                    self.col.allgather(t, group_name=group))
+
+    actors = [Rank.remote(r) for r in range(2)]
+    trees = [rt.get(a.tree.remote(), timeout=60) for a in actors]
+    outs = rt.get([a.run.remote() for a in actors], timeout=120)
+    f32 = lambda t: t.float().numpy()  # noqa: E731
+    for red, bc, gathered in outs:
+        np.testing.assert_array_equal(
+            red["f32"].numpy(), trees[0]["f32"].numpy() + trees[1]["f32"].numpy())
+        want_bf16 = torch.from_numpy(
+            f32(trees[0]["bf16"]) + f32(trees[1]["bf16"])).to(torch.bfloat16)
+        assert red["bf16"].dtype == torch.bfloat16
+        assert torch.equal(red["bf16"], want_bf16)
+        assert red["i64"].dtype == torch.int64
+        assert torch.equal(red["i64"], torch.arange(4) * 3)
+        assert isinstance(red["nd"][0], np.ndarray)
+        np.testing.assert_array_equal(red["nd"][0], np.full(3, 1.0))
+        for leaf in ("f32", "bf16", "i64"):
+            assert red[leaf].device.type == "cpu"
+            assert torch.equal(bc[leaf], trees[1][leaf])
+            assert bc[leaf].dtype == trees[1][leaf].dtype
+            for r in range(2):
+                assert torch.equal(gathered[r][leaf], trees[r][leaf])

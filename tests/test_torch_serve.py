@@ -214,5 +214,5 @@ def test_llm_deployment_over_http_equals_jax(base, golden_engines):
 def test_pipelined_engine_is_refused_by_name():
     from ray_tpu_torch.llm.openai import OpenAIServer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         OpenAIServer(CFG, pipeline_stages=2, device="cpu")
