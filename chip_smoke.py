@@ -87,6 +87,34 @@ from the root of a checkout. Phases, each of which raises on failure
    call with a predictor that also reads the actor's decode launch
    count, equal to an in-process `LLMEngine` on the same batches. Then
    ray_tpu_torch.shutdown(), which must leave no rt_* segment.
+10. Pipelined serving over HTTP, on a third `ray_tpu_torch.init(num_cpus=4)`
+   (1 GPU): `build_openai_app(..., pipeline_stages=2)` puts a
+   `PipelinedEngine` in the replica, whose two `PipelineStage` actors,
+   processes of their own, hold 4 layers each on the card and run decode
+   invocations (one microbatch of 2 rows each) stage0 -> stage1 through
+   the compiled DAG. First the golden float32 model: its greedy token_ids
+   over HTTP equal the JAX package's. Then phase 4's model and request
+   mix: a lone greedy completion (against phase 4's answer for the same
+   prompt; where the tokens differ, the first differing position and the
+   first decode step's logits of the two stage nets at 2 rows against the
+   full model at 8 rows, held at phase 5's bf16 tolerance), two SSE
+   streams (time to first token of the second), a chat and 6 concurrent
+   completions from threads (tokens/s, wall ms per decode invocation,
+   each stage's busy share of the wall), and each stage's own host ms,
+   device ms and kernels per decode invocation, stepped directly in this
+   process (torch.profiler). /v1/stats carries each stage's
+   pid (neither the replica's nor this process's), CUDA memory, decode
+   invocations and decode launches (equal to its 4 layers times its
+   invocations), and its resolve counters: no export or fetch RPC after
+   warm-up. Then serve.shutdown().
+11. Tune on the card, on the same runtime: a `Tuner` over `TorchTrainer`
+   with one worker (`use_gpu=True`), phase 6's widths cut to 2 layers,
+   one batch [4, 1025], 3 Adam steps, `grid_search` over two learning
+   rates: 2 trials, whose workers take the one card in turn. Losses
+   finite, `get_best_result` the trial with the lower last loss, each
+   worker's flash forward and backward launched once per layer per step.
+   Then ray_tpu_torch.shutdown(), which must leave no rt_* (nor
+   rtch_torch_*) segment.
 
 Launch counts: the decode kernel's from phase 4, the flash forward's from
 phases 5 and 6, the flash backward's from phase 6, each path's counts set
@@ -95,7 +123,10 @@ replica's count from phase 7 (`replica_launches`: a fresh process, read
 after its requests) and the map actor's from phase 9 (`batch_launches`),
 and the flash rows the training workers' from phase 8
 (`trainer_launches`, the sum over both attempts, each counted from 0 in
-its worker).
+its worker). The decode row also carries the stage actors' counts from
+phase 10 (`pipeline_launches`, the sum over the two stages), and the
+flash rows the tune trials' workers' from phase 11 (`tune_launches`, the
+sum over the trials).
 
 It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`, one JSON line {"kernels": [...]}, and last
@@ -1554,6 +1585,404 @@ def phase_runtime(train_rec: dict) -> tuple[dict, dict]:
     return runtime_train_rec, batch_rec
 
 
+# ------------------------------------------------------ phases 10 and 11
+def _stage_rows(stats: dict) -> list[dict]:
+    """The pipeline's per-stage rows of a /v1/stats answer."""
+    stages = stats.get("pipeline", {}).get("stages", [])
+    if stats.get("pipeline_stages") != 2 or len(stages) != 2:
+        raise AssertionError(f"/v1/stats names no 2-stage pipeline: {stats}")
+    return stages
+
+
+def _check_stages(stats: dict) -> list[dict]:
+    """Raise unless each stage is a process of its own (neither the
+    replica nor this one), holds CUDA memory, and launched the decode
+    kernel once per layer of each decode invocation it ran."""
+    stages = _stage_rows(stats)
+    pids = {s["pid"] for s in stages}
+    if len(pids) != 2 or stats["pid"] in pids or os.getpid() in pids:
+        raise AssertionError(f"stage pids {pids}, replica {stats['pid']}, "
+                             f"driver {os.getpid()}")
+    for s in stages:
+        if not s["device"].startswith("cuda") or s["device_bytes"] <= 0:
+            raise AssertionError(f"stage {s['stage']} holds no CUDA memory")
+        want = len(s["layers"]) * s["decode_steps"]
+        if s["decode_steps"] == 0 or \
+                s["kernel_launches"]["decode_attention"] != want:
+            raise AssertionError(
+                f"stage {s['stage']} launched the decode kernel "
+                f"{s['kernel_launches']['decode_attention']} times for "
+                f"{s['decode_steps']} invocations of {len(s['layers'])} "
+                f"layers")
+    return stages
+
+
+def _first_decode_logits(body: dict) -> dict:
+    """The first decode step's logits of `body`'s prompt, in this process:
+    the full model at ContinuousEngine's batch (8 rows) against the two
+    stage nets at the pipeline's microbatch (2 rows), row 0 holding the
+    request in both. Held at phase 5's bf16 tolerance."""
+    import torch
+
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import (make_stage_net, model_config,
+                                          stage_layer_split,
+                                          stage_param_slice)
+    from ray_tpu_torch.models.transformer import Transformer
+
+    mcfg = model_config(LLMConfig(**SERVE))
+    model = Transformer(mcfg, device="cuda", seed=SERVE["seed"])
+    sd = model.state_dict()
+    nets = []
+    for s, layers in enumerate(stage_layer_split(SERVE["n_layers"], 2)):
+        net = make_stage_net(mcfg, layers, s == 0, s == 1, device="cuda")
+        net.load_state_dict(stage_param_slice(sd, layers, s == 0, s == 1))
+        nets.append(net.to(torch.bfloat16).eval())
+    model.to(torch.bfloat16).eval()
+    prompt = torch.tensor(body["prompt"], device="cuda")[None]
+    plen = prompt.shape[1]
+    with torch.no_grad():
+        # one prefill at batch 1, placed into row 0 of both batches' caches
+        prefilled = model.new_cache(1, plen)
+        first = int(model(prompt, torch.arange(plen, device="cuda")[None],
+                          cache=prefilled)[0, -1].argmax())
+
+        def decode_row0(rows, run):
+            cache = model.new_cache(rows)
+            for (big_k, big_v), (k, v) in zip(cache, prefilled):
+                big_k[0, :plen].copy_(k[0])
+                big_v[0, :plen].copy_(v[0])
+            toks = torch.zeros((rows, 1), dtype=torch.long, device="cuda")
+            toks[0, 0] = first
+            pos = torch.zeros((rows, 1), dtype=torch.long, device="cuda")
+            pos[0, 0] = plen
+            return run(toks, pos, cache)[0, -1]
+
+        def run_stages(toks, pos, cache):
+            n0 = len(nets[0].layers)
+            x = nets[0](toks, pos, cache=cache[:n0])
+            return nets[1](x, pos, cache=cache[n0:])
+
+        single = decode_row0(8, lambda t, p, c: model(t, p, cache=c))
+        staged = decode_row0(2, run_stages)
+    err = float((single - staged).abs().max())
+    scale = float(single.abs().max())
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "argmax_equal": int(single.argmax()) == int(staged.argmax()),
+            "within_tol": err <= 0.05 * max(1.0, scale)}
+
+
+def _stage_step_times(reps: int = 20) -> dict:
+    """Each stage's own cost per decode invocation, in this process: the
+    two `PipelineStage`s of phase 10's engine (the same shards, 2-row
+    microbatches) stepped directly, without the DAG. Host ms per step()
+    (median; the last stage's ends in its token copy to the host), and
+    device ms and kernels per step from torch.profiler over `reps` steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import (model_config, stage_layer_split,
+                                          stage_param_slice)
+    from ray_tpu_torch.llm.pipeline import PipelineStage
+    from ray_tpu_torch.models.transformer import Transformer
+
+    cfg = LLMConfig(**SERVE)
+    state = Transformer(model_config(cfg), device="cpu",
+                        seed=cfg.seed).state_dict()
+    splits = stage_layer_split(SERVE["n_layers"], 2)
+    stages = [PipelineStage(
+        cfg, s, 2, layers, s == 0, s == 1,
+        {k: v.numpy() for k, v in stage_param_slice(
+            state, layers, s == 0, s == 1).items()}, 2, 4, device="cuda")
+        for s, layers in enumerate(splits)]
+    del state
+    toks = np.array([17, 42], np.int64)
+    lens = np.array([200, 150], np.int64)
+
+    def run(s):
+        out = stages[0].step(("d", 0, toks, lens, True))
+        return out if s == 0 else stages[1].step(out)
+
+    mid = run(0)
+    rec = {}
+    for s, stage in enumerate(stages):
+        msg = ("d", 0, toks, lens, True) if s == 0 else mid
+        for _ in range(3):
+            stage.step(msg)
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            stage.step(msg)
+            host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                stage.step(msg)
+            torch.cuda.synchronize()
+        by_name, n_kernels = _kernel_times_us(prof)
+        rec[stage.name] = {"host_ms": statistics.median(host),
+                           "device_ms": sum(by_name.values()) / reps / 1e3,
+                           "kernels": n_kernels / reps}
+    del stages, mid
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_pipeline(lone) -> dict:
+    """Phase 10: pipelined serving over HTTP, two stage actors on the
+    card."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.openai import build_openai_app
+
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    g = _golden()
+    t0 = time.perf_counter()
+    serve.run(build_openai_app(_golden_config(g), name="golden", max_batch=2,
+                               pipeline_stages=2), port=port)
+    golden_deploy_s = time.perf_counter() - t0
+    greedy = [_http(f"{base}/v1/completions", {
+        "prompt": g[f"prompt_{i}"].tolist(), "temperature": 0.0,
+        "max_tokens": g["greedy"].shape[1]})["token_ids"]
+        for i in range(g["greedy"].shape[0])]
+    if not np.array_equal(np.asarray(greedy), g["greedy"]):
+        raise AssertionError(f"golden greedy tokens over the pipeline "
+                             f"differ:\n{greedy}\n{g['greedy']}")
+    stages = _check_stages(_http(f"{base}/v1/stats"))
+    log(f"pipeline: golden greedy tokens equal over HTTP through 2 stages "
+        f"({np.asarray(greedy).size} tokens); stages "
+        + json.dumps([{k: s[k] for k in ("stage", "pid", "device_bytes",
+                                         "decode_steps", "kernel_launches")}
+                      for s in stages]))
+    serve.delete("golden")
+
+    t0 = time.perf_counter()
+    serve.run(build_openai_app(LLMConfig(**SERVE), max_batch=8,
+                               default_max_tokens=64, pipeline_stages=2),
+              port=port)
+    deploy_s = time.perf_counter() - t0
+    body, want = lone
+    got = _http(f"{base}/v1/completions", body)["token_ids"]
+    lone_rec = {"equal": got == want}
+    if got != want:
+        first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        lone_rec.update(first_differing_position=first,
+                        **_first_decode_logits(body))
+        log(f"pipeline: the lone greedy answer differs from phase 4's at "
+            f"position {first}: {json.dumps(lone_rec)}")
+        if not lone_rec["within_tol"]:
+            raise AssertionError("the first decode step's logits of the "
+                                 "pipeline differ from the single engine's "
+                                 "beyond the bf16 tolerance")
+    rng = np.random.RandomState(7)
+
+    def stream():
+        t_s = time.perf_counter()
+        events, arrival = _http_stream(f"{base}/v1/completions", {
+            "prompt": rng.randint(0, SERVE["vocab_size"], 128).tolist(),
+            "temperature": 0.0, "max_tokens": 64, "stream": True})
+        return t_s, events, arrival
+
+    stream()  # the first pays the proxy's stream set-up
+    t_s, events, arrival = stream()
+    with_tokens = [(e, t) for e, t in zip(events, arrival)
+                   if e and e["token_ids"]]
+    streamed = [t for e, _ in with_tokens for t in e["token_ids"]]
+    if events[-1] is not None or len(streamed) != 64:
+        raise AssertionError(f"the stream gave {len(streamed)} tokens")
+    ttft = with_tokens[0][1] - t_s
+    chat = _http(f"{base}/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "hello there"}],
+        "temperature": 0.0, "max_tokens": 32})
+    if chat["object"] != "chat.completion" or len(chat["token_ids"]) != 32:
+        raise AssertionError(f"chat answer malformed: {chat['object']}")
+
+    bodies = []
+    for i, n in enumerate((64, 128, 256, 64, 128, 256)):
+        b = {"prompt": rng.randint(0, SERVE["vocab_size"], n).tolist(),
+             "max_tokens": 96 + 16 * i,
+             "temperature": 0.0 if i % 2 == 0 else 0.8}
+        if i % 2:
+            b.update(top_p=0.9, top_k=50, seed=i)
+        bodies.append(b)
+    results = [None] * len(bodies)
+
+    def worker(i):
+        results[i] = _http(f"{base}/v1/completions", bodies[i])
+
+    before = _http(f"{base}/v1/stats")  # after warm-up
+    t0 = time.perf_counter()
+    threads = []
+    for i in range(len(bodies)):
+        threads.append(threading.Thread(target=worker, args=(i,)))
+        threads[-1].start()
+        time.sleep(0.05)  # staggered, as in phase 4
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    after = _http(f"{base}/v1/stats")
+    n_tokens = 0
+    for b, out in zip(bodies, results):
+        if out is None or len(out["token_ids"]) != b["max_tokens"]:
+            raise AssertionError("a concurrent completion over the pipeline "
+                                 "did not finish")
+        n_tokens += len(out["token_ids"])
+    stages = _check_stages(after)
+    invocations = after["decode_steps"] - before["decode_steps"]
+    rpcs = (after["pipeline"]["resolve_rpcs"]
+            - before["pipeline"]["resolve_rpcs"])
+    pins = after["pipeline"]["edge_pins"] - before["pipeline"]["edge_pins"]
+    busy = {s1["stage"]: (s1["busy_s"] - s0["busy_s"]) / wall
+            for s0, s1 in zip(_stage_rows(before), stages)}
+    rec = {"deploy_s": deploy_s, "golden_deploy_s": golden_deploy_s,
+           "lone_greedy": lone_rec, "concurrent_requests": len(bodies),
+           "generated_tokens": n_tokens, "wall_s": wall,
+           "tokens_per_s": n_tokens / wall,
+           "decode_invocations": invocations,
+           "ms_per_decode_invocation_wall": 1e3 * wall / max(invocations, 1),
+           "stream_ttft_ms": 1e3 * ttft, "stage_busy_share": busy,
+           "edge_pins": pins, "resolve_rpcs": rpcs,
+           "stage_decode_launches": {
+               s["stage"]: s["kernel_launches"]["decode_attention"]
+               for s in stages},
+           "stage_decode_steps": {s["stage"]: s["decode_steps"]
+                                  for s in stages},
+           "stage_device_bytes": {s["stage"]: s["device_bytes"]
+                                  for s in stages},
+           "pipeline_launches": sum(s["kernel_launches"]["decode_attention"]
+                                    for s in stages),
+           "stage_step_in_process": _stage_step_times()}
+    log("pipeline " + json.dumps(rec))
+    if rpcs != 0 or pins == 0:
+        raise AssertionError(f"steady-state decode took {rpcs} resolve RPCs "
+                             f"({pins} edge pins)")
+    serve.shutdown()
+    return rec
+
+
+TUNE = dict(n_layers=2, batch=4, steps=3, lrs=(1e-3, 3e-4))
+
+
+def _tune_train_loop(config):
+    """Phase 11's train_loop_per_worker: phase 6's widths cut to 2 layers
+    on the card, Adam at the trial's learning rate, one fixed batch
+    [4, 1025], the loss reported every step and this worker's kernel
+    launch counts with the last."""
+    import torch
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import model_config
+    from ray_tpu_torch.models.transformer import Transformer, loss_fn
+
+    cfg = {**config["cfg"], "n_layers": config["n_layers"]}
+    model = Transformer(model_config(LLMConfig(**cfg)), device="cuda", seed=1)
+    opt = torch.optim.Adam(model.parameters(), lr=config["lr"])
+    tokens = torch.randint(0, cfg["vocab_size"], (config["batch"], 1025),
+                           generator=torch.Generator().manual_seed(2)).cuda()
+    kernels.reset_launch_counts()
+    for step in range(config["steps"]):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        opt.step()
+        metrics = {"step": step, "loss": loss.item(), "lr": config["lr"]}
+        if step == config["steps"] - 1:
+            torch.cuda.synchronize()
+            metrics["launches"] = kernels.launch_counts()
+        train.report(metrics)
+
+
+def phase_tune() -> dict:
+    """Phase 11: Tuner over TorchTrainer, 2 trials on the one card."""
+    import math
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    storage = tempfile.mkdtemp(prefix="rt_tune_")
+    try:
+        trainer = TorchTrainer(
+            _tune_train_loop,
+            train_loop_config={**{k: v for k, v in TUNE.items()
+                                  if k != "lrs"}, "cfg": SERVE},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=storage))
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            trainer,
+            param_space={"train_loop_config": {
+                "lr": tune.grid_search(list(TUNE["lrs"]))}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min"),
+            run_config=RunConfig(storage_path=storage, name="phase11")).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    trials = [{"lr": r.config["train_loop_config"]["lr"],
+               "error": r.error, "metrics": r.metrics} for r in grid]
+    log("tune " + json.dumps({"fit_s": fit_s, "trials": trials}))
+    if len(grid) != 2 or grid.num_errors:
+        raise AssertionError(f"tune ran {len(grid)} trials, "
+                             f"{grid.num_errors} failed")
+    want = TUNE["n_layers"] * TUNE["steps"]
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for t in trials:
+        m = t["metrics"]
+        if not math.isfinite(m["loss"]) or m["step"] != TUNE["steps"] - 1:
+            raise AssertionError(f"trial lr={t['lr']} ended with {m}")
+        for name in launches:
+            if m["launches"][name] != want:
+                raise AssertionError(f"trial lr={t['lr']} launched {name} "
+                                     f"{m['launches'][name]} times, not "
+                                     f"{want}")
+            launches[name] += m["launches"][name]
+    best = grid.get_best_result()
+    lowest = min(trials, key=lambda t: t["metrics"]["loss"])
+    if best.config["train_loop_config"]["lr"] != lowest["lr"]:
+        raise AssertionError("get_best_result is not the trial with the "
+                             "lower last loss")
+    return {"fit_s": fit_s, "best_lr": lowest["lr"],
+            "last_loss": {str(t["lr"]): t["metrics"]["loss"] for t in trials},
+            "tune_launches": launches}
+
+
+def phase_pipeline_and_tune(lone) -> tuple[dict, dict]:
+    """Phases 10 and 11 on one runtime (the node counting 1 GPU), which
+    must leave no rt_* or rtch_torch_* segment in /dev/shm."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    shm_before = _rt_segments()
+    rt.init(num_cpus=4)
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError("the node does not count 1 GPU")
+        t0 = time.perf_counter()
+        try:
+            pipe_rec = phase_pipeline(lone)
+        finally:
+            serve.shutdown()
+        pipe_rec["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tune_rec = phase_tune()
+        tune_rec["phase_s"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    left = _rt_segments() - shm_before
+    if left:
+        raise AssertionError(f"shutdown left shm segments {sorted(left)}")
+    log(f"pipeline and tune phases: {pipe_rec['phase_s']:.1f} s and "
+        f"{tune_rec['phase_s']:.1f} s")
+    return pipe_rec, tune_rec
+
+
 def _ptxas_summary(build_log: str) -> list[str]:
     """One line per kernel instance from nvcc -Xptxas -v: its name and
     template arguments, registers, shared memory and spills, plus any
@@ -1619,14 +2048,18 @@ def main() -> int:
     train_rec = phase_train(kernels)
     http_rec = phase_http(lone)
     runtime_train_rec, batch_rec = phase_runtime(train_rec)
+    pipe_rec, tune_rec = phase_pipeline_and_tune(lone)
     trainer_launches = {
         name: sum(c[name] for c in runtime_train_rec["launches"].values())
         for name in ("flash_attention", "flash_attention_bwd")}
+    tune_launches = tune_rec["tune_launches"]
     if serve_rec["decode_launches"] == 0 or forward_rec["flash_launches"] == 0 \
             or train_rec["flash_bwd_launches"] == 0 \
             or http_rec["replica_decode_launches"] == 0 \
             or 0 in trainer_launches.values() \
-            or batch_rec["actor_decode_launches"] == 0:
+            or batch_rec["actor_decode_launches"] == 0 \
+            or pipe_rec["pipeline_launches"] == 0 \
+            or 0 in tune_launches.values():
         raise AssertionError("a kernel of the main path never launched")
 
     def line(kernel, rec, launches, replaces):
@@ -1643,16 +2076,19 @@ def main() -> int:
                 serve_rec["decode_launches"],
                 "ray_tpu/ops/decode_attention.py:33"),
          "replica_launches": http_rec["replica_decode_launches"],
-         "batch_launches": batch_rec["actor_decode_launches"]},
+         "batch_launches": batch_rec["actor_decode_launches"],
+         "pipeline_launches": pipe_rec["pipeline_launches"]},
         {**line(kernels.FLASH_ATTENTION, flash_rec,
                 forward_rec["flash_launches"] + train_rec["flash_launches"],
                 "ray_tpu/ops/flash_attention.py:74"),
-         "trainer_launches": trainer_launches["flash_attention"]},
+         "trainer_launches": trainer_launches["flash_attention"],
+         "tune_launches": tune_launches["flash_attention"]},
         {**line(kernels.FLASH_ATTENTION_BWD, bwd_rec,
                 train_rec["flash_bwd_launches"],
                 "gradient of ray_tpu/ops/flash_attention.py:74 (no Pallas "
                 "counterpart)"),
-         "trainer_launches": trainer_launches["flash_attention_bwd"]},
+         "trainer_launches": trainer_launches["flash_attention_bwd"],
+         "tune_launches": tune_launches["flash_attention_bwd"]},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

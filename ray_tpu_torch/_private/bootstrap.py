@@ -7,7 +7,8 @@ single-host cluster hosts controller + head agent on the driver's IO loop
 thread — zero extra processes beyond the worker pool; `ray-tpu start` runs
 the same objects standalone for multi-host clusters.
 
-Counterpart: ray_tpu/_private/bootstrap.py (copied; the head counts GPUs).
+Counterpart: ray_tpu/_private/bootstrap.py (copied; the head counts GPUs,
+and its stop also unlinks the session's compiled-DAG channels).
 """
 
 from __future__ import annotations
@@ -99,11 +100,16 @@ class HeadNode:
         except Exception:
             pass
         self.io.stop()
-        # Clean any session shm leftovers.
+        # Clean any session shm leftovers: store segments, and compiled-DAG
+        # channels whose driver was killed before its teardown.
         import glob
 
-        for p in glob.glob(os.path.join(CONFIG.shm_dir, f"rt_{self.session_id[:8]}_*")):
-            try:
-                os.unlink(p)
-            except OSError:
-                pass
+        from ray_tpu_torch.experimental.channel import CHANNEL_PREFIX
+
+        session = self.session_id[:8]
+        for pattern in (f"rt_{session}_*", f"{CHANNEL_PREFIX}{session}_*"):
+            for p in glob.glob(os.path.join(CONFIG.shm_dir, pattern)):
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass

@@ -5,9 +5,10 @@ Counterpart: ray_tpu/llm/__init__.py. `LLMConfig`, the greedy
 `Transformer`: the decode kernel on the card), `LLMPredictor` and
 `build_llm_deployment` (a Serve application over HTTP). The
 continuous-batching engine is `llm/engine.py`, the OpenAI surface
-`llm/openai.py` (`build_openai_app`). `batch_inference` runs
-`LLMPredictor` over a `data` Dataset on an actor pool. Not ported yet: the
-pipelined engine, which runs on the compiled DAG.
+`llm/openai.py` (`build_openai_app`), the pipelined engine
+(`PipelinedEngine`, `PipelineStage`) `llm/pipeline.py`, on the compiled
+DAG. `batch_inference` runs `LLMPredictor` over a `data` Dataset on an
+actor pool.
 """
 
 from __future__ import annotations
@@ -120,6 +121,10 @@ def __getattr__(name):
         from ray_tpu_torch.llm import engine as _e
 
         return getattr(_e, name)
+    if name in ("PipelinedEngine", "PipelineStage"):
+        from ray_tpu_torch.llm import pipeline as _p
+
+        return getattr(_p, name)
     if name in ("build_openai_app", "OpenAIServer", "ByteTokenizer"):
         from ray_tpu_torch.llm import openai as _o
 

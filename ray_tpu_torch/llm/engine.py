@@ -310,6 +310,60 @@ def stage_param_slice(state_dict: dict, layers: tuple, first: bool,
     return out
 
 
+def make_stage_net(mcfg, layers: tuple, first: bool, last: bool, *,
+                   device="cuda"):
+    """nn.Module computing one pipeline stage's slice of the Transformer:
+    embed (first stage) -> layers[a:b] -> final_norm + tied head (last
+    stage). Its layers sit in a ModuleDict keyed by their GLOBAL index, so
+    its state_dict keys are the full model's (`layers.{i}.`) and
+    stage_param_slice's output loads into it with strict=True; a 1-stage
+    net computes exactly what the full Transformer computes. Parameters
+    are left uninitialised: load a shard before use."""
+    from ray_tpu_torch.models.transformer import Block, RMSNorm, _param
+
+    dev = resolve_device(device)
+
+    class _StageNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.cfg = mcfg
+            self.device = dev
+            self.first, self.last = bool(first), bool(last)
+            if first or last:
+                self.tok_emb = _param((mcfg.vocab_size, mcfg.d_model),
+                                      mcfg.param_dtype, dev)
+            self.layers = torch.nn.ModuleDict(
+                {str(i): Block(mcfg, device=dev) for i in layers})
+            if last:
+                self.final_norm = RMSNorm(mcfg.d_model, device=dev)
+
+        def new_cache(self, batch: int, length: int | None = None):
+            """Zeroed slot caches of this stage's layers, in their order:
+            a list of (k, v), each [batch, length or max_seq, KV, D]."""
+            shape = (batch, length or mcfg.max_seq, mcfg.n_kv_heads,
+                     mcfg.head_dim)
+            return [(torch.zeros(shape, dtype=mcfg.dtype, device=dev),
+                     torch.zeros(shape, dtype=mcfg.dtype, device=dev))
+                    for _ in self.layers]
+
+        def forward(self, x, positions, cache=None):
+            """First stage: token ids [B, S]; later stages: the activation
+            [B, S, d_model]. Returns the activation, or f32 logits
+            [B, S, vocab] on the last stage. `cache` is new_cache's list."""
+            if self.first:
+                x = self.tok_emb[x].to(mcfg.dtype)
+            for j, block in enumerate(self.layers.values()):
+                x = block(x, positions,
+                          cache=None if cache is None else cache[j])
+            if not self.last:
+                return x
+            x = self.final_norm(x)
+            return torch.matmul(
+                x, self.tok_emb.to(mcfg.dtype).t()).to(torch.float32)
+
+    return _StageNet()
+
+
 def _load_params(params) -> dict:
     """LLMConfig.params -> the port's state_dict: a flax tree (nested
     dicts of arrays) is converted, a state_dict passes through."""

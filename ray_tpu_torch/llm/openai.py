@@ -6,8 +6,9 @@ Counterpart: ray_tpu/llm/openai.py. `OpenAIServer.__call__` serves
 streaming as a generator of chunk dicts) for any request object with
 `.path` and `.json()`; `build_openai_app` deploys it on the port's Serve
 (HTTP proxy, router, replica actor). Prompts are strings (byte-level
-tokenizer) or raw token lists. The pipelined engine (`pipeline_stages`
-> 1) is not ported yet.
+tokenizer) or raw token lists. `pipeline_stages` > 1 (or RT_PP_STAGES)
+serves through the pipelined engine (llm/pipeline.py): stage actors
+bound into one compiled DAG, each holding its layers on `device`.
 """
 
 from __future__ import annotations
@@ -66,13 +67,18 @@ class OpenAIServer:
         self.tok = ByteTokenizer()
         stages = (int(CONFIG.pp_stages) if pipeline_stages is None
                   else int(pipeline_stages))
+        # pipeline_stages > 1 swaps in the pipeline-parallel engine; None
+        # defers to RT_PP_STAGES. The two engines share the
+        # submit()/GenStream surface, so every route is engine-agnostic.
         if stages > 1:
-            raise NotImplementedError(
-                f"pipeline_stages={stages}: the pipelined engine is not "
-                f"ported yet (ROADMAP A5); serve with pipeline_stages=1")
-        self.engine = ContinuousEngine(
-            cfg, max_batch=max_batch, decode_chunk=decode_chunk,
-            device=device)
+            from ray_tpu_torch.llm.pipeline import PipelinedEngine
+
+            self.engine = PipelinedEngine(
+                cfg, n_stages=stages, max_batch=max_batch, device=device)
+        else:
+            self.engine = ContinuousEngine(
+                cfg, max_batch=max_batch, decode_chunk=decode_chunk,
+                device=device)
 
     # ------------------------------------------------------------ helpers
     def _encode_prompt(self, body: dict) -> list[int]:
@@ -113,15 +119,24 @@ class OpenAIServer:
             # Which process hosts the engine, on which device and with how
             # many bytes allocated there, how many slots are live, its
             # decode steps so far, and this process's kernel launch counts
-            # (the replica's, when served through build_openai_app).
+            # (the replica's, when served through build_openai_app). A
+            # pipelined engine's device work is its stages': the replica
+            # holds no device memory, and each stage's own counters ride
+            # under "pipeline".
             dev = self.engine.device
-            return {"pid": os.getpid(), "active": self.engine.num_active,
-                    "running": self.engine._running,
-                    "device": str(dev),
-                    "device_bytes": (torch.cuda.memory_allocated(dev)
-                                     if dev.type == "cuda" else 0),
-                    "decode_steps": self.engine.decode_steps,
-                    "kernel_launches": kernels.launch_counts()}
+            stages = getattr(self.engine, "n_stages", 0)
+            out = {"pid": os.getpid(), "active": self.engine.num_active,
+                   "running": self.engine._running,
+                   "device": str(dev),
+                   "device_bytes": (torch.cuda.memory_allocated(dev)
+                                    if dev.type == "cuda" and not stages
+                                    else 0),
+                   "decode_steps": self.engine.decode_steps,
+                   "kernel_launches": kernels.launch_counts()}
+            if stages:
+                out["pipeline_stages"] = stages
+                out["pipeline"] = self.engine.pipeline_stats()
+            return out
         body = request.json() or {}
         chat = "chat" in path or "messages" in body
         prompt = self._encode_prompt(body)

@@ -420,3 +420,54 @@ def test_batch_inference_of_two_rows_on_the_card(gen):
     got = {tuple(r["tokens"]): r["generated"] for r in rows}
     for p, w in zip(prompts, want):
         np.testing.assert_array_equal(got[tuple(p)], w)
+
+
+def test_pipelined_engine_on_the_card_gives_golden_tokens(gen):
+    """Two stage actors on the card, on the golden float32 model: the
+    golden greedy tokens, and each stage launched the decode kernel once
+    per layer of each decode invocation it ran."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import SamplingParams
+    from ray_tpu_torch.llm.pipeline import PipelinedEngine
+
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        "torch_port_golden.npz")
+    with np.load(path) as f:
+        g = {k: f[k] for k in f.files}
+    vocab, d_model, n_layers, n_heads, max_seq = (int(x) for x in g["config"])
+    from ray_tpu_torch.models.convert import params_from_flax
+
+    tree: dict = {}
+    for key, arr in g.items():
+        if key.startswith("params/"):
+            node = tree
+            *parents, leaf = key[len("params/"):].split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = arr
+    cfg = LLMConfig(vocab_size=vocab, d_model=d_model, n_layers=n_layers,
+                    n_heads=n_heads, max_seq=max_seq, dtype="float32",
+                    params=params_from_flax(tree))
+    prompts = [g[f"prompt_{i}"].tolist() for i in range(g["greedy"].shape[0])]
+    rt.init(num_cpus=2)
+    try:
+        pipe = PipelinedEngine(cfg, n_stages=2, max_batch=2, device="cuda")
+        try:
+            pipe.reset_pipeline_stats()
+            got = pipe.generate(prompts, SamplingParams(
+                temperature=0.0, max_tokens=g["greedy"].shape[1]))
+            stages = pipe.pipeline_stats()["stages"]
+        finally:
+            pipe.shutdown()
+    finally:
+        rt.shutdown()
+    np.testing.assert_array_equal(np.asarray(got), g["greedy"])
+    assert len(stages) == 2
+    for s in stages:
+        assert s["device"].startswith("cuda") and s["device_bytes"] > 0
+        assert s["decode_steps"] > 0
+        assert s["kernel_launches"]["decode_attention"] == \
+            len(s["layers"]) * s["decode_steps"]

@@ -211,8 +211,17 @@ def test_llm_deployment_over_http_equals_jax(base, golden_engines):
     assert one["generated"] == want[:1].tolist()
 
 
-def test_pipelined_engine_is_refused_by_name():
+def test_pipelined_engine_is_refused_by_name(base):
+    """pipeline_stages=2 on the card where there is none: each stage actor
+    refuses in its constructor, and the server's build raises the first
+    stage's failure as a DagStageError naming it."""
+    import torch
+
+    from ray_tpu_torch.exceptions import DagStageError
     from ray_tpu_torch.llm.openai import OpenAIServer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        OpenAIServer(CFG, pipeline_stages=2, device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the stages would start")
+    with pytest.raises(DagStageError, match="CUDA is not available") as ei:
+        OpenAIServer(CFG, pipeline_stages=2, device="cuda")
+    assert ei.value.stage == "step[0]"
