@@ -115,6 +115,36 @@ from the root of a checkout. Phases, each of which raises on failure
    worker's flash forward and backward launched once per layer per step.
    Then ray_tpu_torch.shutdown(), which must leave no rt_* (nor
    rtch_torch_*) segment.
+12. The parallelism layer, with rank processes that share the one card
+   (each computes on it through the port's kernels at its per-rank
+   shapes; their collectives go through pinned host memory over gloo, so
+   nothing here measures multi-GPU scaling). (c) runs on phase 10's
+   runtime before its shutdown: `TorchTrainer` with 2 workers of half the
+   card each and `torch_distributed=True` (the backend follows the
+   workers' devices: gloo), phase 6's model and batch over a tp=2 mesh of
+   the workers' group (`global_mesh_from_distributed`): the first step's
+   gradient boxes against the unsharded model's, the step-0 loss against
+   phase 6's within TP_LOSS_REL_TOL, 3 timed Adam steps, the flash
+   kernels once per layer per step on each rank. Then 2 spawned ranks
+   (`parallel.dryrun.run_ranks`, a `file://` rendezvous): (a) the golden
+   float32 model's greedy tokens over tp=2 equal the JAX package's;
+   (b) the serving model of phase 4 over tp=2: its logits against the
+   unsharded model's at every step of phase 4's lone prompt and tokens,
+   teacher-forced through the slot cache, in f32 (TP_F32_LOGIT_TOL) and in
+   bf16 (phase 5's tolerance); then the engine on that prompt (agreement
+   with phase 4's tokens reported) and on its 6-request mix (tokens/s,
+   wall ms per decode step, the share of the wall in the host-staged
+   collectives), every greedy token of both a near-argmax of the unsharded
+   model on the same prefix, each rank's decode launches equal to its 8
+   layers times its decode steps; (d) ring and Ulysses attention
+   over sp=2 at B4 S1024 H16 D64 bf16, causal, gathered and held against
+   the flash kernel's full-sequence output at the bf16 tolerance. Then
+   (e) `parallel.dryrun.dryrun_multichip(4, device="cuda")`: 4 ranks, the
+   dp.sp2.tp2, fsdp2.tp2 and ep2 MoE training steps, GPipe over pp=2 and
+   tp=4 generation, each against its unsharded twin; and (f) each kernel
+   at its per-rank shape against its plain version (decode B8 Hq8 KV8,
+   flash forward and backward B4 S1024 H8, which is also Ulysses' per-rank
+   head slice).
 
 Launch counts: the decode kernel's from phase 4, the flash forward's from
 phases 5 and 6, the flash backward's from phase 6, each path's counts set
@@ -126,7 +156,9 @@ and the flash rows the training workers' from phase 8
 its worker). The decode row also carries the stage actors' counts from
 phase 10 (`pipeline_launches`, the sum over the two stages), and the
 flash rows the tune trials' workers' from phase 11 (`tune_launches`, the
-sum over the trials).
+sum over the trials). Each row also carries phase 12's: its kernel at the
+per-rank shape (`per_rank_shape`) and `tp_launches`, the decode launches
+of (b) and the flash launches of (c), summed over the ranks.
 
 It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`, one JSON line {"kernels": [...]}, and last
@@ -648,14 +680,7 @@ def phase_serve(server, kernels) -> tuple[dict, tuple]:
 
     kernels.reset_launch_counts()
     steps0 = eng.decode_steps
-    # concurrent completions that join a running batch: greedy and sampled
-    bodies = []
-    for i, n in enumerate((64, 128, 256, 64, 128, 256)):
-        body = {"prompt": prompt(n), "max_tokens": 96 + 16 * i,
-                "temperature": 0.0 if i % 2 == 0 else 0.8}
-        if i % 2:
-            body.update(top_p=0.9, top_k=50, seed=i)
-        bodies.append(body)
+    bodies = _serve_mix(prompt)
     results = [None] * len(bodies)
 
     def worker(i):
@@ -723,6 +748,19 @@ def phase_serve(server, kernels) -> tuple[dict, tuple]:
            "decode_launches": counts["decode_attention"], **profile}
     log("serve " + json.dumps(rec))
     return rec, lone
+
+
+def _serve_mix(prompt) -> list[dict]:
+    """Phase 4's concurrent completions that join a running batch, greedy
+    and sampled, their prompts drawn by `prompt(n)`."""
+    bodies = []
+    for i, n in enumerate((64, 128, 256, 64, 128, 256)):
+        body = {"prompt": prompt(n), "max_tokens": 96 + 16 * i,
+                "temperature": 0.0 if i % 2 == 0 else 0.8}
+        if i % 2:
+            body.update(top_p=0.9, top_k=50, seed=i)
+        bodies.append(body)
+    return bodies
 
 
 def _profile_decode(call, prompt, eng) -> dict:
@@ -1953,9 +1991,9 @@ def phase_tune() -> dict:
             "tune_launches": launches}
 
 
-def phase_pipeline_and_tune(lone) -> tuple[dict, dict]:
-    """Phases 10 and 11 on one runtime (the node counting 1 GPU), which
-    must leave no rt_* or rtch_torch_* segment in /dev/shm."""
+def phase_pipeline_and_tune(lone, phase6_loss0) -> tuple[dict, dict, dict]:
+    """Phases 10, 11 and 12 (c) on one runtime (the node counting 1 GPU),
+    which must leave no rt_* or rtch_torch_* segment in /dev/shm."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
 
@@ -1973,14 +2011,463 @@ def phase_pipeline_and_tune(lone) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         tune_rec = phase_tune()
         tune_rec["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp_train_rec = phase_tp_train(phase6_loss0)
+        tp_train_rec["phase_s"] = time.perf_counter() - t0
     finally:
         rt.shutdown()
     left = _rt_segments() - shm_before
     if left:
         raise AssertionError(f"shutdown left shm segments {sorted(left)}")
-    log(f"pipeline and tune phases: {pipe_rec['phase_s']:.1f} s and "
-        f"{tune_rec['phase_s']:.1f} s")
-    return pipe_rec, tune_rec
+    log(f"pipeline, tune and tp=2 train phases: {pipe_rec['phase_s']:.1f} s, "
+        f"{tune_rec['phase_s']:.1f} s and {tp_train_rec['phase_s']:.1f} s")
+    return pipe_rec, tune_rec, tp_train_rec
+
+
+# ------------------------------------------------------------- phase 12
+#: Phase 12's rank processes share the one card; their collectives go
+#: through pinned host memory (gloo). Nothing in phase 12 measures
+#: multi-GPU scaling.
+TP = 2
+#: phase 12 (d): ring and Ulysses attention over sp=2
+SP_SHAPE = (4, 1024, 16, 64)
+TP_TRAIN_STEPS = 3
+# Phase 12 (c): the tp=2 step's loss against phase 6's unsharded step-0
+# loss on the same model and batch. Both compute in bf16; under tp each
+# row-parallel product is two bf16 partial sums added after rounding, so
+# the residual stream differs from the unsharded one by bf16 rounding. On
+# an NVIDIA H100 80GB HBM3 (700 W) it read 2.1e-5 relative; held to 1e-3.
+# At initialisation the loss sits near ln(32000) whatever the logits, so
+# this bound alone catches little: the step's gradients carry the check,
+# each rank's box of every gradient against the unsharded model's on the
+# same batch, as a relative norm, within phase 6's TRAIN_GRAD_REL_TOL (a
+# dropped psum or a misrouted shard is off by tens of percent or more).
+TP_LOSS_REL_TOL = 1e-3
+# Phase 12 (b): the sharded serving model's logits against the unsharded
+# model's at every teacher-forced step, relative to max(1, the largest
+# |logit|). In bf16 phase 5's tolerance; in f32 (tf32 off, where every
+# kernel computes in f32) the two differ only in the order of the tp
+# partial sums, some 1e-6 of the logits, and a cache row written at the
+# wrong position or head is off by the logits' own size.
+TP_BF16_LOGIT_TOL = 0.05
+TP_F32_LOGIT_TOL = 1e-3
+
+
+def _teacher_forced_logits(model, prompt, tokens):
+    """f32 logits [len(tokens), vocab]: row i is the model's prediction of
+    tokens[i] after the prompt and tokens[:i]. The prompt is prefilled into
+    a slot cache and each token then fed as one cached decode step, the
+    engine's paths; the tokens are given, not each model's own argmax, so
+    two models that round a near-tie apart still decode the same input."""
+    import torch
+
+    cache = model.new_cache(1)
+    n = len(prompt)
+    with torch.no_grad():
+        rows = [model(torch.tensor([prompt], device="cuda"),
+                      positions=torch.arange(n, device="cuda")[None],
+                      cache=cache)[0, -1]]
+        for i, t in enumerate(tokens[:-1]):
+            rows.append(model(torch.tensor([[t]], device="cuda"),
+                              positions=torch.tensor([[n + i]], device="cuda"),
+                              cache=cache)[0, -1])
+    return torch.stack(rows).float()
+
+
+def _logit_errors(got, want, tol: float) -> dict:
+    """Row by row max |got - want| against tol * max(1, largest |want|):
+    the prefill row's, the first decode step's and the worst step's."""
+    err = (got - want).abs().amax(dim=1)
+    allowed = tol * want.abs().amax(dim=1).clamp(min=1.0)
+    ratio = err / allowed
+    worst = int(ratio.argmax())
+    return {"steps": int(err.numel()), "tol": tol,
+            "prefill_max_abs_err": float(err[0]),
+            "first_step_max_abs_err": float(err[1]),
+            "worst_step": worst, "worst_max_abs_err": float(err[worst]),
+            "worst_max_abs_logit": float(want[worst].abs().max()),
+            "worst_share_of_tol": float(ratio[worst]),
+            "argmax_equal_steps": int((got.argmax(1) == want.argmax(1)).sum())}
+
+
+def _greedy_gaps(model, prompt, toks):
+    """For each token an engine chose greedily after the prompt and the
+    tokens before it: (the largest logit less the chosen token's, the
+    largest |logit|), from `model`'s one forward over that sequence."""
+    import torch
+
+    seq = torch.tensor([list(prompt) + list(toks[:-1])], device="cuda")
+    with torch.no_grad():
+        logits = model(seq)[0, len(prompt) - 1:]
+    chosen = logits.gather(1, torch.tensor(toks, device="cuda")[:, None])[:, 0]
+    return logits.amax(dim=1) - chosen, logits.abs().amax(dim=1)
+
+
+def _tp_rank(rank: int, lone, bodies) -> dict:
+    """Phase 12 (a), (b) and (d) on one of TP rank processes sharing the
+    card: each holds its shards and runs the port's kernels at its
+    per-rank shapes."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import (ContinuousEngine, SamplingParams,
+                                          model_config)
+    from ray_tpu_torch.models.transformer import Transformer
+    from ray_tpu_torch.ops import ring_attention, ulysses_attention
+    from ray_tpu_torch.ops.flash_attention import flash_attention_cuda
+    from ray_tpu_torch.parallel.collectives import all_gather_invariant
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    mesh = build_mesh(MeshConfig(dp=-1, tp=TP))
+    out = {"rank": rank, "transport": mesh.backend}
+
+    # (a) golden parity: the float32 golden model over tp=2
+    g = _golden()
+    eng = ContinuousEngine(_golden_config(g), max_batch=2, decode_chunk=4,
+                           mesh=mesh, device="cuda")
+    if rank == 0:
+        try:
+            streams = [eng.submit(g[f"prompt_{i}"].tolist(), SamplingParams(
+                temperature=0.0, max_tokens=g["greedy"].shape[1]))
+                for i in range(g["greedy"].shape[0])]
+            greedy = np.asarray([st.tokens() for st in streams])
+        finally:
+            eng.shutdown()
+        if not np.array_equal(greedy, g["greedy"]):
+            raise AssertionError(f"tp={TP} golden greedy tokens differ from "
+                                 f"the JAX package's:\n{greedy}\n"
+                                 f"{g['greedy']}")
+        out["golden_tokens_equal"] = int(greedy.size)
+    else:
+        eng.follow()
+
+    # (b) full-width serving. First the sharded model against the unsharded
+    # one on phase 4's lone prompt and tokens, teacher-forced through the
+    # slot cache at every step, in f32 (tf32 off) and in bf16; then the
+    # engine.
+    cfg = LLMConfig(**SERVE)
+    body, phase4_tokens = lone
+    out["teacher_forced"] = {}
+    full = None
+    for dtype, tol in (("float32", TP_F32_LOGIT_TOL),
+                       ("bfloat16", TP_BF16_LOGIT_TOL)):
+        mcfg = model_config(LLMConfig(**{**SERVE, "dtype": dtype}))
+        sharded = Transformer(mcfg, device="cuda", seed=cfg.seed, mesh=mesh)
+        logits = _teacher_forced_logits(sharded.to(mcfg.dtype).eval(),
+                                        body["prompt"], phase4_tokens)
+        del sharded
+        if rank != 0:
+            continue
+        full = Transformer(mcfg, device="cuda", seed=cfg.seed)
+        full = full.to(mcfg.dtype).eval()
+        errs = _logit_errors(logits, _teacher_forced_logits(
+            full, body["prompt"], phase4_tokens), tol)
+        out["teacher_forced"][dtype] = errs
+        if errs["worst_share_of_tol"] > 1.0:
+            raise AssertionError(
+                f"tp={TP} {dtype} logits at teacher-forced step "
+                f"{errs['worst_step']} differ from the unsharded model's by "
+                f"{errs['worst_max_abs_err']} (largest logit "
+                f"{errs['worst_max_abs_logit']}, tolerance {tol} of it)")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    stats0 = dict(mesh.stats)
+    t_life = time.perf_counter()
+    eng = ContinuousEngine(cfg, max_batch=8, decode_chunk=16, mesh=mesh,
+                           device="cuda")
+    if rank == 0:
+        try:
+            vocab = cfg.vocab_size
+            eng.submit(body["prompt"][:16], SamplingParams(
+                temperature=0.0, max_tokens=4)).tokens()  # warm-up
+            got = eng.submit(body["prompt"], SamplingParams(
+                temperature=0.0, max_tokens=body["max_tokens"])).tokens()
+            same = next((i for i, (a, b) in enumerate(zip(got, phase4_tokens))
+                         if a != b), len(got))
+            out["lone"] = {"tokens": len(got), "equal_prefix": same,
+                           "all_equal": got == phase4_tokens}
+            steps0, mix0 = eng.decode_steps, dict(mesh.stats)
+            results = [None] * len(bodies)
+
+            def worker(i):
+                b = bodies[i]
+                results[i] = eng.submit(b["prompt"], SamplingParams(
+                    temperature=b["temperature"], max_tokens=b["max_tokens"],
+                    top_p=b.get("top_p", 1.0), top_k=b.get("top_k", 0),
+                    seed=b.get("seed", 0))).tokens()
+
+            threads = []
+            t0 = time.perf_counter()
+            for i in range(len(bodies)):
+                threads.append(threading.Thread(target=worker, args=(i,)))
+                threads[-1].start()
+                time.sleep(0.05)  # staggered, as in phase 4
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            steps = eng.decode_steps - steps0
+            for b, toks in zip(bodies, results):
+                if toks is None or len(toks) != b["max_tokens"] or \
+                        not all(0 <= t < vocab for t in toks):
+                    raise AssertionError(f"tp={TP} completion gave "
+                                         f"{None if toks is None else len(toks)}"
+                                         f" tokens, not {b['max_tokens']}")
+            n_tokens = sum(len(t) for t in results)
+            out["mix"] = {
+                "requests": len(bodies), "generated_tokens": n_tokens,
+                "wall_s": wall, "tokens_per_s": n_tokens / wall,
+                "decode_steps": steps,
+                "ms_per_decode_step_wall": 1e3 * wall / steps,
+                "collective_s": mesh.stats["seconds"] - mix0["seconds"],
+                "collective_calls": mesh.stats["calls"] - mix0["calls"],
+                "collective_share_of_wall":
+                    (mesh.stats["seconds"] - mix0["seconds"]) / wall}
+        finally:
+            eng.shutdown()
+    else:
+        eng.follow()
+    torch.cuda.synchronize()
+    life = time.perf_counter() - t_life
+    out["engine"] = {
+        "decode_steps": eng.decode_steps,
+        "decode_launches": kernels.launch_counts()["decode_attention"],
+        "collective_s": mesh.stats["seconds"] - stats0["seconds"],
+        "collective_calls": mesh.stats["calls"] - stats0["calls"],
+        "collective_mb": (mesh.stats["bytes"] - stats0["bytes"]) / 1e6,
+        "lifetime_s": life,
+        "collective_share_of_lifetime":
+            (mesh.stats["seconds"] - stats0["seconds"]) / life}
+    del eng
+    if rank == 0:
+        # Every token the engine chose greedily, the lone prompt's and the
+        # mix's greedy requests' (several slots live), must be a near-argmax
+        # of the unsharded bf16 model on the same prefix. A token the sharded
+        # logits rank first is at most twice the logit tolerance below the
+        # unsharded maximum.
+        greedy = [(body["prompt"], got)] + [
+            (b["prompt"], t) for b, t in zip(bodies, results)
+            if b["temperature"] == 0.0]
+        gaps, scales = zip(*(_greedy_gaps(full, p, t) for p, t in greedy))
+        gap, scale = torch.cat(gaps), torch.cat(scales)
+        ratio = gap / (2 * TP_BF16_LOGIT_TOL * scale.clamp(min=1.0))
+        out["greedy_check"] = {
+            "requests": len(greedy), "tokens": int(gap.numel()),
+            "unsharded_argmax": int((gap == 0).sum()),
+            "worst_gap": float(gap.max()),
+            "worst_share_of_tol": float(ratio.max())}
+        if float(ratio.max()) > 1.0:
+            raise AssertionError(
+                f"tp={TP} engine chose a greedy token {float(gap.max())} "
+                f"below the unsharded model's largest logit: "
+                f"{out['greedy_check']}")
+    del full
+    torch.cuda.empty_cache()
+
+    # (d) ring and Ulysses attention over sp=2 against the flash kernel's
+    # full-sequence output
+    sp = build_mesh(MeshConfig(dp=-1, sp=TP))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(*SP_SHAPE, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    blocks = [t.chunk(TP, dim=1)[rank].contiguous() for t in (q, k, v)]
+    rec = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        kernels.reset_launch_counts()
+        times = []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = fn(*blocks, axis_name="sp", mesh=sp, causal=True)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            whole = all_gather_invariant(o, "sp", sp, dim=1)
+        rec[name] = {"ms_host_median_of_3": statistics.median(times),
+                     "flash_launches": kernels.launch_counts()[
+                         "flash_attention"]}
+        if rank == 0:
+            ref = flash_attention_cuda(q, k, v, True)
+            torch.cuda.synchronize()
+            rec[name]["max_abs_err"] = _max_err(whole, ref, "bfloat16")
+    out["sequence_parallel"] = rec
+    return out
+
+
+def _tp_train_loop(config):
+    """Phase 12 (c)'s train_loop_per_worker (2 workers sharing the card,
+    torch_distributed=True): phase 6's model and batch, sharded over a tp
+    mesh of the workers' process group; the first step's gradient boxes
+    against the unsharded model's, then TP_TRAIN_STEPS timed Adam steps."""
+    import statistics
+    import time
+
+    import torch
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import model_config
+    from ray_tpu_torch.models.transformer import (Transformer, loss_fn,
+                                                  param_specs)
+    from ray_tpu_torch.train.torch_utils import global_mesh_from_distributed
+
+    mesh = global_mesh_from_distributed(("tp",))
+    cfg = model_config(LLMConfig(**config["cfg"]))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1025),
+                           generator=torch.Generator().manual_seed(2)).cuda()
+    ref = Transformer(cfg, device="cuda", seed=1)
+    loss_fn(ref, tokens).backward()
+    ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+    del ref
+    model = Transformer(cfg, device="cuda", seed=1, mesh=mesh)
+    specs = param_specs(ref_grads)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    kernels.reset_launch_counts()
+    stats0 = dict(mesh.stats)
+    losses, ms, rel = [], [], {}
+    for step in range(config["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if step == 0:
+            counts0 = kernels.launch_counts()
+            for n, p in model.named_parameters():
+                box = mesh.local_box(ref_grads[n].shape, specs[n])
+                r = ref_grads[n][tuple(slice(a, b) for a, b in box)]
+                rel[n] = float((p.grad - r).norm() / r.norm())
+    worst = max(rel, key=rel.get)
+    train.report({
+        "tp": mesh.index("tp"), "backend": mesh.backend, "losses": losses,
+        "ms_per_step": ms, "first_step_launches": counts0,
+        "launches": kernels.launch_counts(),
+        "collective_s": mesh.stats["seconds"] - stats0["seconds"],
+        "collective_mb": (mesh.stats["bytes"] - stats0["bytes"]) / 1e6,
+        "worst_grad_rel_err": [worst, rel[worst]],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def phase_tp_train(phase6_loss0: float) -> dict:
+    """Phase 12 (c): one tp=2 step through TorchTrainer, 2 workers with
+    half the card each (the node counts 1 GPU)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    storage = tempfile.mkdtemp(prefix="rt_tp_train_")
+    try:
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            _tp_train_loop,
+            train_loop_config={"cfg": SERVE, "steps": TP_TRAIN_STEPS},
+            scaling_config=ScalingConfig(
+                num_workers=TP, use_gpu=True, torch_distributed=True,
+                resources_per_worker={"CPU": 1, "GPU": 1 / TP}),
+            run_config=RunConfig(name="phase12", storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"tp=2 TorchTrainer failed: {result.error}")
+    reps = sorted(result.metrics_history, key=lambda m: m["tp"])
+    loss0 = reps[0]["losses"][0]
+    rel0 = abs(loss0 - phase6_loss0) / abs(phase6_loss0)
+    rec = {"fit_s": fit_s, "step0_loss": loss0,
+           "phase6_step0_loss": phase6_loss0, "step0_rel_err": rel0,
+           "tol": TP_LOSS_REL_TOL, "ranks": reps}
+    log("tp_train " + json.dumps(rec))
+    n_layers = SERVE["n_layers"]
+    if [m["tp"] for m in reps] != list(range(TP)) or \
+            {m["backend"] for m in reps} != {"gloo"}:
+        raise AssertionError(f"the workers' meshes: {reps}")
+    if len({tuple(m["losses"]) for m in reps}) != 1 or \
+            not all(np.isfinite(reps[0]["losses"])):
+        raise AssertionError("the ranks' losses differ or are not finite")
+    if not rel0 <= TP_LOSS_REL_TOL:
+        raise AssertionError(f"tp=2 step-0 loss {loss0} differs from phase "
+                             f"6's {phase6_loss0} by {rel0} relative")
+    for m in reps:
+        if not m["worst_grad_rel_err"][1] <= TRAIN_GRAD_REL_TOL:
+            raise AssertionError(f"rank {m['tp']}: gradient of "
+                                 f"{m['worst_grad_rel_err']} differs from "
+                                 f"the unsharded step's")
+        for name in ("flash_attention", "flash_attention_bwd"):
+            if m["first_step_launches"][name] != n_layers or \
+                    m["launches"][name] != n_layers * TP_TRAIN_STEPS:
+                raise AssertionError(f"rank {m['tp']}: {name} launched "
+                                     f"{m['launches'][name]} times")
+    return rec
+
+
+def phase_tensor_parallel(lone) -> dict:
+    """Phase 12 (a), (b), (d), (e) and (f): TP rank processes sharing the
+    card for golden parity, full-width tensor-parallel serving and
+    sequence-parallel attention; the dryrun configurations on 4 ranks; the
+    kernels at their per-rank shapes against their plain versions."""
+    import torch
+
+    from ray_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
+
+    rng = np.random.RandomState(0)
+
+    def prompt(n):
+        return rng.randint(0, SERVE["vocab_size"], n).tolist()
+
+    prompt(16)  # phase 4's warm-up prompt, drawn first there
+    bodies = _serve_mix(prompt)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_tp_rank, TP, lone, bodies)
+    ranks_s = time.perf_counter() - t0
+    lead = ranks[0]
+    rec = {"ranks_s": ranks_s, "transport": lead["transport"],
+           "golden_tokens_equal": lead["golden_tokens_equal"],
+           "teacher_forced": lead["teacher_forced"],
+           "greedy_check": lead["greedy_check"],
+           "lone": lead["lone"], "mix": lead["mix"],
+           "engine_per_rank": [r["engine"] for r in ranks],
+           "sequence_parallel": [r["sequence_parallel"] for r in ranks]}
+    log("tensor_parallel " + json.dumps(rec))
+    for r in ranks:
+        e = r["engine"]
+        if e["decode_steps"] == 0 or \
+                e["decode_launches"] != SERVE["n_layers"] * e["decode_steps"]:
+            raise AssertionError(f"rank {r['rank']}: {e['decode_launches']} "
+                                 f"decode launches for {e['decode_steps']} "
+                                 f"steps of {SERVE['n_layers']} layers")
+        if r["sequence_parallel"]["ulysses"]["flash_launches"] != 3:
+            raise AssertionError("Ulysses did not run the flash kernel once "
+                                 "per call")
+    t0 = time.perf_counter()
+    dryrun = dryrun_multichip(4, device="cuda")
+    rec["dryrun"] = {"labels": [label for label, _ in dryrun],
+                     "s": time.perf_counter() - t0}
+    log("dryrun on the card " + json.dumps(rec["dryrun"]))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ragged = [1, 1024, 517, 64, 300, 900, 128, 777]
+    rec["kernels"] = {
+        "decode": _decode_case(f"tp={TP} per rank B8 Hq8 KV8 D64 S1024 bf16",
+                               8, 8, 8, 64, 1024, "bfloat16", ragged, flush,
+                               gen),
+        "flash": _flash_case(f"tp={TP} and Ulysses sp={TP} per rank B4 S1024 "
+                             f"H8 D64 bf16 causal", 4, 1024, 1024, 8, 8, 64,
+                             "bfloat16", True, flush, gen),
+        "flash_bwd": _flash_bwd_case(f"tp={TP} per rank backward B4 S1024 H8 "
+                                     f"D64 bf16 causal", 4, 1024, 1024, 8, 8,
+                                     64, "bfloat16", True, flush, gen)}
+    del flush
+    return rec
 
 
 def _ptxas_summary(build_log: str) -> list[str]:
@@ -2048,18 +2535,30 @@ def main() -> int:
     train_rec = phase_train(kernels)
     http_rec = phase_http(lone)
     runtime_train_rec, batch_rec = phase_runtime(train_rec)
-    pipe_rec, tune_rec = phase_pipeline_and_tune(lone)
+    pipe_rec, tune_rec, tp_train_rec = phase_pipeline_and_tune(
+        lone, train_rec["losses"][0])
+    t0 = time.perf_counter()
+    tp_rec = phase_tensor_parallel(lone)
+    log(f"phase 12: {tp_train_rec['phase_s'] + time.perf_counter() - t0:.1f} "
+        f"s (its TorchTrainer part {tp_train_rec['phase_s']:.1f} s)")
     trainer_launches = {
         name: sum(c[name] for c in runtime_train_rec["launches"].values())
         for name in ("flash_attention", "flash_attention_bwd")}
     tune_launches = tune_rec["tune_launches"]
+    # phase 12: per rank, summed over the ranks sharing the card
+    tp_launches = {
+        "decode_attention": sum(e["decode_launches"]
+                                for e in tp_rec["engine_per_rank"]),
+        **{name: sum(m["launches"][name] for m in tp_train_rec["ranks"])
+           for name in ("flash_attention", "flash_attention_bwd")}}
     if serve_rec["decode_launches"] == 0 or forward_rec["flash_launches"] == 0 \
             or train_rec["flash_bwd_launches"] == 0 \
             or http_rec["replica_decode_launches"] == 0 \
             or 0 in trainer_launches.values() \
             or batch_rec["actor_decode_launches"] == 0 \
             or pipe_rec["pipeline_launches"] == 0 \
-            or 0 in tune_launches.values():
+            or 0 in tune_launches.values() \
+            or 0 in tp_launches.values():
         raise AssertionError("a kernel of the main path never launched")
 
     def line(kernel, rec, launches, replaces):
@@ -2071,24 +2570,35 @@ def main() -> int:
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
+    def per_rank(name, rec):
+        """Phase 12: the kernel at its per-rank shape, and its launches in
+        phase 12's ranks (summed over them)."""
+        return {"per_rank_shape": {
+            k: rec[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")},
+            "tp_launches": tp_launches[name]}
+
     log(json.dumps({"kernels": [
         {**line(kernels.DECODE_ATTENTION, decode_rec,
                 serve_rec["decode_launches"],
                 "ray_tpu/ops/decode_attention.py:33"),
          "replica_launches": http_rec["replica_decode_launches"],
          "batch_launches": batch_rec["actor_decode_launches"],
-         "pipeline_launches": pipe_rec["pipeline_launches"]},
+         "pipeline_launches": pipe_rec["pipeline_launches"],
+         **per_rank("decode_attention", tp_rec["kernels"]["decode"])},
         {**line(kernels.FLASH_ATTENTION, flash_rec,
                 forward_rec["flash_launches"] + train_rec["flash_launches"],
                 "ray_tpu/ops/flash_attention.py:74"),
          "trainer_launches": trainer_launches["flash_attention"],
-         "tune_launches": tune_launches["flash_attention"]},
+         "tune_launches": tune_launches["flash_attention"],
+         **per_rank("flash_attention", tp_rec["kernels"]["flash"])},
         {**line(kernels.FLASH_ATTENTION_BWD, bwd_rec,
                 train_rec["flash_bwd_launches"],
                 "gradient of ray_tpu/ops/flash_attention.py:74 (no Pallas "
                 "counterpart)"),
          "trainer_launches": trainer_launches["flash_attention_bwd"],
-         "tune_launches": tune_launches["flash_attention_bwd"]},
+         "tune_launches": tune_launches["flash_attention_bwd"],
+         **per_rank("flash_attention_bwd", tp_rec["kernels"]["flash_bwd"])},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

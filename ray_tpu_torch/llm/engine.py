@@ -29,9 +29,23 @@ reference's; the mechanisms are PyTorch's:
 - **One stream**: the prefill lane and the decode loop issue work on the
   same CUDA stream, so device program order keeps a splice after its
   prefill and a slot's reuse after every chunk that stepped it.
+- **Tensor parallelism** (`mesh=`, parallel/mesh.py): every rank of the
+  mesh constructs the engine; each holds its shards of the weights
+  (`param_specs`) and its kv heads of the slot caches (`n_kv_heads / tp`,
+  the decode kernel runs at the per-rank head counts). Rank 0 owns the
+  scheduler, the streams and the sampler's host side, with the prefill
+  lane off so all device work issues from one thread. Before each unit it
+  dispatches (an admission: prefill and splice; a decode chunk) it
+  broadcasts a small plan (slot, prompt, sampling settings, request id;
+  chunk length), and the other ranks, in `follow()`, run the same unit
+  on their shards, so every rank issues the same collectives in the same
+  order. The logits are gathered over tp, so every rank samples the same
+  tokens from the same `(seed, request_id, index)` keys and the
+  device-resident mirrors stay equal. Replicas over dp follow the same
+  plans.
 
-Not ported yet: TP sharding (`mesh`), the tracing spans and the
-decode-step/tokens-per-second telemetry.
+Not ported yet: the tracing spans and the decode-step/tokens-per-second
+telemetry.
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ import torch
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch._private.rtconfig import CONFIG
 from ray_tpu_torch.exceptions import GetTimeoutError
+from ray_tpu_torch.parallel.collectives import broadcast_object
 
 logger = logging.getLogger(__name__)
 
@@ -379,21 +394,34 @@ class ContinuousEngine:
     """In-flight-batching engine over the flagship Transformer.
 
     `device` defaults to "cuda" (raises without CUDA); the tests pass
-    "cpu", where attention runs the plain PyTorch versions."""
+    "cpu", where attention runs the plain PyTorch versions. With `mesh`
+    (tensor parallelism over its tp axis), every rank constructs the
+    engine; `submit`, `generate` and `shutdown` are rank 0's, and every
+    other rank calls `follow()`, which runs rank 0's plans until rank 0's
+    engine shuts down."""
 
     def __init__(self, cfg, *, max_batch: int = 8, decode_chunk: int = 8,
-                 pipeline_depth: int = 4, device="cuda"):
-        from ray_tpu_torch.models.transformer import Transformer
+                 pipeline_depth: int = 4, mesh=None, device="cuda"):
+        from ray_tpu_torch.models.transformer import Transformer, param_specs
+        from ray_tpu_torch.parallel.mesh import shard_params
 
+        if mesh is not None and (mesh.size("sp") > 1 or mesh.size("pp") > 1):
+            raise ValueError(f"the engine shards over tp only, not {mesh}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.decode_chunk = decode_chunk
         self.pipeline_depth = max(1, pipeline_depth)
+        self.mesh = mesh
+        self._leader = mesh is None or mesh.rank == 0
         mcfg = model_config(cfg)
-        self.model = Transformer(mcfg, device=self.device, seed=cfg.seed)
+        self.model = Transformer(mcfg, device=self.device, seed=cfg.seed,
+                                 mesh=mesh)
         if cfg.params is not None:
-            self.model.load_state_dict(_load_params(cfg.params))
+            state = _load_params(cfg.params)
+            if mesh is not None:
+                state = shard_params(state, param_specs(state), mesh)
+            self.model.load_state_dict(state)
         if mcfg.dtype == torch.bfloat16:
             # Inference needs no f32 master weights: cast once so every
             # decode step reads half the bytes.
@@ -436,10 +464,13 @@ class ContinuousEngine:
         self._streams: set = set()
         self._running = True
         # Prefill lane: admissions prefill on their own thread and splice
-        # at chunk boundaries via _ready. Off = inline admission.
-        self._prefill_lane = bool(CONFIG.llm_prefill_lane)
+        # at chunk boundaries via _ready. Off = inline admission (always
+        # under a mesh: one thread issues the collectives).
+        self._prefill_lane = bool(CONFIG.llm_prefill_lane) and mesh is None
         self._ready: collections.deque = collections.deque()
         self._threads = []
+        if not self._leader:
+            return  # the caller's thread runs follow()
         if self._prefill_lane:
             t = threading.Thread(target=self._prefill_loop, daemon=True,
                                  name="rt-llm-prefill")
@@ -470,6 +501,9 @@ class ContinuousEngine:
     def submit(self, prompt_tokens, sampling: Optional[SamplingParams] = None
                ) -> GenStream:
         """Queue one request; returns its token stream immediately."""
+        if not self._leader:
+            raise RuntimeError("requests go to the engine of the mesh's "
+                               "rank 0")
         sampling = sampling or SamplingParams()
         prompt = np.asarray(prompt_tokens, np.int64).reshape(-1)
         if len(prompt) == 0:
@@ -501,6 +535,9 @@ class ContinuousEngine:
         return [s.tokens() for s in streams]
 
     def shutdown(self):
+        if not self._leader:
+            raise RuntimeError("a follower rank's engine stops with rank 0's: "
+                               "call follow()")
         with self._lock:
             self._running = False
             self._lock.notify_all()
@@ -557,6 +594,14 @@ class ContinuousEngine:
         start the first token's host copy, without waiting on the device:
         returns (first_token_copy, cache_slice, key, first_token_dev).
         Touches no scheduler state, so it runs on the lane thread."""
+        cache_slice, key, first = self._prefill(prompt, sampling,
+                                                stream.request_id)
+        return _HostCopy(first[None]), cache_slice, key, first
+
+    def _prefill(self, prompt, sampling, request_id: int):
+        """The device work of an admission: the bucketed prefill into a
+        fresh cache slice and the first token's sample. Returns
+        (cache_slice, key, first_token_dev)."""
         plen = len(prompt)
         lb = self._bucket(plen)
         toks = np.zeros((1, lb), np.int64)
@@ -566,7 +611,7 @@ class ContinuousEngine:
         cache_slice = self.model.new_cache(1, lb)
         logits = self.model(toks_dev, positions=positions, cache=cache_slice)
         last = logits[0, plen - 1].to(torch.float32)[None]
-        key = stream_key(sampling.seed, stream.request_id)
+        key = stream_key(sampling.seed, request_id)
 
         def col(value, dtype):
             return torch.full((1,), value, dtype=dtype, device=self.device)
@@ -576,7 +621,7 @@ class ContinuousEngine:
                         col(sampling.top_k, torch.int64),
                         col(sampling.top_p, torch.float32),
                         self.cfg.vocab_size)[0]
-        return _HostCopy(first[None]), cache_slice, key, first
+        return cache_slice, key, first
 
     def _prefill_loop(self):
         """The prefill lane: drains submits, dispatches their prefills,
@@ -619,31 +664,64 @@ class ContinuousEngine:
         """Install one prefilled request into batch row `slot` (scheduler
         thread only — the chunk-boundary splice point): copy the cache
         slice into the slot, set the device mirrors, book the slot."""
+        self._install(slot, plen, sampling, cache_slice, key, first)
+        st = _Slot(stream, sampling)
+        self._slots[slot] = st
+        self._n_active += 1
+        self._lengths[slot] = plen
+        self._pending_toks[slot] = 0
+        self._pending_firsts.append((slot, first_copy))
+
+    def _install(self, slot: int, plen: int, sampling, cache_slice, key,
+                 first):
+        """The device side of a splice: the cache slice into row `slot`,
+        and the slot's device mirrors."""
         if self._cache is None:
             self._cache = self.model.new_cache(self.max_batch)
         lb = cache_slice[0][0].shape[1]
         for (big_k, big_v), (k, v) in zip(self._cache, cache_slice):
             big_k[slot, :lb].copy_(k[0])
             big_v[slot, :lb].copy_(v[0])
-        st = _Slot(stream, sampling)
-        self._slots[slot] = st
-        self._n_active += 1
-        self._lengths[slot] = plen
-        self._pending_toks[slot] = 0
         self._temps_dev[slot] = sampling.temperature
         self._topks_dev[slot] = sampling.top_k
         self._topps_dev[slot] = sampling.top_p
         self._keys_dev[slot] = key
         self._steps_dev[slot] = 1  # token index of the next draw
-        self._pending_firsts.append((slot, first_copy))
         self._toks_dev[slot] = first
         self._lens_dev[slot] = plen
 
     def _admit_async(self, slot: int, prompt, sampling, stream):
         """Inline admission (prefill lane off): prefill, first-token sample
         and splice for one slot, without reading the result back."""
+        self._plan(("admit", slot, prompt, sampling, stream.request_id))
         self._splice(slot, len(prompt), sampling, stream,
                      *self._prefill_dispatch(prompt, sampling, stream))
+
+    # ------------------------------------------------- tensor parallelism
+    def _plan(self, plan: tuple):
+        """Leader: send the next unit of device work to the other ranks."""
+        if self.mesh is not None:
+            broadcast_object(plan, self.mesh)
+
+    def follow(self):
+        """A follower rank's serving loop, in the caller's thread: run each
+        unit rank 0 plans, on this rank's shards, until rank 0's engine
+        shuts down. Raises what a unit raised."""
+        if self._leader:
+            raise RuntimeError("rank 0's engine schedules; only the other "
+                               "ranks of its mesh follow it")
+        with self._device_scope():
+            while True:
+                plan = broadcast_object(None, self.mesh)
+                if plan[0] == "stop":
+                    return
+                if plan[0] == "admit":
+                    _op, slot, prompt, sampling, request_id = plan
+                    self._install(slot, len(prompt), sampling,
+                                  *self._prefill(prompt, sampling, request_id))
+                else:
+                    _op, n, greedy = plan
+                    self._decode_chunk(n, greedy)
 
     def _decode_chunk(self, n: int, greedy: bool) -> torch.Tensor:
         """n single-token steps for every slot; returns tokens [B, n]. The
@@ -739,6 +817,10 @@ class ContinuousEngine:
         finally:
             with self._lock:
                 self._running = False
+            try:
+                self._plan(("stop",))
+            except Exception:  # noqa: BLE001 - the followers' group failed
+                logger.exception("llm engine could not stop its followers")
             self._drain_all_streams(error)
 
     def _run_scheduler(self):
@@ -832,6 +914,7 @@ class ContinuousEngine:
                     self._slots[i].sampling.temperature <= 0.0
                     for i in active)
                 try:
+                    self._plan(("chunk", n, greedy))
                     toks_out = self._decode_chunk(n, greedy)
                     copy = _HostCopy(toks_out)
                     # Mirror lengths on host (every slot steps n times —

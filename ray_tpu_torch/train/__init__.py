@@ -9,8 +9,10 @@ A training worker is one actor process. With `ScalingConfig(use_gpu=True)`
 (the default) it holds one card and the user's loop runs its model there;
 across workers, gradient/metric sync rides the host-tier collective group
 the session joins at startup (`train.torch_utils.sync_gradients`), or,
-with `torch_distributed=True`, a `torch.distributed` process group (NCCL on
-the card, gloo on the CPU) that the loop drives itself.
+with `torch_distributed=True`, a `torch.distributed` process group (NCCL
+when every worker holds a card of its own, gloo on the CPU and for workers
+that share a card) that the loop drives itself, for instance through a
+sharded model over `torch_utils.global_mesh_from_distributed()`.
 
 Counterpart: ray_tpu/train/__init__.py (ported: `TorchTrainer` plays
 `JaxTrainer`, with the same arguments and `fit()`).

@@ -4,17 +4,22 @@ Parity target: reference python/ray/train/_internal/worker_group.py
 (WorkerGroup:102, start:193, execute_async:233) + the v2 worker group
 (train/v2/_internal/execution/worker_group/worker_group.py:103).
 
-Counterpart: ray_tpu/train/_internal/worker_group.py (copied).
+Counterpart: ray_tpu/train/_internal/worker_group.py (copied; the
+torch.distributed backend follows the workers' devices,
+`choose_torch_backend`).
 """
 
 from __future__ import annotations
 
+import logging
 import traceback
 from typing import Optional
 
 import ray_tpu_torch
 from ray_tpu_torch import storage
 from ray_tpu_torch.train._internal import session as session_mod
+
+logger = logging.getLogger(__name__)
 
 
 @ray_tpu_torch.remote
@@ -52,6 +57,16 @@ class TrainWorkerActor:
                                                 backend=torch_backend)
         return True
 
+    def device_id(self):
+        """This worker's card (its UUID), None without CUDA."""
+        import torch
+
+        if not torch.cuda.is_available():
+            return None
+        from ray_tpu_torch.parallel.mesh import cuda_device_id
+
+        return cuda_device_id()
+
     def run(self, train_fn, config):
         s = session_mod.get_session()
         try:
@@ -84,6 +99,15 @@ class TrainWorkerActor:
         return True
 
 
+def choose_torch_backend(device_ids) -> str:
+    """NCCL when every worker holds a card of its own, gloo otherwise: on
+    the CPU, and for workers that share a card (fractional GPUs), where
+    NCCL refuses two ranks on one device."""
+    from ray_tpu_torch.parallel.mesh import devices_distinct
+
+    return "nccl" if devices_distinct(device_ids) else "gloo"
+
+
 class WorkerGroup:
     def __init__(self, *, num_workers: int, resources_per_worker: dict,
                  run_name: str, storage_dir: str, group_name: str,
@@ -93,11 +117,6 @@ class WorkerGroup:
                  worker_env: Optional[dict] = None):
         self.num_workers = num_workers
         self.workers = []
-        # NCCL for workers that hold a card, gloo on the CPU.
-        torch_backend = None
-        if torch_distributed:
-            torch_backend = ("nccl" if resources_per_worker.get("GPU")
-                             else "gloo")
         res = dict(resources_per_worker)
         opts = {"num_cpus": res.pop("CPU", 0), "max_concurrency": 4}
         if res.pop("GPU", 0):
@@ -124,6 +143,16 @@ class WorkerGroup:
         try:
             for rank in range(num_workers):
                 self.workers.append(TrainWorkerActor.options(**opts).remote())
+            torch_backend = None
+            if torch_distributed:
+                devices = [None] * num_workers
+                if resources_per_worker.get("GPU"):
+                    devices = ray_tpu_torch.get(
+                        [w.device_id.remote() for w in self.workers],
+                        timeout=300)
+                torch_backend = choose_torch_backend(devices)
+                logger.info("train workers' devices %s: torch.distributed "
+                            "backend %s", devices, torch_backend)
             setup_refs = []
             for rank, w in enumerate(self.workers):
                 shards = (dataset_shards_per_worker[rank]

@@ -31,8 +31,9 @@ saved as the reference saves an `np.ndarray` leaf: one full shard,
 `sharding: "host"`. bf16 is written as its uint16 bits under the manifest
 dtype "bfloat16", the name the JAX package writes, so a checkpoint crosses
 between the packages on the same format (MANIFEST, shard files, digests).
-Resharding on load onto a device mesh is not ported: `restore` takes no
-mesh or shardings.
+`restore(..., mesh=, shardings=)` reshards on load: each rank reads only
+the saved shard boxes that intersect its local box under the leaf's spec
+(parallel/mesh.py) and builds its local block.
 """
 
 from __future__ import annotations
@@ -696,11 +697,18 @@ def _register_with_controller(uri: str, manifest: dict) -> None:
 # --------------------------------------------------------------------------
 # Restore (with resharding)
 # --------------------------------------------------------------------------
-def restore(dir_uri: str, *, device=None, verify: bool = True):
+def restore(dir_uri: str, *, device=None, verify: bool = True, mesh=None,
+            shardings=None):
     """Load a committed state checkpoint. With `device=None` every array
     leaf comes back as a host numpy array (fully assembled from its saved
     shards), except a bf16 leaf, which numpy lacks: it comes back as a CPU
     bf16 tensor. With a device, every array leaf is a tensor there.
+
+    With `mesh` and `shardings`, a leaf that has a spec comes back as this
+    rank's block of it under that spec (`Mesh.local_box`), assembled from
+    the saved shards that intersect it; the others whole. `shardings` is
+    one spec for every leaf, a dict of specs by leaf path ("model/tok_emb"),
+    or a callable (path, shape, dtype) -> spec or None.
 
     A bf16 leaf that the JAX package wrote is an ml_dtypes array in its
     shard file: it restores only where ml_dtypes can be imported, and
@@ -719,12 +727,31 @@ def restore(dir_uri: str, *, device=None, verify: bool = True):
             raise storage.StorageError(
                 f"checkpoint {dir_uri}: tree file digest mismatch")
     skeleton = _load_tree(tree_blob)
-    arrays = [_restore_leaf(dir_uri, leaf, device, verify)
-              for leaf in man["leaves"]]
+    if shardings is not None and mesh is None:
+        raise ValueError("restore: shardings need a mesh")
+    arrays = []
+    for leaf in man["leaves"]:
+        spec = _spec_for(shardings, leaf)
+        box = None if spec is None else mesh.local_box(leaf["shape"], spec)
+        arrays.append(_restore_leaf(dir_uri, leaf, device, verify, box))
     return _walk_fill(skeleton, arrays)
 
 
-def _restore_leaf(dir_uri: str, leaf: dict, device, verify: bool):
+def _spec_for(shardings, leaf: dict):
+    """The spec `shardings` gives a leaf (None: restore it whole)."""
+    from ray_tpu_torch.parallel.mesh import P
+
+    if shardings is None or isinstance(shardings, P):
+        return shardings
+    if isinstance(shardings, dict):
+        return shardings.get(leaf["path"])
+    return shardings(leaf["path"], tuple(leaf["shape"]), leaf["dtype"])
+
+
+def _restore_leaf(dir_uri: str, leaf: dict, device, verify: bool,
+                  box=None):
+    """One leaf, whole, or the block [start, stop) per dimension of `box`
+    from the saved shards that intersect it."""
     import numpy as np
 
     shape = tuple(leaf["shape"])
@@ -751,10 +778,14 @@ def _restore_leaf(dir_uri: str, leaf: dict, device, verify: bool):
             cache[sh["file"]] = data
         return cache[sh["file"]]
 
-    out = np.empty(shape, dtype)
+    if box is None:
+        box = [[0, n] for n in shape]
+    out = np.empty([b - a for a, b in box], dtype)
     for sh in leaf["shards"]:
-        sl = tuple(slice(a, b) for a, b in sh["index"])
-        out[sl] = load(sh)
+        inter = _intersect(box, sh["index"])
+        if inter is not None:
+            tgt_sl, src_sl = inter
+            out[tgt_sl] = load(sh)[src_sl]
     if not bf16 and device is None:
         return out
     import torch
@@ -763,6 +794,19 @@ def _restore_leaf(dir_uri: str, leaf: dict, device, verify: bool):
     if bf16:
         t = t.view(torch.bfloat16)
     return t if device is None else t.to(device)
+
+
+def _intersect(tgt, src):
+    """Overlap of two [[start, stop], ...] boxes: (target-local slices,
+    source-local slices), or None when disjoint."""
+    tgt_sl, src_sl = [], []
+    for (ts, te), (ss, se) in zip(tgt, src):
+        lo, hi = max(ts, ss), min(te, se)
+        if hi <= lo:
+            return None
+        tgt_sl.append(slice(lo - ts, hi - ts))
+        src_sl.append(slice(lo - ss, hi - ss))
+    return tuple(tgt_sl), tuple(src_sl)
 
 
 # --------------------------------------------------------------------------

@@ -26,8 +26,9 @@ class ScalingConfig:
     use_gpu: bool = True
     resources_per_worker: Optional[dict] = None
     #: Join every worker into one `torch.distributed` process group (NCCL
-    #: when the worker's device is CUDA, gloo on the CPU): rank 0 reserves
-    #: the rendezvous port and publishes it through the controller KV.
+    #: when every worker holds a card of its own, gloo on the CPU and for
+    #: workers that share a card): rank 0 reserves the rendezvous port and
+    #: publishes it through the controller KV.
     torch_distributed: bool = False
     #: Extra env vars for worker processes, applied BEFORE any import in
     #: the worker (e.g. CUDA_VISIBLE_DEVICES or a torch setting that must

@@ -7,7 +7,9 @@ joins the workers into one `torch.distributed` process group for loops
 that drive collectives on the card themselves.
 
 Counterpart: ray_tpu/train/jax_utils.py (ported: tensors or pytrees of them
-in and out; `setup_torch_distributed` replaces `setup_jax_distributed`).
+in and out; `setup_torch_distributed` replaces `setup_jax_distributed`;
+`global_mesh_from_distributed` builds a `parallel.mesh.Mesh` over the
+workers' process group).
 """
 
 from __future__ import annotations
@@ -97,3 +99,20 @@ def setup_torch_distributed(group_name: str, rank: int, world_size: int,
                             world_size=world_size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return addr
+
+
+def global_mesh_from_distributed(axis_names=("dp",), shape=None):
+    """After `setup_torch_distributed` on every worker (a trainer with
+    `torch_distributed=True`): one mesh over ALL the workers' ranks, with
+    the named axes (sizes `shape`, default one axis over every rank). Every
+    worker must call it, in the same order as its other collectives."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import Mesh
+
+    if shape is None:
+        shape = (dist.get_world_size(),)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"axes {axis_names} and shape {shape} differ in "
+                         f"length")
+    return Mesh(dict(zip(axis_names, shape)))

@@ -471,3 +471,60 @@ def test_pipelined_engine_on_the_card_gives_golden_tokens(gen):
         assert s["decode_steps"] > 0
         assert s["kernel_launches"]["decode_attention"] == \
             len(s["layers"]) * s["decode_steps"]
+
+
+# ---- the parallelism layer: ranks sharing the card
+@pytest.mark.parametrize("kind", ["decode", "flash", "flash_bwd"])
+def test_kernels_at_tensor_parallel_per_rank_shapes(gen, kind):
+    """tp=2 halves the serving and training heads: decode B8 Hq8 KV8 D64
+    S1024 and flash forward and backward B4 S1024 H8 D64 (also Ulysses'
+    per-rank head slice over sp=2), bf16, against the plain versions."""
+    dt = torch.bfloat16
+    if kind == "decode":
+        q = _randn(gen, 8, 8, 64, dtype=dt)
+        k, v = (_randn(gen, 8, 1024, 8, 64, dtype=dt) for _ in range(2))
+        lens = torch.tensor([1, 1024, 517, 64, 300, 900, 128, 777],
+                            dtype=torch.int32, device="cuda")
+        _check(decode_attention_cuda(q, k, v, lens),
+               _reference_decode_attention(q, k, v, lens), dt)
+        return
+    q, k, v, do = (_randn(gen, 4, 1024, 8, 64, dtype=dt) for _ in range(4))
+    if kind == "flash":
+        _check(flash_attention_cuda(q, k, v, True),
+               _reference_flash_attention(q, k, v, True), dt)
+        return
+    o, lse = flash_attention_cuda(q, k, v, True, with_lse=True)
+    for g, r in zip(
+            flash_attention_backward_cuda(q, k, v, o, do, lse, True),
+            _reference_flash_attention_backward(q, k, v, o, do, lse, True)):
+        _check(g, r, dt)
+
+
+def test_tp2_forward_of_two_ranks_on_one_card_matches_unsharded(gen):
+    """Two rank processes share the card (gloo, host-staged collectives):
+    the tp=2 forward's gathered logits equal the unsharded forward's within
+    1e-4 (f32, TF32 off), each rank running the flash kernel once per
+    layer on its head."""
+    from ray_tpu_torch.parallel.dryrun import run_ranks
+    from torch_parallel_ranks import card_tp_forward
+
+    cfg = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=2,
+               n_kv_heads=2, d_ff=344, max_seq=64)
+    tokens = np.random.RandomState(0).randint(0, 512, (2, 64))
+    out = run_ranks(card_tp_forward, 2, cfg, tokens)
+    for r in out:
+        assert r["transport"] == "gloo" and r["flash_launches"] == 2
+        err = np.abs(r["logits"] - out[0]["ref"]) / np.maximum(
+            np.abs(out[0]["ref"]), 1)
+        assert float(err.max()) <= 1e-4
+
+
+def test_nccl_ranks_sharing_one_card_raise(gen):
+    """nccl takes one card per rank: two ranks on the one card raise at
+    mesh construction, before any collective; nothing falls back to
+    gloo."""
+    from ray_tpu_torch.parallel.dryrun import run_ranks
+    from torch_parallel_ranks import nccl_on_one_card
+
+    for msg in run_ranks(nccl_on_one_card, 2, backend="nccl"):
+        assert "nccl needs one CUDA device per rank" in msg
