@@ -145,6 +145,23 @@ from the root of a checkout. Phases, each of which raises on failure
    at its per-rank shape against its plain version (decode B8 Hq8 KV8,
    flash forward and backward B4 S1024 H8, which is also Ulysses' per-rank
    head slice).
+13. rllib, its learners on the card and its env runners as CPU actors
+   (about 2 minutes). (a) The PPO, IMPALA and DQN learners against
+   tests/data/torch_port_rllib_golden.npz (the JAX package's losses,
+   V-trace outputs, gradients and parameters after an update, at seed 0,
+   on seeded inputs), TF32 off, at RLLIB_GOLDEN_TOL. On a runtime of 4
+   CPUs: (b) PPO on CartPole at `_bench_rllib_ppo`'s shape (2 runners x
+   8 envs x 64 steps, the default learner), starting from the golden
+   file's seed-0 weights: env-steps/s over 5 iterations after the first,
+   the learner's wall and CUDA-event ms per update, its kernels and the
+   card's busy share in one profiled update, and the reference test's
+   bar over 25 iterations; (c) IMPALA and DQN at their reference tests'
+   configs and bars, with the learner's ms per update; (d) multi-agent
+   PPO for 2 iterations (both policies' learners on the card), and PPO
+   as a `tune` class trainable, 2 trials over lr {3e-4, 1e-6} taking the
+   card in turn (`resources_per_trial` GPU 1), the best trial 3e-4. Then
+   ray_tpu_torch.shutdown(), which must leave no rt_* segment. Phase 13
+   launches none of the port's kernels: its networks are 64-wide MLPs.
 
 Launch counts: the decode kernel's from phase 4, the flash forward's from
 phases 5 and 6, the flash backward's from phase 6, each path's counts set
@@ -2470,6 +2487,450 @@ def phase_tensor_parallel(lone) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 13
+RLLIB_GOLDEN = os.path.join(REPO, "tests", "data",
+                            "torch_port_rllib_golden.npz")
+#: Phase 13 (a): the port's learners against the JAX package's on the
+#: golden file, TF32 off. Losses, their statistics, V-trace's outputs, |td|
+#: and every gradient within "value" of the array's largest magnitude.
+#: Parameters after an update within "after", absolute: XLA and torch sum
+#: in different orders, so two gradients differ in their last bits, and
+#: Adam divides each by its own root mean square, which turns a relative
+#: 1e-6 into about lr * 1e-6 per step but can move an element whose
+#: gradient is near 1e-8 (Adam's eps) by up to lr. On the CPU the port
+#: reads PPO 1.6e-7 after its 32 steps (lr 3e-4), IMPALA 6.0e-8 and DQN
+#: 1.2e-7 after one step (lr 5e-4 and 1e-3), and at most 2.2e-6 of an
+#: array's largest magnitude for the rest; 1e-5 leaves the card room for
+#: its own summation order and stays a 30th of the smallest Adam step.
+RLLIB_GOLDEN_TOL = {"value": 1e-5, "after": 1e-5}
+
+
+def _flax_flat(prefix: str, named) -> dict:
+    """{"fc0.weight": [out, in], "fc0.bias": ...} (tensors) -> flat flax
+    keys {prefix + "fc0/kernel": [in, out], ...} (numpy)."""
+    out = {}
+    for key, t in named.items():
+        name, kind = key.split(".")
+        a = t.detach().cpu().numpy()
+        out[f"{prefix}{name}/{'kernel' if kind == 'weight' else 'bias'}"] = (
+            a.T if kind == "weight" else a)
+    return out
+
+
+def rllib_golden_outputs(g: dict, device) -> dict:
+    """The port's PPO, IMPALA and DQN learners on the golden file's
+    inputs and starting weights, on `device`, under the file's keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.rllib import (DQNLearner, DQNLearnerConfig,
+                                     IMPALALearner, IMPALALearnerConfig,
+                                     PPOLearner, PPOLearnerConfig, RLModule,
+                                     RLModuleSpec)
+    from ray_tpu_torch.rllib.learner import batch_to
+    from ray_tpu_torch.rllib.rl_module import params_from_flax
+
+    dev = torch.device(device)
+    spec = RLModuleSpec(observation_dim=4, action_dim=2)
+    init = params_from_flax(_subtree(g, "policy_init/"))
+
+    def batch(prefix):
+        return {k[len(prefix):]: v for k, v in g.items()
+                if k.startswith(prefix)}
+
+    def grads(prefix, net):
+        return _flax_flat(prefix, {k: p.grad
+                                   for k, p in net.named_parameters()})
+
+    out = {}
+    ppo = PPOLearner(RLModule(spec), PPOLearnerConfig(), device=dev)
+    ppo.net.load_state_dict(init)
+    b = batch_to(batch("ppo/batch/"), dev)
+    loss, aux = ppo._loss({k: v[:128] for k, v in b.items()})
+    loss.backward()
+    out["ppo/loss"] = loss.item()
+    out.update({f"ppo/aux/{k}": v.item() for k, v in aux.items()})
+    out.update(grads("ppo/grad/", ppo.net))
+    stats = ppo._update(b, torch.from_numpy(g["ppo/perms"]))
+    out.update(_flax_flat("ppo/after/", dict(ppo.net.named_parameters())))
+    out.update({f"ppo/stats/{k}": v for k, v in stats.items()})
+
+    imp = IMPALALearner(RLModule(spec), IMPALALearnerConfig(), device=dev)
+    imp.net.load_state_dict(init)
+    b = batch_to(batch("impala/batch/"), dev)
+    T, N = b["obs"].shape[:2]
+    with torch.no_grad():
+        logits, values = imp.net(b["obs"].reshape(T * N, -1))
+        logp = F.log_softmax(logits.reshape(T, N, -1), dim=-1).gather(
+            -1, b["actions"][..., None])[..., 0]
+        _, last_value = imp.net(b["last_obs"])
+        vs, pg = imp._vtrace(values.reshape(T, N), last_value, b["rewards"],
+                             b["dones"], torch.exp(logp - b["logp_old"]))
+    out["impala/vs"], out["impala/pg_adv"] = vs.cpu().numpy(), \
+        pg.cpu().numpy()
+    loss, _ = imp._loss(b)
+    loss.backward()
+    out["impala/loss"] = loss.item()
+    out.update(grads("impala/grad/", imp.net))
+    imp._update(b)
+    out.update(_flax_flat("impala/after/", dict(imp.net.named_parameters())))
+
+    dqn = DQNLearner(spec, DQNLearnerConfig(), device=dev)
+    sd = params_from_flax(_subtree(g, "dqn/init/"))
+    dqn.net.load_state_dict(sd)
+    dqn.target_net.load_state_dict(sd)
+    raw = batch("dqn/batch/")
+    loss, td = dqn._loss(batch_to(raw, dev),
+                         torch.as_tensor(g["dqn/weights"], device=dev))
+    loss.backward()
+    out["dqn/loss"] = loss.item()
+    out["dqn/abs_td"] = td.detach().abs().cpu().numpy()
+    out.update(grads("dqn/grad/", dqn.net))
+    dqn.update(raw, g["dqn/weights"])
+    out.update(_flax_flat("dqn/after/", dict(dqn.net.named_parameters())))
+    return out
+
+
+def rllib_golden_check(g: dict, out: dict) -> dict:
+    """Each output against the file at RLLIB_GOLDEN_TOL; raises on the
+    first algorithm out of tolerance. -> {algo: {"value_rel": worst error
+    over the array's largest magnitude, "after_abs": worst absolute error
+    of the parameters after the update}}."""
+    worst: dict = {}
+    for key, val in out.items():
+        ref = np.asarray(g[key], np.float64)
+        err = float(np.abs(np.asarray(val, np.float64) - ref).max())
+        algo = key.split("/")[0]
+        w = worst.setdefault(algo, {"value_rel": 0.0, "after_abs": 0.0})
+        if "/after/" in key:
+            w["after_abs"] = max(w["after_abs"], err)
+        else:
+            w["value_rel"] = max(w["value_rel"],
+                                 err / max(float(np.abs(ref).max()), 1e-30))
+    missing = {k for k in g if "/" in k and k.split("/")[1] in (
+        "loss", "aux", "grad", "after", "stats", "vs", "pg_adv", "abs_td")
+               } - set(out)
+    bad = {a: w for a, w in worst.items()
+           if not (w["value_rel"] <= RLLIB_GOLDEN_TOL["value"]
+                   and w["after_abs"] <= RLLIB_GOLDEN_TOL["after"])}
+    if missing or bad:
+        raise AssertionError(f"rllib golden: out of tolerance {bad}, "
+                             f"missing {sorted(missing)}")
+    return worst
+
+
+#: Phase 13 (b): `_bench_rllib_ppo`'s shape (bench.py:1878-1881) with the
+#: default learner, and the bar of the reference's PPO test
+#: (tests/test_rllib.py:57-74) over its 25 iterations; env-steps/s over
+#: RLLIB_TIMED iterations after the first, as the bench times them.
+RLLIB_PPO_RUNNERS = dict(num_env_runners=2, num_envs_per_env_runner=8,
+                         rollout_fragment_length=64)
+RLLIB_PPO_ITERS = 25
+RLLIB_TIMED = 5
+
+
+class _LearnerTimer:
+    """Stands in for a learner's `update`: each call's host wall ms (the
+    update ends in a host read of its stats, so the card has finished) and
+    the span between CUDA events recorded around it on the stream, which
+    includes the card's idle gaps. Keeps the last call's arguments for a
+    profiled repeat."""
+
+    def __init__(self, learner):
+        self._update = learner.update
+        self.wall_ms: list = []
+        self.event_ms: list = []
+        self.last_args = None
+        learner.update = self
+
+    def __call__(self, *args):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = self._update(*args)
+        end.record()
+        end.synchronize()
+        self.wall_ms.append(1e3 * (time.perf_counter() - t0))
+        self.event_ms.append(start.elapsed_time(end))
+        self.last_args = args
+        return out
+
+    def summary(self, calls=slice(None)) -> dict:
+        wall, ev = self.wall_ms[calls], self.event_ms[calls]
+        return {"updates": len(wall),
+                "learner_wall_ms_median": statistics.median(wall),
+                "learner_wall_ms_min_max": [min(wall), max(wall)],
+                "learner_event_ms_median": statistics.median(ev)}
+
+    def profile(self) -> dict:
+        """One more update on the last call's batch under torch.profiler
+        (phase 6's reading): kernels launched, their summed device time
+        and that time's share of the update's wall (the card's busy
+        share)."""
+        return _profile_train_step(lambda: self._update(*self.last_args))
+
+
+def _finite(rets) -> list:
+    return [r for r in rets if r == r]
+
+
+def _on_card(learner) -> bool:
+    """Whether the learner's parameters live on the card."""
+    return next(learner.net.parameters()).is_cuda
+
+
+def _cpu_learner_ms(learner, args, reps: int = 3) -> float:
+    """Median wall ms of the same PPO update on this machine's CPU (torch's
+    default thread count), from the card learner's weights: a yardstick
+    for the card's learner, not a path of the port."""
+    from ray_tpu_torch.rllib import PPOLearner
+
+    cpu = PPOLearner(learner.module, learner.cfg, device="cpu")
+    cpu.net.load_state_dict(learner.net.state_dict())
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        cpu.update(*args)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _rllib_ppo(g: dict) -> dict:
+    """Phase 13 (b). The learner starts from the golden file's
+    `policy_init` (the JAX package's seed-0 weights, where the reference
+    test starts: tests/test_torch_rllib.py says why)."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.rl_module import params_from_flax
+
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(**RLLIB_PPO_RUNNERS)
+            .training(lr=3e-4, minibatch_size=128).build())
+    try:
+        if not _on_card(algo.learner):
+            raise AssertionError(f"PPO learner on {algo.learner.device}")
+        algo.learner.net.load_state_dict(
+            params_from_flax(_subtree(g, "policy_init/")))
+        timer = _LearnerTimer(algo.learner)
+        t_first = time.perf_counter()
+        first = algo.train()
+        first_s = time.perf_counter() - t_first
+        returns = [first["episode_return_mean"]]
+        steps = 0
+        t0 = time.perf_counter()
+        for _ in range(RLLIB_TIMED):
+            m = algo.train()
+            steps += m["num_env_steps_sampled"]
+            returns.append(m["episode_return_mean"])
+        timed_s = time.perf_counter() - t0
+        for _ in range(RLLIB_PPO_ITERS - 1 - RLLIB_TIMED):
+            returns.append(algo.train()["episode_return_mean"])
+        prof = timer.profile()
+        prof["cpu_learner_wall_ms_median"] = _cpu_learner_ms(
+            algo.learner, timer.last_args)
+    finally:
+        algo.stop()
+    rec = {"env_steps_per_s": steps / timed_s,
+           "timed_iteration_ms": 1e3 * timed_s / RLLIB_TIMED,
+           "first_iteration_s": first_s,
+           "steps_per_iteration": first["num_env_steps_sampled"],
+           "timed": timer.summary(slice(1, 1 + RLLIB_TIMED)),
+           "all": timer.summary(), **prof,
+           "returns": returns}
+    rec["learner_share_of_timed_iteration"] = (
+        rec["timed"]["learner_wall_ms_median"] / rec["timed_iteration_ms"])
+    log("rllib ppo " + json.dumps(rec))
+    log(f"rllib ppo: {rec['env_steps_per_s']:.1f} env-steps/s (CartPole, "
+        f"2 runners x 8 envs x 64 steps, learner on the card), learner "
+        f"{rec['timed']['learner_wall_ms_median']:.2f} ms per update (wall; "
+        f"events {rec['timed']['learner_event_ms_median']:.2f} ms), "
+        f"{prof.get('profiled_kernels')} kernels per update")
+    if first["num_env_steps_sampled"] != 2 * 8 * 64:
+        raise AssertionError(f"PPO sampled {first['num_env_steps_sampled']}")
+    if not (max(returns[-5:]) > 2 * returns[0] and max(returns) >= 45):
+        raise AssertionError(f"PPO missed the reference bar: {returns}")
+    return rec
+
+
+def _rllib_impala() -> dict:
+    """Phase 13 (c): the reference IMPALA test's config and bar
+    (tests/test_rllib.py:109-137)."""
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    algo = (IMPALAConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=8,
+                         rollout_fragment_length=64)
+            .training(updates_per_iteration=4).build())
+    try:
+        timer = _LearnerTimer(algo.learner)
+        t0 = time.perf_counter()
+        first = algo.train()
+        returns = [algo.train()["episode_return_mean"] for _ in range(24)]
+        run_s = time.perf_counter() - t0
+    finally:
+        algo.stop()
+    best = max(_finite(returns), default=-1.0)
+    rec = {"run_s": run_s, "best_return": best, **timer.summary(),
+           "returns": returns}
+    log("rllib impala " + json.dumps(rec))
+    if first["num_env_steps_sampled"] != 4 * 64 * 8 or not best > 55:
+        raise AssertionError(f"IMPALA missed the reference bar: {rec}")
+    return rec
+
+
+def _rllib_dqn() -> dict:
+    """Phase 13 (c): the reference DQN test's config and bar
+    (tests/test_rllib.py:166-193), its horizon adaptive up to 60."""
+    from ray_tpu_torch.rllib import DQNConfig
+
+    algo = (DQNConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                         rollout_fragment_length=64)
+            .training(lr=5e-4, train_batch_size=128, num_learner_updates=24)
+            .build())
+    try:
+        timer = _LearnerTimer(algo.learner)
+        returns = []
+        t0 = time.perf_counter()
+        for _ in range(60):
+            m = algo.train()
+            returns.append(m["episode_return_mean"])
+            if m["episode_return_mean"] >= 60:
+                break
+        run_s = time.perf_counter() - t0
+    finally:
+        algo.stop()
+    best = max(_finite(returns), default=-1.0)
+    rec = {"run_s": run_s, "iterations": len(returns), "best_return": best,
+           "num_transitions": m["num_transitions"], "epsilon": m["epsilon"],
+           **timer.summary()}
+    log("rllib dqn " + json.dumps(rec))
+    if not (m["num_transitions"] > 5000 and best >= 60
+            and m["epsilon"] < 0.3):
+        raise AssertionError(f"DQN missed the reference bar: {rec}")
+    return rec
+
+
+def _rllib_multi_agent() -> dict:
+    """Phase 13 (d): multi-agent PPO, 2 iterations, both policies'
+    learners on the card (the reference test's config)."""
+    import math
+
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig
+
+    algo = (MultiAgentPPOConfig().multi_agent(num_agents=2)
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                         rollout_fragment_length=64).build())
+    try:
+        on_card = [_on_card(lr) for lr in algo.learners.values()]
+        t0 = time.perf_counter()
+        ms = [algo.train() for _ in range(2)]
+        run_s = time.perf_counter() - t0
+    finally:
+        algo.stop()
+    losses = {k: v for k, v in ms[-1].items() if k.startswith("learner/")}
+    rec = {"run_s": run_s, "learners_on_card": on_card, "losses": losses,
+           "steps": [m["num_env_steps_sampled"] for m in ms]}
+    log("rllib multi_agent " + json.dumps(rec))
+    if on_card != [True, True] or len(losses) != 2 or not all(
+            math.isfinite(v) for v in losses.values()) or \
+            rec["steps"] != [2 * 2 * 4 * 64] * 2:
+        raise AssertionError(f"multi-agent PPO: {rec}")
+    return rec
+
+
+class _PPOTrainable:
+    """Phase 13 (d): the reference's tune case (tests/test_rllib.py:77-106)
+    as a class trainable whose learner takes the card."""
+
+    def setup(self, config):
+        from ray_tpu_torch.rllib import PPOConfig
+
+        self.algo = (PPOConfig().environment("CartPole-v1")
+                     .env_runners(num_env_runners=1,
+                                  num_envs_per_env_runner=8,
+                                  rollout_fragment_length=32)
+                     .training(lr=config["lr"], minibatch_size=64).build())
+
+    def step(self):
+        m = self.algo.train()
+        m["learner_on_cuda"] = float(_on_card(self.algo.learner))
+        return m
+
+
+def _rllib_tune() -> dict:
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig
+
+    storage = tempfile.mkdtemp(prefix="rt_rllib_tune_")
+    try:
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            _PPOTrainable,
+            param_space={"lr": tune.grid_search([3e-4, 1e-6])},
+            tune_config=tune.TuneConfig(
+                metric="episode_return_mean", mode="max",
+                resources_per_trial={"CPU": 1, "GPU": 1}),
+            run_config=RunConfig(storage_path=storage,
+                                 stop={"training_iteration": 8})).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    trials = [{"lr": r.config["lr"], "error": r.error,
+               **{k: (r.metrics or {}).get(k) for k in (
+                   "episode_return_mean", "training_iteration",
+                   "learner_on_cuda")}} for r in grid]
+    rec = {"fit_s": fit_s, "trials": trials,
+           "best_lr": grid.get_best_result().config["lr"]}
+    log("rllib tune " + json.dumps(rec, default=str))
+    if grid.num_errors or len(trials) != 2 or rec["best_lr"] != 3e-4 or \
+            any(t["learner_on_cuda"] != 1.0 or t["training_iteration"] != 8
+                for t in trials):
+        raise AssertionError(f"tune over PPO: {rec}")
+    return rec
+
+
+def phase_rllib() -> dict:
+    """Phase 13: rllib with its learners on the card and its env runners
+    as CPU actors."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with np.load(RLLIB_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    rec = {"golden": rllib_golden_check(g, rllib_golden_outputs(g, "cuda"))}
+    log("rllib golden (TF32 off) " + json.dumps(rec["golden"]))
+    shm_before = _rt_segments()
+    rt.init(num_cpus=4)
+    try:
+        for name, run in (("ppo", lambda: _rllib_ppo(g)),
+                          ("impala", _rllib_impala), ("dqn", _rllib_dqn),
+                          ("multi_agent", _rllib_multi_agent),
+                          ("tune", _rllib_tune)):
+            t0 = time.perf_counter()
+            rec[name] = run()
+            rec[name]["part_s"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    left = _rt_segments() - shm_before
+    if left:
+        raise AssertionError(f"shutdown left shm segments {sorted(left)}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13: {rec['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {rec[k]['part_s']:.1f} s" for k in
+        ("ppo", "impala", "dqn", "multi_agent", "tune")) + ")")
+    return rec
+
+
 def _ptxas_summary(build_log: str) -> list[str]:
     """One line per kernel instance from nvcc -Xptxas -v: its name and
     template arguments, registers, shared memory and spills, plus any
@@ -2541,6 +3002,7 @@ def main() -> int:
     tp_rec = phase_tensor_parallel(lone)
     log(f"phase 12: {tp_train_rec['phase_s'] + time.perf_counter() - t0:.1f} "
         f"s (its TorchTrainer part {tp_train_rec['phase_s']:.1f} s)")
+    phase_rllib()
     trainer_launches = {
         name: sum(c[name] for c in runtime_train_rec["launches"].values())
         for name in ("flash_attention", "flash_attention_bwd")}

@@ -163,10 +163,11 @@ def eligible(value, min_bytes: "int | None" = None) -> bool:
     RT_DAG_EDGE_MIN_BYTES: pre-negotiated point-to-point edges amortize
     the pin on much smaller tensors)."""
     torch = sys.modules.get("torch")
-    if torch is None:
-        # No torch imported in this process => the value can't be a tensor.
-        return False
-    if not isinstance(value, torch.Tensor):
+    # No torch in this process, or another thread still importing it (the
+    # module is in sys.modules before it has its names): the value can't
+    # be a tensor.
+    tensor_type = getattr(torch, "Tensor", None)
+    if tensor_type is None or not isinstance(value, tensor_type):
         return False
     if not CONFIG.device_objects:
         return False

@@ -69,11 +69,9 @@ Counterpart: ray_tpu/dag/__init__.py (copied). An edge pins a
 `torch.Tensor` (on the card or the CPU) where the reference pins a
 `jax.Array`; the pin is a snapshot taken at publish time
 (`device_store.pin_edge`), so a stage that later changes the tensor in
-place does not change what its consumer reads. A stage's node is looked
-up in the controller's state snapshot directly (`util.state` is not in
-this package). Channels are named under the runtime's session
-(`rtch_torch_<session>_<tag>_<n>`), and the session's shutdown unlinks
-any that a killed driver left behind.
+place does not change what its consumer reads. Channels are named under
+the runtime's session (`rtch_torch_<session>_<tag>_<n>`), and the
+session's shutdown unlinks any that a killed driver left behind.
 """
 
 from __future__ import annotations
@@ -778,14 +776,14 @@ class CompiledDAG:
     def _stage_node(self, st: _Stage) -> Optional[str]:
         """Best-effort: which node the (dead) stage lived on."""
         try:
-            from ray_tpu_torch._private.worker import global_worker
+            from ray_tpu_torch.util import state
 
-            w = global_worker()
-            snap = w.io.run(w.controller.call("state_snapshot"), timeout=30)
-            row = snap["actors"].get(st.actor_id) or {}
-            return row.get("node_id") or row.get("node")
+            for row in state.list_actors():
+                if row.get("actor_id") == st.actor_id:
+                    return row.get("node_id") or row.get("node")
         except Exception:
-            return None
+            pass
+        return None
 
     def _on_stage_death(self, st: _Stage, cause: str) -> None:
         node = self._stage_node(st)

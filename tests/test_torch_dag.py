@@ -4,10 +4,10 @@ device-object edges over torch tensors, the DAG's events and spans, and
 durable workflows.
 
 Counterpart tests: tests/test_dag.py, and the channel, compiled-DAG and
-workflow cases of tests/test_workflow_dag_llm.py. The state API
-(`util.state`) is not in the port, so events and traces are read from the
-controller directly. The tests that need their own runtime (a flag that
-stage processes read at spawn) run first; the rest share this module's
+workflow cases of tests/test_workflow_dag_llm.py; events and traces are
+read through the port's `util.state`, as the reference's tests read them.
+The tests that need their own runtime (a flag that stage processes read
+at spawn) run first; the rest share this module's
 cluster. No fixed ports or shm names.
 """
 
@@ -19,6 +19,7 @@ import torch
 
 import ray_tpu_torch as rt
 from ray_tpu_torch.exceptions import DagStageError, RayTpuError
+from ray_tpu_torch.util import state
 
 
 def _wait(pred, timeout=30.0, what="condition"):
@@ -32,13 +33,6 @@ def _wait(pred, timeout=30.0, what="condition"):
             pass
         time.sleep(0.2)
     raise TimeoutError(f"timed out waiting for {what}")
-
-
-def _controller(method: str, **kw):
-    from ray_tpu_torch._private.worker import global_worker
-
-    w = global_worker()
-    return w.io.run(w.controller.call(method, **kw), timeout=30)
 
 
 # ------------------------------------------------ device-object edges
@@ -117,8 +111,8 @@ def test_dag_invocation_spans_when_sampled(monkeypatch):
             cdag.teardown()
 
         def _spans():
-            for row in _controller("list_traces", limit=1000)["traces"]:
-                doc = _controller("get_trace", trace_id=row["trace_id"])
+            for row in state.list_traces():
+                doc = state.get_trace(row["trace_id"])
                 spans = doc.get("spans", [])
                 roots = [s for s in spans if s.get("n") == "dag.execute"]
                 stages = [s for s in spans if s.get("n") == "dag.stage"]
@@ -433,7 +427,7 @@ def test_dag_events_compiled_and_teardown(cluster):
     cdag.teardown()
 
     def _events():
-        rows = _controller("list_events", entity=dag_id, limit=1000)["events"]
+        rows = state.list_events(entity=dag_id)
         if {"dag_compiled", "dag_teardown"} <= {e["kind"] for e in rows}:
             return rows
         return None
@@ -443,6 +437,34 @@ def test_dag_events_compiled_and_teardown(cluster):
                 if e["kind"] == "dag_compiled")["attrs"]["stages"] == 1
     assert next(e for e in rows
                 if e["kind"] == "dag_teardown")["attrs"]["clean"] is True
+
+
+def test_stage_death_event_names_its_node(cluster):
+    """A killed stage fails the open invocation with a DagStageError, and
+    its dag_stage_death event names the node the stage lived on (looked
+    up through `util.state.list_actors`, as the reference does)."""
+    from ray_tpu_torch.dag import InputNode, compile
+
+    @rt.remote(num_cpus=0)
+    class Stage:
+        def work(self, x):
+            return x + 1
+
+    s = Stage.remote()
+    with InputNode() as inp:
+        dag = s.work.bind(inp)
+    cdag = compile(dag)
+    try:
+        assert cdag.execute(1).get(timeout=60) == 2
+        rt.kill(s)
+        with pytest.raises(DagStageError):
+            cdag.execute(2).get(timeout=60)
+        rows = _wait(lambda: [e for e in state.list_events(entity=cdag.dag_id)
+                              if e["kind"] == "dag_stage_death"] or None,
+                     what="dag_stage_death event")
+        assert rows[0]["attrs"]["node"] == state.list_nodes()[0]["node_id"]
+    finally:
+        cdag.teardown()
 
 
 # -------------------------------------------------------------- workflow

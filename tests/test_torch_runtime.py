@@ -12,6 +12,7 @@ tests/test_device_objects.py. These bring their own module-scoped cluster
 import ast
 import os
 import pathlib
+import sys
 import time
 
 import numpy as np
@@ -213,6 +214,20 @@ def test_put_tensor_is_a_snapshot(cluster, dtype):
     assert float(rt.get(ref_nd).sum()) == 0.0
 
 
+def test_eligible_while_another_thread_imports_torch(monkeypatch):
+    """A return serialized while another thread of the worker is still
+    importing torch (a tune trial whose trainable imports it in setup)
+    sees a torch module without its names: the value is no tensor, and
+    serializing it must not raise."""
+    import types
+
+    from ray_tpu_torch._private import device_store
+
+    monkeypatch.setitem(sys.modules, "torch", types.ModuleType("torch"))
+    assert device_store.eligible({"episode_return_mean": 1.0}) is False
+    assert device_store.eligible(np.zeros(N, np.float32)) is False
+
+
 def test_actor_return_is_a_snapshot(cluster):
     """An actor returns its buffer, then a later call changes the buffer in
     place: the first ref still gives the returned values."""
@@ -336,7 +351,11 @@ def test_port_names_nothing_of_the_jax_package(check):
     assert {"dag/__init__.py", "experimental/channel.py",
             "workflow/__init__.py", "llm/pipeline.py", "tune/__init__.py",
             "tune/_runner.py", "tune/_session.py", "tune/schedulers.py",
-            "tune/search.py", "tune/trial.py", "tune/tuner.py"} <= names
+            "tune/search.py", "tune/trial.py", "tune/tuner.py",
+            "air/__init__.py", "air/session.py", "util/state.py"} <= names
+    assert {f"rllib/{m}.py" for m in (
+        "__init__", "algorithm", "dqn", "env", "env_runner", "impala",
+        "learner", "multi_agent", "replay", "rl_module")} <= names
     bad = {}
     for f in files:
         found = check(ast.parse(f.read_text(), str(f)))
