@@ -162,6 +162,34 @@ from the root of a checkout. Phases, each of which raises on failure
    card in turn (`resources_per_trial` GPU 1), the best trial 3e-4. Then
    ray_tpu_torch.shutdown(), which must leave no rt_* segment. Phase 13
    launches none of the port's kernels: its networks are 64-wide MLPs.
+14. The ops plane, through the port's CLI (`python -m
+   ray_tpu_torch.scripts.cli`, with RT_TRACING=1 and
+   RT_TELEMETRY_INTERVAL_S=0.5, in a temporary session dir): (a) `start
+   --head --num-gpus 0`, then `start --address ... --num-gpus 1` starts
+   the node that owns the card (the head advertises none, or the card
+   would count twice); `status` shows 2 ALIVE nodes and 1 GPU, on that
+   node. (b) `job submit` runs a script written to the temp dir whose
+   driver (attached through RT_ADDRESS) runs a num_gpus=1 actor with phase
+   4's serving model; `job logs` shows the GPU node's id, phase 4's lone
+   greedy tokens and decode launches of at least 8 layers x the decode
+   steps. (c) This process attaches (`init(address=...)`) and a GPU
+   actor decodes a 700-token stream while `top --once` shows the GPU
+   node's memory (neither "-" nor 0, at most the actor's own
+   max_memory_allocated plus the display's rounding, COMPILE_S "-"),
+   `profile --worker ... --seconds 2 --mode torch` persists a trace whose
+   decode kernel events (by symbol name) number at least 8 per decode
+   step of the engine.dispatch_chunk spans inside the window, `timeline
+   --trace` of the request holds engine.prefill, engine.dispatch_chunk
+   and engine.host_sync (host syncs within ceil(700/16) + 7), and the
+   `dashboard`'s /metrics counts decode-step observations. (d) `stop`
+   leaves no process, head.json or /dev/shm segment of the session.
+   (e) On a fresh head with 0 GPUs, a num_gpus=1 task that holds the
+   decode kernel to its plain version at phase 2's serving shape and
+   tolerance stays pending until `Autoscaler` over
+   `LocalNodeProvider(node_shape={"CPU": 1, "GPU": 1})` launches a node,
+   runs there (RT_NODE_ID) on the card, and the idle node is reaped
+   within 60 s. Each part's seconds are logged; the phase must take
+   at most 120 s.
 
 Launch counts: the decode kernel's from phase 4, the flash forward's from
 phases 5 and 6, the flash backward's from phase 6, each path's counts set
@@ -175,7 +203,9 @@ phase 10 (`pipeline_launches`, the sum over the two stages), and the
 flash rows the tune trials' workers' from phase 11 (`tune_launches`, the
 sum over the trials). Each row also carries phase 12's: its kernel at the
 per-rank shape (`per_rank_shape`) and `tp_launches`, the decode launches
-of (b) and the flash launches of (c), summed over the ranks.
+of (b) and the flash launches of (c), summed over the ranks. The decode
+row also carries `ops_launches`, phase 14's: the job's actor (b), the
+traced stream's actor (c) and the autoscaled node's task (e), summed.
 
 It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`, one JSON line {"kernels": [...]}, and last
@@ -184,6 +214,7 @@ It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
 import os
@@ -2931,6 +2962,510 @@ def phase_rllib() -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 14
+# A stream long enough to outlast `top --once` and the 2 s profile window,
+# which closes some 5 s after the stream starts (on an NVIDIA H100 80GB
+# HBM3, 700.00 W, 700 tokens took 23.9 s at 34 ms per step while
+# observed, and the profile CLI 19.9 s, most of it exporting the trace).
+OPS_STREAM = dict(prompt_len=64, max_tokens=700)
+OPS_PROFILE_S = 2
+OPS_PHASE_LIMIT_S = 120
+# The autoscaler reaps an idle node within the reference test's 60 s.
+OPS_REAP_S = 60
+OPS_JOB_SCRIPT = """import sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+sys.exit(chip_smoke.ops_job(sys.argv[1]))
+"""
+
+
+class _OpsServer:
+    """Phase 14's GPU actor: phase 4's serving model behind OpenAIServer,
+    on the card of the node it lands on."""
+
+    def __init__(self, widths: dict, device: str):
+        from ray_tpu_torch.llm import LLMConfig
+        from ray_tpu_torch.llm.openai import OpenAIServer
+
+        self.device = device
+        self.server = OpenAIServer(LLMConfig(**widths), max_batch=8,
+                                   decode_chunk=16, default_max_tokens=64,
+                                   device=device)
+
+    def info(self) -> dict:
+        import torch
+
+        return {"worker_id": os.environ["RT_WORKER_ID"],
+                "node_id": os.environ["RT_NODE_ID"], "pid": os.getpid(),
+                "card": (torch.cuda.get_device_name(0)
+                         if self.device == "cuda" else "cpu")}
+
+    def complete(self, body: dict) -> dict:
+        """One completion (streamed when the body asks): its tokens, the
+        decode steps and decode launches it took, its wall-clock window,
+        the trace it ran in and this process's peak CUDA memory."""
+        import torch
+
+        from ray_tpu_torch._private import kernels, tracing
+
+        eng = self.server.engine
+        kernels.reset_launch_counts()
+        steps0 = eng.decode_steps
+        t0 = time.time()
+        out = self.server(_Request("/v1/completions", body))
+        if body.get("stream"):
+            toks = [t for chunk in out for t in chunk["token_ids"]]
+        else:
+            toks = out["token_ids"]
+        return {
+            "tokens": toks, "decode_steps": eng.decode_steps - steps0,
+            "decode_launches": kernels.launch_counts()["decode_attention"],
+            "t0": t0, "t1": time.time(),
+            "trace_id": tracing.current_trace_id(),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if self.device == "cuda" else 0)}
+
+    def shutdown(self) -> None:
+        self.server.shutdown()
+
+
+def ops_job(config_path: str) -> int:
+    """Phase 14 (b)'s job: a driver attached through RT_ADDRESS runs one
+    num_gpus=1 `_OpsServer` on the cluster and prints, on a line of its
+    own after "OPS_JOB ", the node it ran on, the card's name, the lone
+    prompt's greedy tokens and the actor's decode launches and steps."""
+    import ray_tpu_torch as rt
+
+    with open(config_path) as f:
+        cfg = json.load(f)
+    rt.init()
+    try:
+        server = rt.remote(num_gpus=1)(_OpsServer).remote(cfg["widths"],
+                                                          cfg["device"])
+        info = rt.get(server.info.remote(), timeout=600)
+        rec = rt.get(server.complete.remote(cfg["body"]), timeout=600)
+        rt.get(server.shutdown.remote(), timeout=60)
+    finally:
+        rt.shutdown()
+    print("OPS_JOB " + json.dumps({
+        "node_id": info["node_id"], "card": info["card"],
+        "tokens": rec["tokens"], "decode_steps": rec["decode_steps"],
+        "decode_launches": rec["decode_launches"]}), flush=True)
+    return 0
+
+
+def _ops_decode_check(device: str) -> dict:
+    """Phase 14 (e)'s num_gpus=1 task: the decode wrapper at phase 2's
+    serving shape against its plain version, phase 2's tolerance (on the
+    card the wrapper launches the kernel)."""
+    import torch
+
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.ops.decode_attention import (
+        _reference_decode_attention, decode_attention)
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a num_gpus=1 task found no CUDA device")
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, hq, kv, d, s = 8, 16, 16, 64, 1024
+    q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+    k = torch.randn(b, s, kv, d, generator=gen, device=device).bfloat16()
+    v = torch.randn(b, s, kv, d, generator=gen, device=device).bfloat16()
+    lens = torch.tensor([1, 1024, 517, 64, 300, 900, 128, 777],
+                        dtype=torch.int32, device=device)
+    kernels.reset_launch_counts()
+    out = decode_attention(q, k, v, lens)
+    launches = kernels.launch_counts()["decode_attention"]
+    err = _max_err(out, _reference_decode_attention(q, k, v, lens),
+                   "bfloat16")
+    return {"node_id": os.environ["RT_NODE_ID"], "max_abs_err": err,
+            "decode_launches": launches,
+            "card": (torch.cuda.get_device_name(0) if device == "cuda"
+                     else "cpu")}
+
+
+def _session_pids(session: str) -> list[int]:
+    """Live processes of a runtime session: node agents name it on their
+    command line, workers and job drivers carry it in RT_SESSION."""
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmdline = f.read()
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                environ = f.read().split(b"\0")
+        except OSError:
+            continue
+        if (session.encode() in cmdline
+                or f"RT_SESSION={session}".encode() in environ):
+            found.append(int(pid))
+    return found
+
+
+def _session_segments(session: str) -> list[str]:
+    """The session's /dev/shm segments (rt_<session[:8]>_*,
+    rtch_torch_<session>_*)."""
+    return sorted(f for f in os.listdir("/dev/shm")
+                  if f.startswith("rt") and session[:8] in f)
+
+
+def _parse_bytes(text: str) -> tuple[float, float]:
+    """A size as `top` prints it (e.g. "786M") -> (bytes, half a display
+    unit: the most its rounding can hide)."""
+    units = {"B": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30, "T": 1 << 40}
+    unit = units[text[-1]]
+    return float(text[:-1]) * unit, unit / 2
+
+
+class _OpsCluster:
+    """A cluster started through the port's CLI in `session_dir`; `stop()`
+    stops it and checks that it left no process, no head.json and no
+    /dev/shm segment of its session."""
+
+    def __init__(self, session_dir: str, env: dict):
+        self.sdir = session_dir
+        self.env = env
+
+    def cli(self, *args, timeout: float = 120) -> str:
+        r = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+             "--session-dir", self.sdir, *args],
+            capture_output=True, text=True, timeout=timeout, env=self.env)
+        if r.returncode != 0:
+            raise AssertionError(
+                f"ray-tpu-torch {' '.join(args)} exited {r.returncode}:\n"
+                f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        return r.stdout
+
+    def start_head(self, num_cpus: int) -> dict:
+        self.cli("start", "--head", "--num-cpus", str(num_cpus),
+                 "--num-gpus", "0", "--port", "0")
+        with open(os.path.join(self.sdir, "head.json")) as f:
+            self.head = json.load(f)
+        return self.head
+
+    def stop(self) -> float:
+        t0 = time.perf_counter()
+        out = self.cli("stop")
+        session = self.head["session"]
+        deadline = time.monotonic() + 30
+        while _session_pids(session) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = _session_pids(session)
+        if left:
+            raise AssertionError(f"stop left processes {left} of session "
+                                 f"{session[:8]} ({out.strip()})")
+        if os.path.exists(os.path.join(self.sdir, "head.json")):
+            raise AssertionError("stop left head.json")
+        if _session_segments(session):
+            raise AssertionError(f"stop left /dev/shm segments "
+                                 f"{_session_segments(session)}")
+        return time.perf_counter() - t0
+
+
+def _profile_window(trace: dict) -> tuple[float, float]:
+    """A torch.profiler Chrome trace's window on the wall clock: its
+    baseTimeNanoseconds plus the profiler event's microsecond times."""
+    window = next(e for e in trace["traceEvents"] if e.get("ph") == "X"
+                  and str(e.get("name", "")).startswith("PyTorch Profiler"))
+    w0 = trace["baseTimeNanoseconds"] / 1e9 + window["ts"] / 1e6
+    return w0, w0 + window["dur"] / 1e6
+
+
+def _ops_profile_window(trace: dict, spans: list, n_layers: int) -> dict:
+    """Phase 14 (c): the decode kernel's device events in a `profile
+    --mode torch` window (by the kernel's symbol name) against the decode
+    steps of the engine.dispatch_chunk spans that fall inside the window
+    (the last 50 ms are left for the device to finish)."""
+    w0, w1 = _profile_window(trace)
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "decode_attention_kernel" in e["name"]]
+    inside = [s for s in spans if s["name"] == "engine.dispatch_chunk"
+              and s["ts"] / 1e6 >= w0 and (s["ts"] + s["dur"]) / 1e6
+              <= w1 - 0.05]
+    steps = sum(s["args"]["tokens"] for s in inside)
+    rec = {"window_s": w1 - w0, "decode_kernel_events": len(kernels),
+           "decode_steps_in_window": steps,
+           "kernel_events": sum(1 for e in events
+                                if e.get("cat") == "kernel")}
+    if steps == 0 or len(kernels) < n_layers * steps:
+        raise AssertionError(
+            f"the profile window holds {len(kernels)} decode kernel events "
+            f"for {steps} decode steps of {n_layers} layers: {rec}")
+    return rec
+
+
+def _ops_timeline(cluster, trace_id: str, tmp: str) -> list:
+    """The request's spans as `timeline --trace` exports them, once the
+    engine's spans have arrived (they ride the workers' 1 Hz metrics
+    flush) and two exports agree."""
+    out = os.path.join(tmp, "timeline.json")
+    names = ("engine.prefill", "engine.dispatch_chunk", "engine.host_sync")
+    last, deadline = None, time.monotonic() + 30
+    while time.monotonic() < deadline:
+        cluster.cli("timeline", "--trace", trace_id, "-o", out)
+        with open(out) as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e["ph"] == "X"]
+        have = {e["name"] for e in spans}
+        if all(n in have for n in names) and last == len(spans):
+            return spans
+        last = len(spans)
+        time.sleep(1.0)
+    raise AssertionError(f"timeline --trace {trace_id[:12]} never held "
+                         f"{names} in two equal exports")
+
+
+def _prom_count(port: int, name: str) -> float:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as r:
+        text = r.read().decode()
+    counts = [float(line.split()[-1]) for line in text.splitlines()
+              if line.startswith(f"{name}_count")]
+    return sum(counts)
+
+
+def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
+    """Phase 14: the ops plane. A cluster started through the port's CLI
+    whose joined node owns the card serves phase 4's lone prompt through a
+    submitted job, and a GPU actor's stream is observed by `top`, `profile
+    --mode torch`, `timeline` and the dashboard's /metrics; `stop` leaves
+    nothing behind. Then the autoscaler launches a GPU node for a pending
+    num_gpus=1 task holding the decode kernel to its plain version, and
+    reaps it."""
+    import tempfile
+    import zipfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import Autoscaler, LocalNodeProvider
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="rt_ops_")
+    env = dict(os.environ, RT_TELEMETRY_INTERVAL_S="0.5", RT_TRACING="1")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    n_layers = widths["n_layers"]
+    rec: dict = {}
+    secs: dict = {}
+
+    # (a) a head without GPUs, and a node that owns the card
+    t0 = time.perf_counter()
+    cluster = _OpsCluster(os.path.join(tmp, "session"), env)
+    head = cluster.start_head(num_cpus=2)
+    try:
+        cluster.cli("start", "--address", head["address"], "--num-cpus",
+                    "2", "--num-gpus", "1")
+        with open(os.path.join(cluster.sdir, "nodes.json")) as f:
+            gpu_node = json.load(f)[0]["node_id"]
+        status = cluster.cli("status")
+        totals = {m[0]: ast.literal_eval(m[1]) for m in re.findall(
+            r"node (\w+) ALIVE total=(\{.*?\}) available=", status)}
+        if len(totals) != 2 or sum(t.get("GPU", 0.0)
+                                   for t in totals.values()) != 1.0 \
+                or totals.get(gpu_node[:8], {}).get("GPU") != 1.0:
+            raise AssertionError(f"status is not 2 ALIVE nodes with the one "
+                                 f"GPU on {gpu_node[:8]}:\n{status}")
+        secs["start"] = time.perf_counter() - t0
+        log(f"ops: head {head['address']} (0 GPUs), GPU node "
+            f"{gpu_node[:8]}: {totals}")
+
+        # (b) a submitted job serves phase 4's lone prompt on that node
+        t0 = time.perf_counter()
+        cfg_path = os.path.join(tmp, "ops_job.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"widths": widths, "device": device,
+                       "body": lone[0]}, f)
+        script = os.path.join(tmp, "ops_job.py")
+        with open(script, "w") as f:
+            f.write(OPS_JOB_SCRIPT.format(repo=REPO))
+        out = cluster.cli("job", "submit", "--submission-id", "ops-lone",
+                          "--", sys.executable, script, cfg_path,
+                          timeout=600)
+        if "job ops-lone: SUCCEEDED" not in out:
+            raise AssertionError(f"the job did not succeed:\n{out[-3000:]}")
+        secs["job"] = time.perf_counter() - t0
+        logs = cluster.cli("job", "logs", "ops-lone")
+        job = json.loads(logs.split("OPS_JOB ", 1)[1].splitlines()[0])
+        if job["node_id"] != gpu_node:
+            raise AssertionError(f"the job's actor ran on "
+                                 f"{job['node_id'][:8]}, not the GPU node")
+        if job["tokens"] != lone[1]:
+            raise AssertionError("the job's greedy tokens differ from "
+                                 "phase 4's lone answer")
+        # (on the CPU, which only rehearses this phase, nothing launches)
+        if job["decode_steps"] == 0 or device == "cuda" and \
+                job["decode_launches"] < n_layers * job["decode_steps"]:
+            raise AssertionError(f"the job's actor launched the decode "
+                                 f"kernel {job['decode_launches']} times "
+                                 f"for {job['decode_steps']} steps")
+        rec["job"] = {k: job[k] for k in ("card", "decode_steps",
+                                          "decode_launches")}
+        rec["job"]["job_s"] = secs["job"]
+        log(f"ops job: {json.dumps(rec['job'])}")
+
+        # (c) a traced GPU actor's stream, seen by top, profile, timeline
+        # and the dashboard
+        t0 = time.perf_counter()
+        dash_port = _free_port()
+        dash = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+             "--session-dir", cluster.sdir, "dashboard", "--port",
+             str(dash_port)], env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+        rt.init(address=head["address"])
+        try:
+            server = rt.remote(num_gpus=1)(_OpsServer).remote(widths, device)
+            info = rt.get(server.info.remote(), timeout=600)
+            if info["node_id"] != gpu_node:
+                raise AssertionError("the GPU actor is not on the GPU node")
+            rt.get(server.complete.remote(
+                {"prompt": lone[0]["prompt"][:16], "temperature": 0.0,
+                 "max_tokens": 4}), timeout=600)  # warm-up
+            prompt = lone[0]["prompt"][:OPS_STREAM["prompt_len"]]
+            ref = server.complete.remote(
+                {"prompt": prompt, "temperature": 0.0, "stream": True,
+                 "max_tokens": OPS_STREAM["max_tokens"]})
+            time.sleep(1.0)  # the stream is decoding
+            t_top = time.time()
+            top = cluster.cli("top", "--once")
+            t_prof = time.time()
+            prof = cluster.cli("profile", "--worker", info["worker_id"],
+                               "--seconds", str(OPS_PROFILE_S), "--mode",
+                               "torch", timeout=120)
+            t_prof_end = time.time()
+            secs["top_cli"] = t_prof - t_top
+            secs["profile_cli"] = t_prof_end - t_prof
+            stream = rt.get(ref, timeout=600)
+            if len(stream["tokens"]) != OPS_STREAM["max_tokens"]:
+                raise AssertionError(f"the stream gave "
+                                     f"{len(stream['tokens'])} tokens")
+            row = next(line.split() for line in top.splitlines()
+                       if line.startswith(gpu_node[:8]))
+            mem, compile_s = row[5], row[6]
+            used = mem.split("/")[0]
+            if device == "cuda":
+                used_b, slack = _parse_bytes(used)
+                peak = stream["max_memory_allocated"]
+                if used_b <= 0 or used_b > peak + slack:
+                    raise AssertionError(
+                        f"top shows the GPU node's memory as {mem}; the "
+                        f"actor's peak is {peak} bytes")
+            if compile_s != "-":
+                raise AssertionError(f"top printed COMPILE_S {compile_s}")
+            rec["top"] = {"gpu_mem": mem, "actor_peak_bytes":
+                          stream["max_memory_allocated"]}
+            archive = prof.split("trace archive:")[1].split()[0]
+            with zipfile.ZipFile(archive) as z:
+                trace = json.loads(z.read("trace.json"))
+            if not (stream["t0"] < t_top
+                    and _profile_window(trace)[1] < stream["t1"]):
+                raise AssertionError("the stream did not span top and the "
+                                     "profile window")
+            spans = _ops_timeline(cluster, stream["trace_id"], tmp)
+            names = {s["name"] for s in spans}
+            syncs = sum(1 for s in spans if s["name"] == "engine.host_sync")
+            bound = -(-OPS_STREAM["max_tokens"] // 16) + 7
+            if syncs > bound:
+                raise AssertionError(f"{syncs} host_sync spans for "
+                                     f"{OPS_STREAM['max_tokens']} tokens "
+                                     f"(bound {bound})")
+            rec["timeline"] = {
+                "spans": len(spans), "host_sync": syncs, "bound": bound,
+                "engine_spans": sorted(n for n in names
+                                       if n.startswith("engine."))}
+            if device == "cuda":
+                rec["profile"] = _ops_profile_window(trace, spans, n_layers)
+            deadline = time.monotonic() + 30
+            count = 0.0
+            while count <= 0 and time.monotonic() < deadline:
+                try:
+                    count = _prom_count(dash_port, "rt_decode_step_seconds")
+                except OSError:
+                    pass  # the dashboard is still binding
+                if count <= 0:
+                    time.sleep(0.5)
+            if count <= 0:
+                raise AssertionError("the dashboard's /metrics shows no "
+                                     "decode-step observation")
+            rec["metrics"] = {"rt_decode_step_seconds_count": count}
+            rec["stream"] = {
+                "tokens": len(stream["tokens"]),
+                "decode_steps": stream["decode_steps"],
+                "decode_launches": stream["decode_launches"],
+                "s": stream["t1"] - stream["t0"]}
+            rt.get(server.shutdown.remote(), timeout=60)
+        finally:
+            rt.shutdown()
+            dash.terminate()
+            dash.wait(timeout=30)
+        secs["observe"] = time.perf_counter() - t0
+        log("ops observe: " + json.dumps(
+            {k: rec.get(k) for k in ("top", "profile", "timeline",
+                                     "metrics", "stream")}))
+    finally:
+        # (d) stop: no process, head.json or segment of the session left
+        secs["stop"] = cluster.stop()
+
+    # (e) the autoscaler launches a GPU node for a pending num_gpus=1 task
+    t0 = time.perf_counter()
+    cluster2 = _OpsCluster(os.path.join(tmp, "session2"), env)
+    head2 = cluster2.start_head(num_cpus=1)
+    try:
+        rt.init(address=head2["address"])
+        try:
+            ref = rt.remote(num_gpus=1)(_ops_decode_check).remote(device)
+            ready, _ = rt.wait([ref], timeout=3.0)
+            if ready:
+                raise AssertionError("the num_gpus=1 task ran with no GPU "
+                                     "in the cluster")
+            provider = LocalNodeProvider(head2["address"], head2["session"],
+                                         node_shape={"CPU": 1, "GPU": 1})
+            scaler = Autoscaler(head2["address"], provider, min_workers=0,
+                                max_workers=1, idle_timeout_s=3.0,
+                                interval_s=0.5)
+            scaler.start()
+            try:
+                t_up = time.perf_counter()
+                check = rt.get(ref, timeout=600)
+                up_s = time.perf_counter() - t_up
+                launched = provider.non_terminated_nodes()
+                if check["node_id"] not in launched:
+                    raise AssertionError("the task did not run on the "
+                                         "autoscaled node")
+                t_down = time.perf_counter()
+                while provider.non_terminated_nodes():
+                    if time.perf_counter() - t_down > OPS_REAP_S:
+                        raise AssertionError("the idle GPU node was not "
+                                             f"reaped in {OPS_REAP_S} s")
+                    time.sleep(0.2)
+                down_s = time.perf_counter() - t_down
+            finally:
+                scaler.stop()
+                for nid in provider.non_terminated_nodes():  # on failure
+                    provider.terminate_node(nid)
+        finally:
+            rt.shutdown()
+    finally:
+        secs["stop2"] = cluster2.stop()
+    secs["autoscaler"] = time.perf_counter() - t0
+    rec["autoscaler"] = {**check, "scale_up_s": up_s, "reap_s": down_s}
+    log(f"ops autoscaler: {json.dumps(rec['autoscaler'])}")
+    rec["ops_launches"] = (rec["job"]["decode_launches"]
+                           + rec["stream"]["decode_launches"]
+                           + check["decode_launches"])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["seconds"] = secs
+    log(f"phase 14: {rec['phase_s']:.1f} s {json.dumps(secs)}")
+    if rec["phase_s"] > OPS_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 14 took {rec['phase_s']:.1f} s, over "
+                             f"its {OPS_PHASE_LIMIT_S} s")
+    return rec
+
+
 def _ptxas_summary(build_log: str) -> list[str]:
     """One line per kernel instance from nvcc -Xptxas -v: its name and
     template arguments, registers, shared memory and spills, plus any
@@ -3003,6 +3538,7 @@ def main() -> int:
     log(f"phase 12: {tp_train_rec['phase_s'] + time.perf_counter() - t0:.1f} "
         f"s (its TorchTrainer part {tp_train_rec['phase_s']:.1f} s)")
     phase_rllib()
+    ops_rec = phase_ops(lone)
     trainer_launches = {
         name: sum(c[name] for c in runtime_train_rec["launches"].values())
         for name in ("flash_attention", "flash_attention_bwd")}
@@ -3020,7 +3556,8 @@ def main() -> int:
             or batch_rec["actor_decode_launches"] == 0 \
             or pipe_rec["pipeline_launches"] == 0 \
             or 0 in tune_launches.values() \
-            or 0 in tp_launches.values():
+            or 0 in tp_launches.values() \
+            or ops_rec["ops_launches"] == 0:
         raise AssertionError("a kernel of the main path never launched")
 
     def line(kernel, rec, launches, replaces):
@@ -3047,6 +3584,7 @@ def main() -> int:
          "replica_launches": http_rec["replica_decode_launches"],
          "batch_launches": batch_rec["actor_decode_launches"],
          "pipeline_launches": pipe_rec["pipeline_launches"],
+         "ops_launches": ops_rec["ops_launches"],
          **per_rank("decode_attention", tp_rec["kernels"]["decode"])},
         {**line(kernels.FLASH_ATTENTION, flash_rec,
                 forward_rec["flash_launches"] + train_rec["flash_launches"],

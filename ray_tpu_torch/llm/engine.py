@@ -43,9 +43,11 @@ reference's; the mechanisms are PyTorch's:
   tokens from the same `(seed, request_id, index)` keys and the
   device-resident mirrors stay equal. Replicas over dp follow the same
   plans.
-
-Not ported yet: the tracing spans and the decode-step/tokens-per-second
-telemetry.
+- **Tracing** (RT_TRACING): as the reference's, each request captures its
+  trace context at submit, and the scheduler records `engine.prefill`,
+  `engine.dispatch_chunk` and `engine.host_sync` spans against the oldest
+  traced request in flight; each traced host sync is also observed in
+  `DECODE_STEP_SECONDS`. Off, it issues no other device work.
 """
 
 from __future__ import annotations
@@ -56,12 +58,14 @@ import itertools
 import logging
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import tracing as _tracing
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch._private.rtconfig import CONFIG
 from ray_tpu_torch.exceptions import GetTimeoutError
@@ -103,6 +107,10 @@ class GenStream:
         self._exc: Optional[Exception] = None  # deferred: tokens first
         self.finish_reason: Optional[str] = None
         self.closed = False
+        # Trace context captured at submit: the scheduler thread parents
+        # its spans (prefill, chunk dispatch, host-sync readback) to the
+        # submitting request's trace.
+        self.trace: Optional[tuple] = None
 
     def close(self):
         """Consumer abandoned the request (client disconnect): the engine
@@ -517,6 +525,8 @@ class ContinuousEngine:
                 f"prompt ({len(prompt)}) + max_tokens ({sampling.max_tokens}) "
                 f"exceeds max_seq ({self.cfg.max_seq})")
         stream = GenStream(next(self._req_counter), len(prompt))
+        if _tracing.enabled():
+            stream.trace = _tracing.current()
         # The _running check and the enqueue must be ONE atomic step
         # against shutdown()'s flag flip, or a stream could be queued after
         # the scheduler's final drain and never see _DONE.
@@ -594,8 +604,12 @@ class ContinuousEngine:
         start the first token's host copy, without waiting on the device:
         returns (first_token_copy, cache_slice, key, first_token_dev).
         Touches no scheduler state, so it runs on the lane thread."""
+        t_adm = time.time()
         cache_slice, key, first = self._prefill(prompt, sampling,
                                                 stream.request_id)
+        _tracing.record_span_in(
+            stream.trace, "engine.prefill", "engine", t_adm, time.time(),
+            {"prompt_len": len(prompt)})
         return _HostCopy(first[None]), cache_slice, key, first
 
     def _prefill(self, prompt, sampling, request_id: int):
@@ -913,10 +927,20 @@ class ContinuousEngine:
                 greedy = all(
                     self._slots[i].sampling.temperature <= 0.0
                     for i in active)
+                # Bind the chunk's span to the oldest active traced
+                # request: with one request, every dispatch and host sync
+                # lands in its timeline.
+                tctx = next((self._slots[i].stream.trace for i in active
+                             if self._slots[i].stream.trace is not None),
+                            None)
                 try:
+                    t_disp = time.time()
                     self._plan(("chunk", n, greedy))
                     toks_out = self._decode_chunk(n, greedy)
                     copy = _HostCopy(toks_out)
+                    _tracing.record_span_in(
+                        tctx, "engine.dispatch_chunk", "engine", t_disp,
+                        time.time(), {"tokens": n, "active": len(active)})
                     # Mirror lengths on host (every slot steps n times —
                     # deterministic, no read needed).
                     self._lengths = self._lengths + n
@@ -936,6 +960,25 @@ class ContinuousEngine:
                 q = self._q_chunks[:1]
                 del self._q_chunks[:1]
                 firsts, self._pending_firsts = self._pending_firsts, []
+                # The host-sync readback, once per chunk: span it against
+                # the oldest traced request in the drained set, and observe
+                # the decode-step histogram.
+                sync_ctx = None
+                if _tracing.enabled():
+                    sync_ctx = next(
+                        (self._slots[i].stream.trace
+                         for _c, p_active, _n, _tag in q for i in p_active
+                         if self._slots[i] is not None
+                         and self._slots[i].stream.trace is not None),
+                        None)
+                    if sync_ctx is None:
+                        sync_ctx = next(
+                            (self._slots[s].stream.trace
+                             for s, _c in firsts
+                             if self._slots[s] is not None
+                             and self._slots[s].stream.trace is not None),
+                            None)
+                t_sync = time.time()
                 try:
                     first_vals = [(slot, int(c.numpy()[0]))
                                   for slot, c in firsts]
@@ -952,6 +995,17 @@ class ContinuousEngine:
                                 self._slots[i].stream._q.put(e)
                                 self._retire(i)
                     first_vals, chunk_vals = [], []
+                else:
+                    if sync_ctx is not None:
+                        t_end = time.time()
+                        _tracing.record_span_in(
+                            sync_ctx, "engine.host_sync", "engine", t_sync,
+                            t_end, {"chunks": len(q),
+                                    "cols": int(bool(firsts)) + sum(
+                                        pn for _v, _a, pn in chunk_vals)})
+                        from ray_tpu_torch.util import metrics as _metrics
+
+                        _metrics.DECODE_STEP_SECONDS.observe(t_end - t_sync)
                 for slot, tok in first_vals:
                     if self._slots[slot] is not None:  # else retired
                         self._deliver(slot, [tok])

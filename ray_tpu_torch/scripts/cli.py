@@ -1,0 +1,976 @@
+"""`ray-tpu-torch` command line: start/stop/status for multi-machine
+clusters.
+
+Parity target: reference python/ray/scripts/scripts.py:706 (`ray start
+--head` / `--address`, `ray stop`, `ray status`). The head runs as a
+detached process (controller + local node agent); joining nodes spawn a
+detached NodeAgent pointed at the head. State lives under --session-dir
+(default /tmp/ray_tpu_torch_<uid>, so this CLI and the JAX package's
+never share a head.json).
+
+Counterpart: ray_tpu/scripts/cli.py (copied; `start --num-gpus` in place
+of `--num-tpus`, `profile --mode torch` in place of `jax`, `top` shows
+the torch allocator's GPU memory and no compile seconds, `lint` checks
+`ray_tpu_torch` and `tools` by default). Run it as
+`python -m ray_tpu_torch.scripts.cli` or `ray-tpu-torch`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+
+def _default_session_dir() -> str:
+    return os.path.join("/tmp", f"ray_tpu_torch_{os.getuid()}")
+
+
+class _Client:
+    """One loop + one registered connection, reused across CLI calls (the
+    join path polls the controller; per-call thread/socket churn would fire
+    the controller's client-reap machinery hundreds of times)."""
+
+    def __init__(self, address: str):
+        from ray_tpu_torch._private import rpc
+
+        self._rpc = rpc
+        self.host, port = address.rsplit(":", 1)
+        self.port = int(port)
+        self.loop = rpc.EventLoopThread(name="ray-tpu-cli")
+        self._conn = None
+
+    def call(self, method: str, timeout: float = 10.0, **kw):
+        async def _go():
+            if self._conn is None or self._conn.closed:
+                self._conn = await self._rpc.connect(
+                    self.host, self.port, timeout=timeout)
+                await self._conn.call("register", kind="client",
+                                      worker_id="ray-tpu-cli", address=None)
+            return await self._conn.call(method, **kw)
+
+        return self.loop.run(_go(), timeout=timeout + 5)
+
+    def close(self):
+        if self._conn is not None:
+            conn, self._conn = self._conn, None
+
+            async def _bye():
+                await conn.close()
+
+            try:
+                self.loop.run(_bye(), timeout=5)
+            except Exception:
+                pass
+        self.loop.stop()
+
+
+def _rpc_call(address: str, method: str, timeout: float = 10.0, **kw):
+    c = _Client(address)
+    try:
+        return c.call(method, timeout=timeout, **kw)
+    finally:
+        c.close()
+
+
+def _wait_for(pred, timeout: float, what: str, proc=None, log_file=None):
+    """Poll pred; fail FAST (with the child's log tail) if proc died."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(
+                f"{what}: process exited with code {proc.returncode}"
+                + _log_tail(log_file))
+        try:
+            out = pred()
+            if out:
+                return out
+        except Exception:
+            pass
+        time.sleep(0.2)
+    raise TimeoutError(f"timed out waiting for {what}" + _log_tail(log_file))
+
+
+def _log_tail(log_file) -> str:
+    if not log_file or not os.path.exists(log_file):
+        return ""
+    try:
+        with open(log_file) as f:
+            tail = f.read()[-2000:]
+        return f"\n--- {log_file} ---\n{tail}" if tail.strip() else ""
+    except OSError:
+        return ""
+
+
+def _spawn_logged(cmd, session_dir: str, name: str):
+    log_path = os.path.join(session_dir, f"{name}.log")
+    log = open(log_path, "ab")
+    proc = subprocess.Popen(cmd, start_new_session=True,
+                            stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc, log_path
+
+
+def cmd_start(args) -> int:
+    os.makedirs(args.session_dir, exist_ok=True)
+    if args.head:
+        head_file = os.path.join(args.session_dir, "head.json")
+        if os.path.exists(head_file):
+            old = json.load(open(head_file))
+            if _is_ours(old.get("pid", -1)):
+                print(f"head already running (pid {old['pid']}); "
+                      f"run `ray-tpu-torch stop` first", file=sys.stderr)
+                return 1
+            os.unlink(head_file)  # stale file from a crashed head
+        cmd = [sys.executable, "-m", "ray_tpu_torch.scripts.head_main",
+               "--host", args.host, "--port", str(args.port),
+               "--session-dir", args.session_dir,
+               "--resources", args.resources]
+        if args.num_cpus is not None:
+            cmd += ["--num-cpus", str(args.num_cpus)]
+        if args.num_gpus is not None:
+            cmd += ["--num-gpus", str(args.num_gpus)]
+        proc, log_path = _spawn_logged(cmd, args.session_dir, "head")
+        info = _wait_for(lambda: (json.load(open(head_file))
+                                  if os.path.exists(head_file) else None),
+                         30, "head startup", proc=proc, log_file=log_path)
+        _wait_for(lambda: _rpc_call(info["address"], "cluster_info"),
+                  30, "controller", proc=proc, log_file=log_path)
+        print(f"ray-tpu-torch head started at {info['address']} "
+              f"(pid {proc.pid})")
+        print(f"join other machines with: ray-tpu-torch start --address "
+              f"{info['address']}")
+        return 0
+
+    if not args.address:
+        print("pass --head or --address host:port", file=sys.stderr)
+        return 1
+    info = _rpc_call(args.address, "cluster_info")
+    from ray_tpu_torch._private.ids import NodeID
+    from ray_tpu_torch._private.accelerators import host_resources
+    from ray_tpu_torch._private.resources import ResourceSet
+
+    res = host_resources(args.num_cpus, args.num_gpus)
+    res.update(json.loads(args.resources))
+    node_id = NodeID.from_random().hex()
+    cmd = [sys.executable, "-m", "ray_tpu_torch._private.node_agent",
+           "--controller", args.address,
+           "--node-id", node_id,
+           "--session", info["session"],
+           "--resources", json.dumps(ResourceSet(res).raw()),
+           "--labels", "{}"]
+    proc, log_path = _spawn_logged(cmd, args.session_dir,
+                                   f"node-{node_id[:8]}")
+    nodes_file = os.path.join(args.session_dir, "nodes.json")
+    nodes = []
+    if os.path.exists(nodes_file):
+        nodes = json.load(open(nodes_file))
+    nodes.append({"node_id": node_id, "pid": proc.pid})
+    with open(nodes_file, "w") as f:
+        json.dump(nodes, f)
+
+    client = _Client(args.address)
+    try:
+        def _alive():
+            snap = client.call("state_snapshot")
+            ent = snap["nodes"].get(node_id)
+            return ent is not None and ent["alive"]
+
+        _wait_for(_alive, 60, "node registration", proc=proc,
+                  log_file=log_path)
+    finally:
+        client.close()
+    print(f"node {node_id[:8]} joined {args.address} (pid {proc.pid})")
+    return 0
+
+
+def cmd_stop(args) -> int:
+    stopped = 0
+    nodes_file = os.path.join(args.session_dir, "nodes.json")
+    if os.path.exists(nodes_file):
+        for ent in json.load(open(nodes_file)):
+            stopped += _kill(ent["pid"])
+        os.unlink(nodes_file)
+    head_file = os.path.join(args.session_dir, "head.json")
+    if os.path.exists(head_file):
+        stopped += _kill(json.load(open(head_file))["pid"])
+        os.unlink(head_file)
+    print(f"stopped {stopped} process(es)")
+    return 0
+
+
+def _is_ours(pid: int) -> bool:
+    """Never kill a recycled PID: the process must actually be a
+    ray-tpu-torch head/agent (reference `ray stop` matches cmdlines the
+    same way)."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            cmdline = f.read().replace(b"\x00", b" ")
+    except OSError:
+        return False
+    return (b"ray_tpu_torch.scripts.head_main" in cmdline
+            or b"ray_tpu_torch._private.node_agent" in cmdline)
+
+
+def _kill(pid: int) -> int:
+    if not _is_ours(pid):
+        return 0
+    try:
+        os.kill(pid, signal.SIGTERM)
+    except ProcessLookupError:
+        return 0
+    for _ in range(50):
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return 1
+        time.sleep(0.1)
+    try:
+        os.kill(pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    return 1
+
+
+def cmd_status(args) -> int:
+    address = args.address
+    if not address:
+        head_file = os.path.join(args.session_dir, "head.json")
+        if not os.path.exists(head_file):
+            print("no head recorded; pass --address", file=sys.stderr)
+            return 1
+        address = json.load(open(head_file))["address"]
+    snap = _rpc_call(address, "state_snapshot")
+    info = _rpc_call(address, "cluster_info")
+    print(f"cluster {address} (session {info['session'][:8]})")
+    for nid, n in snap["nodes"].items():
+        state = n.get("liveness") or ("ALIVE" if n["alive"] else "DEAD")
+        print(f"  node {nid[:8]} {state} total={n['total']} available={n['available']}")
+    actors = snap.get("actors", {})
+    alive_actors = sum(1 for a in actors.values() if a.get("state") != "DEAD")
+    print(f"  actors: {alive_actors}  pending tasks: {snap.get('pending_tasks', 0)}")
+    return 0
+
+
+def _resolve_address(args) -> str:
+    if getattr(args, "address", None):
+        return args.address
+    env = os.environ.get("RT_ADDRESS")
+    if env:
+        return env
+    head_file = os.path.join(args.session_dir, "head.json")
+    if os.path.exists(head_file):
+        return json.load(open(head_file))["address"]
+    raise SystemExit("no head recorded; pass --address or set RT_ADDRESS")
+
+
+def cmd_job(args) -> int:
+    """`ray-tpu-torch job submit|status|logs|stop|list` (reference
+    `ray job ...`, dashboard/modules/job/cli.py)."""
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+
+    client = JobSubmissionClient(_resolve_address(args))
+    try:
+        if args.job_cmd == "submit":
+            import shlex
+
+            ep = args.entrypoint
+            if ep and ep[0] == "--":
+                ep = ep[1:]
+            # Re-quote: the entrypoint runs under `sh -c` on the job node.
+            sid = client.submit_job(entrypoint=shlex.join(ep),
+                                    submission_id=args.submission_id)
+            print(f"submitted: {sid}")
+            if args.no_wait:
+                return 0
+            for chunk in client.tail_job_logs(sid):
+                print(chunk, end="")
+            status = client.get_job_status(sid)
+            print(f"job {sid}: {status}")
+            return 0 if status == JobStatus.SUCCEEDED else 1
+        if args.job_cmd == "status":
+            print(client.get_job_status(args.submission_id))
+            return 0
+        if args.job_cmd == "logs":
+            print(client.get_job_logs(args.submission_id), end="")
+            return 0
+        if args.job_cmd == "stop":
+            stopped = client.stop_job(args.submission_id)
+            print("stopped" if stopped else "not running")
+            return 0
+        if args.job_cmd == "list":
+            for j in client.list_jobs():
+                print(f"{j['submission_id']}  {j['status']:<9}  {j['entrypoint']}")
+            return 0
+        raise SystemExit(f"unknown job command {args.job_cmd}")
+    finally:
+        client.close()
+
+
+def cmd_checkpoints(args) -> int:
+    """`ray-tpu-torch checkpoints` — checkpoint observability (README
+    "Checkpointing & storage"). With --path, scans a storage URI directly
+    (committed + in-flight partial rows, no cluster needed); otherwise
+    lists the cluster-wide registry every engine commit registers in the
+    controller KV."""
+    rows: list[dict]
+    if args.path:
+        from ray_tpu_torch.train import checkpoint as ckpt_mod
+
+        rows = ckpt_mod.list_checkpoints(args.path)
+    else:
+        address = _resolve_address(args)
+        keys = _rpc_call(address, "kv_keys", ns="_checkpoints",
+                         prefix="")["keys"]
+        rows = []
+        for key in sorted(keys):
+            val = _rpc_call(address, "kv_get", ns="_checkpoints",
+                            key=key)["value"]
+            if val is None:
+                continue
+            try:
+                rows.append(json.loads(val))
+            except ValueError:
+                pass
+        rows.sort(key=lambda r: r.get("created") or 0)
+    if not rows:
+        print("no checkpoints")
+        return 0
+    print(f"{'STEP':>6}  {'KIND':<9} {'BYTES':>12}  {'STATE':<9} URI")
+    for r in rows:
+        committed = r.get("committed", True)
+        state = "committed" if committed else "partial"
+        if r.get("pins"):
+            state += f"+{len(r['pins'])}pin"
+        step = r.get("step")
+        print(f"{step if step is not None else '-':>6}  "
+              f"{(r.get('kind') or '-'):<9} "
+              f"{(r.get('bytes') if r.get('bytes') is not None else '-'):>12}  "
+              f"{state:<9} {r.get('uri') or r.get('name')}")
+    return 0
+
+
+def cmd_stalls(args) -> int:
+    """`ray-tpu-torch stalls` — stall-detection observability (README "Stall
+    detection & watchdogs"). Lists the StallReports the controller has
+    aggregated: every warn/dump/kill escalation from worker watchdogs,
+    every agent backstop (progress beacons stopped), and every train
+    group-stall kill. Use --verbose for the flight-recorder tail and the
+    storage path of the persisted flight dump."""
+    rows = _rpc_call(_resolve_address(args), "list_stalls",
+                     limit=args.limit)["stalls"]
+    if not rows:
+        print("no stalls recorded (escalation ladder idle — arm it with "
+              "RT_STALL_WARN_S / RT_STALL_DUMP_S / RT_STALL_KILL_S)")
+        return 0
+    print(f"{'STAGE':<6} {'SCOPE':<12} {'TASK':<24} {'SILENT':>8}  "
+          f"{'NODE':<10} {'PID':>7}  REASON")
+    for r in rows:
+        name = (r.get("name") or r.get("task_id") or "-")
+        print(f"{(r.get('stage') or '-'):<6} "
+              f"{(r.get('scope') or '-'):<12} "
+              f"{str(name)[:24]:<24} "
+              f"{(r.get('silence_s') if r.get('silence_s') is not None else '-'):>8}  "
+              f"{str(r.get('node_id') or '-')[:10]:<10} "
+              f"{(r.get('pid') or '-'):>7}  "
+              f"{(r.get('reason') or '')[:60]}")
+        if r.get("trace_id"):
+            print(f"       trace: {r['trace_id']}  "
+                  f"(ray-tpu-torch timeline --trace {r['trace_id'][:12]})")
+        if args.verbose:
+            if r.get("flight_path"):
+                print(f"       flight dump: {r['flight_path']}")
+            for ev in r.get("events") or []:
+                print(f"       {ev}")
+    return 0
+
+
+def _print_event_rows(rows: list, verbose: bool) -> None:
+    for r in rows:
+        ent = ",".join(str(e)[:12] for e in (r.get("entity") or [])) or "-"
+        ts = time.strftime("%H:%M:%S", time.localtime(r.get("ts") or 0))
+        print(f"{r.get('seq', '-'):>7} {ts} "
+              f"{(r.get('sev') or '-'):<8} "
+              f"{(r.get('kind') or '-'):<20} "
+              f"{str(r.get('node') or '-')[:10]:<10} "
+              f"{ent:<26} "
+              f"{(r.get('msg') or '')[:70]}")
+        if r.get("trace_id"):
+            print(f"        trace: {r['trace_id']}  "
+                  f"(ray-tpu-torch timeline --trace "
+                  f"{str(r['trace_id'])[:12]})")
+        if verbose and r.get("attrs"):
+            print(f"        {r['attrs']}")
+
+
+def cmd_events(args) -> int:
+    """`ray-tpu-torch events` — the cluster event plane (README "Cluster
+    events"): durable lifecycle history. Lists events newest-last; filter
+    with --entity (prefix-matches actor/worker/task/lease/node/job ids),
+    --kind, --severity; --follow polls for new seqs (the controller reply's
+    next_seq cursor). Stall events print their trace link so
+    `ray-tpu-torch events` -> `ray-tpu-torch timeline --trace` chains."""
+    kw: dict = {"limit": args.limit}
+    if args.entity:
+        kw["entity"] = args.entity
+    if args.kind:
+        kw["kind"] = args.kind
+    if args.severity:
+        kw["severity"] = args.severity
+    header = (f"{'SEQ':>7} {'TIME':<8} {'SEV':<8} {'KIND':<20} "
+              f"{'NODE':<10} {'ENTITY':<26} MESSAGE")
+    if not args.follow:
+        rep = _rpc_call(_resolve_address(args), "list_events", **kw)
+        rows = rep["events"]
+        if not rows:
+            print("no events recorded (plane disabled? arm with "
+                  "RT_EVENTS_BUFFER > 0 — the default)")
+            return 0
+        print(header)
+        _print_event_rows(rows, args.verbose)
+        if rep.get("truncated"):
+            print(f"(truncated to the newest {args.limit}; raise --limit)")
+        return 0
+    client = _Client(_resolve_address(args))
+    since = None
+    try:
+        print(header)
+        while True:
+            rep = client.call("list_events",
+                              **({**kw, "since": since} if since is not None
+                                 else kw))
+            _print_event_rows(rep["events"], args.verbose)
+            if rep.get("truncated"):
+                # Never a silently short answer: a burst bigger than
+                # --limit between polls drops its oldest rows — say so.
+                print(f"(burst exceeded --limit {args.limit}; oldest "
+                      f"rows of this poll were dropped)")
+            # next_seq is the next seq the controller will MINT; the last
+            # seen seq is one below it (since= is exclusive).
+            nxt = rep.get("next_seq")
+            if nxt is not None:
+                since = nxt - 1
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        client.close()
+
+
+def _fmt_bytes(n) -> str:
+    if n is None:
+        return "-"
+    n = float(n)
+    for unit in ("B", "K", "M", "G", "T"):
+        if n < 1024 or unit == "T":
+            return f"{n:.0f}{unit}" if unit != "B" else f"{int(n)}B"
+        n /= 1024
+    return "-"
+
+
+def _top_lines(rep: dict) -> list[str]:
+    """Render one `ray-tpu-torch top` frame from a cluster_utilization
+    reply: one row per node (per-worker device series aggregated up), DEAD
+    nodes marked rather than freezing their last values. GPU MEM is the
+    torch caching allocator's allocated bytes (current/peak) summed over
+    the node's workers; COMPILE_S is always "-": eager torch reports no
+    compile series."""
+    lines = [f"{'NODE':<10} {'STATE':<8} {'CPU%':>6} {'MEM%':>6} "
+             f"{'RSS':>8} {'GPU MEM USED/PEAK':>18} {'COMPILE_S':>10} "
+             f"{'TOK/S':>8} {'PP%':>5} {'DATA IF/SPILL':>14} "
+             f"{'TASKS':>6}  WORKERS"]
+    nodes = rep.get("nodes") or {}
+    for nid in sorted(nodes):
+        n = nodes[nid]
+        dead = not n.get("alive")
+        state = (n.get("liveness") or ("ALIVE" if not dead else "DEAD"))
+        nd = n.get("node") or {}
+        workers = n.get("workers") or {}
+        # distinguish "no worker reports GPU memory" from a genuine 0
+        # in-use (freed tensors must still show their peak)
+        have_hbm = any("hbm_used" in w for w in workers.values())
+        hbm_used = sum(w.get("hbm_used", 0)
+                       for w in workers.values()) if have_hbm else None
+        hbm_peak = sum(w.get("hbm_peak", 0)
+                       for w in workers.values()) if have_hbm else None
+        # Live decode throughput (README "Serving hot loop"): summed over
+        # the node's engine-hosting workers; "-" when none serve.
+        have_tok = any("llm.tokens_per_s" in w for w in workers.values())
+        tok_s = sum(w.get("llm.tokens_per_s", 0.0)
+                    for w in workers.values()) if have_tok else None
+        # Pipeline-stage occupancy (README "Pipeline-parallel serving"):
+        # the node's WORST stage busy fraction — the bubble shows as a low
+        # PP% on the stage everyone else waits for; "-" when no stage here.
+        pp_vals = [w["llm.pp_occupancy"] for w in workers.values()
+                   if "llm.pp_occupancy" in w]
+        pp_occ = min(pp_vals) if pp_vals else None
+        # Data-plane exchange pressure (README "Data plane"): blocks in
+        # flight + spilled bytes summed over the node's exchange-driving
+        # workers; "-" when no exchange ran here.
+        have_data = any("data.blocks_inflight" in w
+                        for w in workers.values())
+        data_if = sum(w.get("data.blocks_inflight", 0)
+                      for w in workers.values()) if have_data else None
+        data_spill = sum(w.get("data.spilled_bytes", 0)
+                         for w in workers.values()) if have_data else None
+        if dead:
+            # A not-alive node's stale values must not render as live
+            # readings; keep the real liveness (SUSPECT nodes are frozen
+            # pending rejoin, not lost).
+            lines.append(f"{nid[:8]:<10} {state or 'DEAD':<8} {'-':>6} "
+                         f"{'-':>6} {'-':>8} {'-':>18} {'-':>10} {'-':>8} "
+                         f"{'-':>5} {'-':>14} {'-':>6}")
+            continue
+        hbm = (f"{_fmt_bytes(hbm_used)}/{_fmt_bytes(hbm_peak)}"
+               if hbm_used is not None else "-")
+        cpu = nd.get("cpu")
+        mem = nd.get("mem")
+        lines.append(
+            f"{nid[:8]:<10} {state:<8} "
+            f"{cpu if cpu is not None else '-':>6} "
+            f"{mem if mem is not None else '-':>6} "
+            f"{_fmt_bytes(nd.get('rss')):>8} {hbm:>18} "
+            f"{'-':>10} "
+            f"{(f'{tok_s:.0f}' if tok_s is not None else '-'):>8} "
+            f"{(f'{pp_occ * 100:.0f}' if pp_occ is not None else '-'):>5} "
+            f"{(f'{data_if}/{_fmt_bytes(data_spill)}' if data_if is not None else '-'):>14} "
+            f"{int(nd.get('tasks_running', 0)):>6}  {len(workers)}")
+    ctrl = rep.get("controller") or {}
+    tables = ctrl.get("tables") or {}
+    lag = ctrl.get("loop_lag_s")
+    lines.append(
+        f"controller: loop_lag={lag if lag is not None else '-'}s  "
+        f"objects={tables.get('objects', 0)} actors={tables.get('actors', 0)} "
+        f"leases={tables.get('leases', 0)} "
+        f"parked={tables.get('parked_grants', 0)} "
+        f"rpcs={ctrl.get('rpc_total', 0)}")
+    # Ingress fleet + push-stream transport (README "Cross-host streaming
+    # & multi-proxy"): one row when any proxy has reported metrics.
+    serve = rep.get("serve") or {}
+    proxies = serve.get("proxies") or {}
+    if proxies:
+        frag = "  ".join(
+            f"{pid}: req={row.get('requests', 0)} "
+            f"sse={row.get('streams', 0)} active={row.get('active', 0)}"
+            for pid, row in sorted(proxies.items()))
+        stream = serve.get("stream") or {}
+        lines.append(
+            f"serve: {frag}  push-stream: "
+            f"recs={stream.get('records', 0)} "
+            f"bytes={_fmt_bytes(stream.get('bytes', 0))} "
+            f"parks={stream.get('parks', 0)}")
+    if not rep.get("telemetry_armed"):
+        lines.append("(telemetry idle — start the cluster with "
+                     "RT_TELEMETRY_INTERVAL_S=1 for live samples)")
+    return lines
+
+
+def cmd_top(args) -> int:
+    """`ray-tpu-torch top` — live cluster utilization (README "Telemetry &
+    profiling"): one redraw-in-place row per node with cpu/mem/rss/GPU
+    memory/tasks columns fed by the telemetry plane
+    (RT_TELEMETRY_INTERVAL_S), plus the controller's self-stats line.
+    Curses-free: plain ANSI cursor-up redraw; --once prints one frame."""
+    client = _Client(_resolve_address(args))
+    prev_lines = 0
+    try:
+        while True:
+            try:
+                rep = client.call("cluster_utilization")
+            except Exception as e:
+                # A transient controller blip (restart, timeout under
+                # load) must not crash a long-running monitor — _Client
+                # reconnects on the next call.
+                if args.once:
+                    raise
+                lines = [f"controller unreachable "
+                         f"({type(e).__name__}: {e}) — retrying"]
+            else:
+                lines = _top_lines(rep)
+            if prev_lines:
+                # redraw in place: cursor up + clear to end of screen
+                sys.stdout.write(f"\x1b[{prev_lines}F\x1b[J")
+            print("\n".join(lines), flush=True)
+            if args.once:
+                return 0
+            prev_lines = len(lines)
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        client.close()
+
+
+def cmd_profile(args) -> int:
+    """`ray-tpu-torch profile --worker ID` — on-demand capture of a live
+    worker (README "Telemetry & profiling"). cpu: in-process sampling
+    profiler over the worker's threads, rendered as collapsed stacks +
+    Chrome-trace flame events; torch: a torch.profiler window (host ops,
+    and the CUDA kernels where the worker has initialised CUDA) whose
+    Chrome trace is zipped from the worker as trace.json.
+    Captures persist through the storage plane under <session>/profiles/
+    and are listed by `/api/profiles` / `util.state.list_profiles()`."""
+    address = _resolve_address(args)
+    rep = _rpc_call(address, "profile_worker", timeout=args.seconds + 60,
+                    worker_id=args.worker, seconds=args.seconds,
+                    mode=args.mode)
+    if not rep.get("found"):
+        print(f"profile failed: {rep.get('error')}", file=sys.stderr)
+        return 1
+    meta = rep["profile"]
+    print(f"profiled worker {meta.get('worker_id', '')[:12]} "
+          f"({meta['mode']}, {meta.get('seconds')}s, "
+          f"{meta.get('samples', meta.get('files', 0))} samples)")
+    print(f"  persisted: {meta['path']}")
+    if meta.get("archive_path"):
+        print(f"  trace archive: {meta['archive_path']}")
+    if args.output and args.mode != "cpu":
+        print(f"-o applies to cpu mode only (torch captures persist as "
+              f"the trace archive above, its trace.json a Chrome trace); "
+              f"{args.output} not written",
+              file=sys.stderr)
+    if args.mode == "cpu":
+        doc = _rpc_call(address, "get_profile", name=meta["name"],
+                        timeout=60)
+        if not doc.get("found"):
+            # The capture DID persist (path above); only the readback
+            # failed — say so instead of writing an empty trace as
+            # success.
+            print(f"profile persisted but fetch failed: "
+                  f"{doc.get('error')}", file=sys.stderr)
+            return 1
+        collapsed = doc.get("collapsed") or {}
+        if args.output:
+            with open(args.output, "w") as f:
+                json.dump({"traceEvents": doc.get("traceEvents") or [],
+                           "displayTimeUnit": "ms"}, f)
+            print(f"  wrote Chrome-trace JSON to {args.output} — open in "
+                  f"https://ui.perfetto.dev")
+        top = sorted(collapsed.items(), key=lambda kv: -kv[1])[:5]
+        if top:
+            print("  hottest stacks:")
+            for stack, count in top:
+                leaf = stack.rsplit(";", 1)[-1]
+                print(f"    {count:>5}  {leaf}")
+    return 0
+
+
+def _chrome_trace_events(spans: list) -> list[dict]:
+    """Convert controller span dicts to Chrome-trace/Perfetto events:
+    complete "X" events laned by (worker process, thread), plus "M"
+    process-name metadata. Returned unsorted; the caller sorts by ts (the
+    catapult importer wants monotonic timestamps)."""
+    events: list[dict] = []
+    pids: dict[str, int] = {}
+    for sp in spans:
+        w = str(sp.get("w") or "?")
+        pid = pids.get(w)
+        if pid is None:
+            pid = pids[w] = len(pids) + 1
+            events.append({"ph": "M", "name": "process_name", "pid": pid,
+                           "args": {"name": f"worker {w} "
+                                            f"(os pid {sp.get('pid', '?')})"}})
+        start = float(sp.get("a") or 0.0)
+        end = float(sp.get("b") or start)
+        args = {"trace_id": sp.get("t"), "span_id": sp.get("s"),
+                "parent": sp.get("p")}
+        args.update(sp.get("at") or {})
+        events.append({
+            "ph": "X",
+            "name": str(sp.get("n") or "?"),
+            "cat": str(sp.get("k") or "span"),
+            "pid": pid,
+            "tid": int(sp.get("tid") or 0),
+            "ts": start * 1e6,
+            "dur": max(1.0, (end - start) * 1e6),
+            "args": args,
+        })
+    return events
+
+
+def cmd_timeline(args) -> int:
+    """`ray-tpu-torch timeline` — export traced request/task timelines
+    (README "Tracing & timeline") as Chrome-trace-event JSON that loads
+    directly in Perfetto (ui.perfetto.dev) or chrome://tracing. Selects one
+    trace (--trace ID, unique prefixes ok) or the N most recent (--last,
+    default all indexed); requires the cluster to run with RT_TRACING=1."""
+    address = _resolve_address(args)
+    if args.trace:
+        ids = [args.trace]
+    else:
+        rows = _rpc_call(address, "list_traces", limit=100_000)["traces"]
+        rows.sort(key=lambda r: r.get("start") or 0)
+        if args.last is not None:
+            rows = rows[-args.last:]
+        ids = [r["trace_id"] for r in rows]
+    if not ids:
+        print("no traces indexed (is the cluster running with RT_TRACING=1 "
+              "and has a sampled request completed?)", file=sys.stderr)
+        return 1
+    events: list[dict] = []
+    missing = 0
+    for tid in ids:
+        rep = _rpc_call(address, "get_trace", trace_id=tid)
+        if not rep.get("found"):
+            missing += 1
+            continue
+        events.extend(_chrome_trace_events(rep["spans"]))
+    if missing:
+        print(f"warning: {missing} trace(s) not found (evicted and not "
+              f"persisted?)", file=sys.stderr)
+    if not events:
+        print("no spans found for the selected trace(s)", file=sys.stderr)
+        return 1
+    events.sort(key=lambda e: e.get("ts", 0.0))
+    doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(doc, f)
+        nspans = sum(1 for e in events if e["ph"] == "X")
+        print(f"wrote {nspans} span(s) from {len(ids) - missing} trace(s) "
+              f"to {args.output} — open in https://ui.perfetto.dev")
+    else:
+        print(json.dumps(doc))
+    return 0
+
+
+#: `lint`'s roots when none are given (rtcheck's own default names the
+#: JAX package's).
+LINT_ROOTS = ("ray_tpu_torch", "tools")
+
+
+def cmd_lint(args) -> int:
+    """`ray-tpu-torch lint` — the rtcheck static analysis suite (README
+    "Static analysis & invariants"): five AST passes encoding the runtime's
+    invariants (async-blocking, wire-schema, knob-registry,
+    lock-discipline, exception-taxonomy). Exit 0 = no non-baselined
+    findings."""
+    try:
+        from tools.rtcheck import core as rtcheck_core
+    except ImportError:
+        # Installed entry point outside the repo (or a foreign top-level
+        # `tools` package shadowing ours): resolve tools/ relative to the
+        # ray_tpu_torch package's checkout and retry with the stale module
+        # purged — sys.modules would otherwise pin the foreign package.
+        import ray_tpu_torch
+
+        repo = os.path.dirname(os.path.dirname(
+            os.path.abspath(ray_tpu_torch.__file__)))
+        if not os.path.isdir(os.path.join(repo, "tools", "rtcheck")):
+            print("ray-tpu-torch lint needs the tools/rtcheck checkout "
+                  "(run from the repo)", file=sys.stderr)
+            return 2
+        for mod in [m for m in sys.modules
+                    if m == "tools" or m.startswith("tools.")]:
+            del sys.modules[mod]
+        sys.path.insert(0, repo)
+        try:
+            from tools.rtcheck import core as rtcheck_core
+        except ImportError as e:
+            print(f"ray-tpu-torch lint could not import tools/rtcheck from "
+                  f"{repo}: {e}", file=sys.stderr)
+            return 2
+    argv = list(args.paths) or list(LINT_ROOTS)
+    if args.json:
+        argv.append("--json")
+    if args.no_cache:
+        argv.append("--no-cache")
+    return rtcheck_core.main(argv)
+
+
+def cmd_dashboard(args) -> int:
+    from ray_tpu_torch.dashboard import Dashboard
+
+    d = Dashboard(_resolve_address(args), host=args.host, port=args.port)
+    port = d.start()
+    print(f"dashboard at http://{args.host}:{port}")
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        d.stop()
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="ray-tpu-torch")
+    p.add_argument("--session-dir", default=_default_session_dir())
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    ps = sub.add_parser("start", help="start a head or join a cluster")
+    ps.add_argument("--head", action="store_true")
+    ps.add_argument("--address", default=None, help="head host:port to join")
+    ps.add_argument("--host", default="127.0.0.1")
+    ps.add_argument("--port", type=int, default=6380)
+    ps.add_argument("--num-cpus", type=float, default=None)
+    ps.add_argument("--num-gpus", type=float, default=None)
+    ps.add_argument("--resources", default="{}")
+    ps.set_defaults(fn=cmd_start)
+
+    pq = sub.add_parser("stop", help="stop processes started on this machine")
+    pq.set_defaults(fn=cmd_stop)
+
+    pt = sub.add_parser("status", help="print cluster state")
+    pt.add_argument("--address", default=None)
+    pt.set_defaults(fn=cmd_status)
+
+    pj = sub.add_parser("job", help="submit and manage jobs")
+    pj.add_argument("--address", default=None)
+    jsub = pj.add_subparsers(dest="job_cmd", required=True)
+    js = jsub.add_parser("submit")
+    js.add_argument("--submission-id", default=None)
+    js.add_argument("--no-wait", action="store_true")
+    js.add_argument("entrypoint", nargs=argparse.REMAINDER,
+                    help="shell command, e.g. -- python train.py")
+    for name in ("status", "logs", "stop"):
+        jp = jsub.add_parser(name)
+        jp.add_argument("submission_id")
+    jsub.add_parser("list")
+    pj.set_defaults(fn=cmd_job)
+
+    pc = sub.add_parser("checkpoints",
+                        help="list checkpoints (cluster registry or a "
+                             "storage URI)")
+    pc.add_argument("--address", default=None)
+    pc.add_argument("--path", default=None,
+                    help="storage URI to scan directly (local://, sim://, "
+                         "a bare path)")
+    pc.set_defaults(fn=cmd_checkpoints)
+
+    pl = sub.add_parser(
+        "stalls",
+        help="list stall escalations (warn/dump/kill StallReports)",
+        description="List the StallReports the controller has aggregated: "
+                    "worker-watchdog escalations (a task past RT_STALL_WARN_S"
+                    "/RT_STALL_DUMP_S/RT_STALL_KILL_S of progress silence), "
+                    "node-agent backstops (progress beacons stopped), and "
+                    "train group-stall kills. dump/kill rows carry live "
+                    "thread stacks and the storage URI of the persisted "
+                    "flight dump.")
+    pl.add_argument("--address", default=None)
+    pl.add_argument("--limit", type=int, default=1000)
+    pl.add_argument("--verbose", action="store_true",
+                    help="show flight-recorder tails and dump paths")
+    pl.set_defaults(fn=cmd_stalls)
+
+    pe = sub.add_parser(
+        "events",
+        help="list cluster lifecycle events (the durable event plane)",
+        description="List the cluster event plane's lifecycle history: "
+                    "node register/SUSPECT/dead, worker start/exit with "
+                    "normalized cause, actor create/restart/death, lease "
+                    "failover + dedup replay, device-object producer loss, "
+                    "checkpoint commit/GC, train group restarts, serve "
+                    "deploy/scale/replica death, job start/stop, and every "
+                    "stall-escalation stage (with its trace link). Events "
+                    "persist under <session>/events/ as segmented JSONL "
+                    "and survive controller restarts.")
+    pe.add_argument("--address", default=None)
+    pe.add_argument("--entity", default=None,
+                    help="filter: prefix-match any entity id (actor/worker/"
+                         "task/lease/node/job)")
+    pe.add_argument("--kind", default=None,
+                    help="filter: one event kind (see the README kind table)")
+    pe.add_argument("--severity", default=None,
+                    choices=("debug", "info", "warning", "error"))
+    pe.add_argument("--limit", type=int, default=1000)
+    pe.add_argument("--follow", action="store_true",
+                    help="poll for new events (seq cursor) until ^C")
+    pe.add_argument("--interval", type=float, default=1.0,
+                    help="--follow poll period seconds (default 1)")
+    pe.add_argument("--verbose", action="store_true",
+                    help="also print each event's attrs dict")
+    pe.set_defaults(fn=cmd_events)
+
+    pm = sub.add_parser(
+        "timeline",
+        help="export traced timelines as Perfetto/Chrome-trace JSON",
+        description="Export the distributed-tracing plane's causal spans "
+                    "(submit -> dispatch -> execute -> RPC/collective/"
+                    "storage ops -> engine decode iterations) as Chrome-"
+                    "trace-event JSON. Load the output in "
+                    "https://ui.perfetto.dev or chrome://tracing. Requires "
+                    "a cluster running with RT_TRACING=1; sample with "
+                    "RT_TRACE_SAMPLE.")
+    pm.add_argument("--address", default=None)
+    pm.add_argument("--trace", default=None,
+                    help="one trace id (unique prefixes accepted)")
+    pm.add_argument("--last", type=int, default=None,
+                    help="export only the N most recent traces")
+    pm.add_argument("-o", "--output", default=None,
+                    help="write JSON here (default: stdout)")
+    pm.set_defaults(fn=cmd_timeline)
+
+    pn = sub.add_parser(
+        "lint",
+        help="run the rtcheck static analysis suite",
+        description="Run tools/rtcheck: the five invariant passes "
+                    "(async-blocking, wire-schema, knob-registry, "
+                    "lock-discipline, exception-taxonomy) over "
+                    "ray_tpu_torch/ + tools/. Suppress deliberate findings "
+                    "inline with "
+                    "`# rtcheck: disable=<pass>`; grandfathered findings "
+                    "live in tools/rtcheck/baseline.json.")
+    pn.add_argument("paths", nargs="*", default=[],
+                    help="roots to analyze (default: ray_tpu_torch tools)")
+    pn.add_argument("--json", action="store_true",
+                    help="machine-readable findings for tooling")
+    pn.add_argument("--no-cache", action="store_true")
+    pn.set_defaults(fn=cmd_lint)
+
+    po = sub.add_parser(
+        "top",
+        help="live per-node utilization (cpu/mem/rss/gpu memory/tasks)",
+        description="Redraw-in-place cluster utilization from the "
+                    "telemetry plane: per-node CPU/mem/RSS, the workers' "
+                    "GPU memory (the torch allocator's allocated bytes, "
+                    "current/peak), and running-task counts, plus the "
+                    "controller's self-stats (event-loop lag, table "
+                    "sizes); COMPILE_S stays '-' (no compile series in "
+                    "eager torch). Arm sampling with "
+                    "RT_TELEMETRY_INTERVAL_S on the cluster.")
+    po.add_argument("--address", default=None)
+    po.add_argument("--interval", type=float, default=2.0,
+                    help="refresh period seconds (default 2)")
+    po.add_argument("--once", action="store_true",
+                    help="print one frame and exit (no escape codes)")
+    po.set_defaults(fn=cmd_top)
+
+    pp = sub.add_parser(
+        "profile",
+        help="capture an on-demand profile of a live worker",
+        description="Ask the worker's node agent for a live capture: "
+                    "--mode cpu samples every thread's stack at "
+                    "RT_PROFILE_HZ for the window (collapsed stacks + "
+                    "Chrome-trace flame events); --mode torch records a "
+                    "torch.profiler window (host ops, and the CUDA "
+                    "kernels where the worker has initialised CUDA), "
+                    "zipped as trace.json. Captures persist through "
+                    "the storage plane under <session>/profiles/ and are "
+                    "listed by /api/profiles and "
+                    "util.state.list_profiles().")
+    pp.add_argument("--address", default=None)
+    pp.add_argument("--worker", required=True,
+                    help="worker id (unique prefixes accepted)")
+    pp.add_argument("--seconds", type=float, default=5.0)
+    pp.add_argument("--mode", choices=("cpu", "torch"), default="cpu")
+    pp.add_argument("-o", "--output", default=None,
+                    help="also write the cpu flame Chrome-trace JSON here")
+    pp.set_defaults(fn=cmd_profile)
+
+    pd = sub.add_parser("dashboard", help="serve the HTTP dashboard")
+    pd.add_argument("--address", default=None)
+    pd.add_argument("--host", default="127.0.0.1")
+    pd.add_argument("--port", type=int, default=8265)
+    pd.set_defaults(fn=cmd_dashboard)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

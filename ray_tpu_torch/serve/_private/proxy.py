@@ -7,7 +7,8 @@ replica actor's own asyncio loop (async actor), so request handling and
 response awaits interleave without threads-per-request.
 
 Counterpart: ray_tpu/serve/_private/proxy.py (copied; its ring sweep
-looks for the port's ring names).
+looks for the port's ring names, and a streamed request's set-up is one
+span of its trace, `serve.stream_assign`).
 """
 
 from __future__ import annotations
@@ -704,6 +705,10 @@ class Proxy:
         reply path byte-identically."""
         from aiohttp import web
 
+        # The stream's set-up up to the replica's call (ring, push-stream
+        # hub, router assign) as one span of the request: it is most of a
+        # short request's time outside the replica.
+        assign_span = _tracing.open_root("serve.stream_assign", "serve")
         ring = None
         ring_spec = None
         reader = None
@@ -784,6 +789,8 @@ class Proxy:
                         router.deployment, meta.get("replica_id"), e)
             logger.error("serve proxy stream assign error: %r", e)
             return web.Response(status=500, text=repr(e))
+        finally:
+            _tracing.close_root(assign_span)
         resp = web.StreamResponse(headers={
             "Content-Type": "text/event-stream",
             "Cache-Control": "no-cache",

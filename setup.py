@@ -9,5 +9,7 @@ setup(
     package_data={"ray_tpu_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh",
                                     "_native/ring.cc"]},
     python_requires=">=3.10",
-    entry_points={"console_scripts": ["ray-tpu=ray_tpu.scripts.cli:main"]},
+    entry_points={"console_scripts": [
+        "ray-tpu=ray_tpu.scripts.cli:main",
+        "ray-tpu-torch=ray_tpu_torch.scripts.cli:main"]},
 )

@@ -275,3 +275,184 @@ def test_openai_stream_and_chat(server):
     assert chat["object"] == "chat.completion"
     assert chat["choices"][0]["message"]["role"] == "assistant"
     assert len(chat["token_ids"]) == 6  # default_max_tokens
+
+
+# ---- tracing: the reference's engine spans and decode-step histogram
+TRACE_CTX = ("a" * 32, "b" * 16)
+
+
+def _traced(monkeypatch, tracing, metrics):
+    """Turn one package's tracing on in this process, capture the spans it
+    records and count its decode-step observations."""
+    spans, observed = [], []
+
+    def record(trace_id, span_id, parent, name, kind, start, end,
+               attrs=None):
+        spans.append({"t": trace_id, "p": parent, "n": name, "k": kind,
+                      "a": start, "b": end, "at": attrs or {}})
+
+    monkeypatch.setattr(tracing, "_ON", True)
+    monkeypatch.setattr(tracing, "record_span", record)
+    monkeypatch.setattr(metrics.DECODE_STEP_SECONDS, "observe",
+                        lambda value, tags=None: observed.append(value))
+    return spans, observed
+
+
+def _traced_request(eng, tracing, sampling):
+    token = tracing._ctx.set(TRACE_CTX)
+    try:
+        stream = eng.submit(list(range(1, 13)), sampling)
+    finally:
+        tracing._ctx.reset(token)
+    return stream.tokens()
+
+
+def test_engine_spans_and_decode_histogram_match_jax_engine(monkeypatch):
+    """One traced greedy request of 24 tokens at decode_chunk 4, prefill
+    lane off, through both engines: the same set of engine.* span names,
+    all under the submitting request's context, and each engine observes
+    DECODE_STEP_SECONDS once per traced host_sync span, whose count stays
+    within the reference test's ceil(24/4) + 7."""
+    from ray_tpu._private import tracing as jax_tracing
+    from ray_tpu.util import metrics as jax_metrics
+    from ray_tpu_torch._private import tracing as port_tracing
+    from ray_tpu_torch.util import metrics as port_metrics
+
+    monkeypatch.setenv("RT_LLM_PREFILL_LANE", "0")
+    jax_spans, jax_obs = _traced(monkeypatch, jax_tracing, jax_metrics)
+    port_spans, port_obs = _traced(monkeypatch, port_tracing, port_metrics)
+    jeng = JaxEngine(JaxLLMConfig(**SHAPE), max_batch=4, decode_chunk=4)
+    try:
+        jtoks = _traced_request(jeng, jax_tracing, JaxSampling(
+            temperature=0.0, max_tokens=24))
+    finally:
+        jeng.shutdown()
+    peng = ContinuousEngine(CFG, max_batch=4, decode_chunk=4, device="cpu")
+    try:
+        assert peng._prefill_lane is False
+        ptoks = _traced_request(peng, port_tracing, SamplingParams(
+            temperature=0.0, max_tokens=24))
+    finally:
+        peng.shutdown()
+    assert len(jtoks) == len(ptoks) == 24
+    names = {s["n"] for s in port_spans}
+    assert names == {s["n"] for s in jax_spans} == {
+        "engine.prefill", "engine.dispatch_chunk", "engine.host_sync"}
+    bound = -(-24 // 4) + 7
+    for spans, observed in ((jax_spans, jax_obs), (port_spans, port_obs)):
+        assert all((s["t"], s["p"]) == TRACE_CTX and s["k"] == "engine"
+                   and s["b"] >= s["a"] for s in spans)
+        syncs = [s for s in spans if s["n"] == "engine.host_sync"]
+        assert 2 <= len(syncs) <= bound
+        assert len(observed) == len(syncs)
+    prefill = [s for s in port_spans if s["n"] == "engine.prefill"]
+    assert [s["at"] for s in prefill] == [{"prompt_len": 12}]
+    chunks = [s["at"] for s in port_spans if s["n"] == "engine.dispatch_chunk"]
+    assert sum(c["tokens"] for c in chunks) == 23  # the first is prefill's
+    assert all(c["active"] == 1 for c in chunks)
+    syncs = [s["at"] for s in port_spans if s["n"] == "engine.host_sync"]
+    assert sum(s["cols"] for s in syncs) == 24
+
+
+def test_engine_records_no_span_with_tracing_off(engine, monkeypatch):
+    from ray_tpu_torch._private import tracing as port_tracing
+    from ray_tpu_torch.util import metrics as port_metrics
+
+    spans, observed = _traced(monkeypatch, port_tracing, port_metrics)
+    monkeypatch.setattr(port_tracing, "_ON", False)
+    assert len(_traced_request(engine, port_tracing, SamplingParams(
+        temperature=0.0, max_tokens=8))) == 8
+    assert spans == [] and observed == []
+
+
+def _covered(root, spans) -> float:
+    """Seconds of the root span's window covered by the union of the other
+    spans, each clipped to it."""
+    ivs = sorted((max(s["a"], root["a"]), min(s["b"], root["b"]))
+                 for s in spans if s is not root and s["b"] > s["a"])
+    covered, cur = 0.0, None
+    for a, b in ivs:
+        if b <= a:
+            continue
+        if cur is None:
+            cur = [a, b]
+        elif a <= cur[1]:
+            cur[1] = max(cur[1], b)
+        else:
+            covered += cur[1] - cur[0]
+            cur = [a, b]
+    if cur is not None:
+        covered += cur[1] - cur[0]
+    return covered
+
+
+def test_serve_streaming_trace_accounts_request_wall_time(monkeypatch):
+    """Copy of tests/test_tracing.py's serve criterion on the port: a
+    traced streaming request over HTTP to a CPU replica; the spans cover
+    at least 90% of the request's wall, with the engine's prefill, chunk
+    dispatch and per-chunk host-sync spans in its trace and the host
+    syncs within ceil(24/4) + 7."""
+    import json
+    import socket
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.openai import build_openai_app
+    from ray_tpu_torch.util import state
+
+    monkeypatch.setenv("RT_TRACING", "1")
+    rt.init(num_cpus=4)
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        serve.run(build_openai_app(CFG, model_id="traced-llm", max_batch=4,
+                                   decode_chunk=4, default_max_tokens=24,
+                                   device="cpu"),
+                  route_prefix="/", port=port)
+        body = json.dumps({"prompt": "hello tracer", "max_tokens": 24,
+                           "temperature": 0.0, "stream": True}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/completions", data=body,
+            headers={"Content-Type": "application/json"})
+        ntok = 0
+        with urllib.request.urlopen(req, timeout=180) as r:
+            for line in r:
+                line = line.decode().strip()
+                if line.startswith("data: ") and line != "data: [DONE]":
+                    ntok += len(json.loads(line[6:]).get("token_ids", []))
+        assert ntok >= 24
+
+        def request_trace():
+            for row in state.list_traces(limit=1000):
+                if not row["complete"] or not str(
+                        row.get("name") or "").startswith("http POST"):
+                    continue
+                spans = state.get_trace(row["trace_id"])["spans"]
+                if (any(s["n"] == "engine.host_sync" for s in spans)
+                        and any(s["k"] == "execute" for s in spans)
+                        and any(s["p"] is None for s in spans)):
+                    return spans
+            return None
+
+        deadline = time.monotonic() + 40
+        spans = request_trace()
+        while spans is None and time.monotonic() < deadline:
+            time.sleep(0.2)
+            spans = request_trace()
+        assert spans is not None, "no request trace with engine spans"
+        root = next(s for s in spans if s["p"] is None)
+        wall = root["b"] - root["a"]
+        assert wall > 0
+        covered = _covered(root, spans)
+        assert covered >= 0.9 * wall, (
+            f"spans cover only {covered / wall:.1%} of the request's "
+            f"{wall * 1e3:.0f}ms wall time")
+        syncs = [s for s in spans if s["n"] == "engine.host_sync"]
+        assert 2 <= len(syncs) <= -(-24 // 4) + 4 + 3, syncs
+        assert any(s["n"] == "engine.dispatch_chunk" for s in spans)
+        assert any(s["n"] == "engine.prefill" for s in spans)
+    finally:
+        serve.shutdown()
+        rt.shutdown()

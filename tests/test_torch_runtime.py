@@ -333,12 +333,33 @@ _FORMAT_NAMES = {"ray_tpu.train.checkpoint"}
 
 
 def _bad_strings(tree) -> set:
-    """String literals naming a module of the JAX package ("ray_tpu.x"):
-    a sys.modules key or a `-m` target that would silently point there."""
-    return {node.value for node in ast.walk(tree)
-            if isinstance(node, ast.Constant) and isinstance(node.value, str)
-            and node.value.startswith("ray_tpu.")
-            and node.value not in _FORMAT_NAMES}
+    """String or bytes literals naming a module of the JAX package
+    ("ray_tpu.x"): a sys.modules key, a `-m` target, or a command-line
+    match (the CLI's `_is_ours` reads /proc cmdlines as bytes) that would
+    silently point there."""
+    found = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Constant):
+            continue
+        value = node.value
+        if isinstance(value, bytes):
+            value = value.decode(errors="replace")
+        elif not isinstance(value, str):
+            continue
+        if value.startswith("ray_tpu.") and value not in _FORMAT_NAMES:
+            found.add(node.value)
+    return found
+
+
+@pytest.mark.parametrize("snippet,bad", [
+    ('m = "ray_tpu.scripts.head_main"', {"ray_tpu.scripts.head_main"}),
+    ('ok = b"ray_tpu._private.node_agent" in cmdline',
+     {b"ray_tpu._private.node_agent"}),
+    ('ok = b"ray_tpu_torch._private.node_agent" in cmdline', set()),
+    ('fmt = "ray_tpu.train.checkpoint"', set()),
+], ids=["str", "bytes", "port_bytes", "format_name"])
+def test_module_string_check_catches_str_and_bytes(snippet, bad):
+    assert _bad_strings(ast.parse(snippet)) == bad
 
 
 @pytest.mark.parametrize("check", [_bad_imports, _bad_strings],
@@ -352,7 +373,13 @@ def test_port_names_nothing_of_the_jax_package(check):
             "workflow/__init__.py", "llm/pipeline.py", "tune/__init__.py",
             "tune/_runner.py", "tune/_session.py", "tune/schedulers.py",
             "tune/search.py", "tune/trial.py", "tune/tuner.py",
-            "air/__init__.py", "air/session.py", "util/state.py"} <= names
+            "air/__init__.py", "air/session.py", "util/state.py",
+            "cluster_utils.py", "scripts/__init__.py", "scripts/cli.py",
+            "scripts/head_main.py", "job_submission/__init__.py",
+            "autoscaler/__init__.py", "dashboard/__init__.py"} <= names
+    assert {f"util/{m}.py" for m in (
+        "chaos", "client", "multiprocessing", "pubsub",
+        "scheduling_strategies")} <= names
     assert {f"rllib/{m}.py" for m in (
         "__init__", "algorithm", "dqn", "env", "env_runner", "impala",
         "learner", "multi_agent", "replay", "rl_module")} <= names
