@@ -24,7 +24,14 @@ from the root of a checkout. Phases, each of which raises on failure
    dO and logsumexp, and its library yardstick is the backward alone of
    `scaled_dot_product_attention` (`torch.autograd.grad` of its output).
    The card's SM clock, power draw and temperature are sampled with
-   nvidia-smi while the phase runs.
+   nvidia-smi while the phase runs. The same at the reference's own head
+   widths, D = 16 and 32 (`_narrow_cases`): decode at the serving heads
+   and GQA in bf16 and a small f32 case, and the flash forward and
+   backward at B4 S1024 H16 D32, entry()'s B2 S128 H8 D32, the dryrun's
+   f32 B8 S32 H8 D16, GQA Sq512 < Sk1024 D16 and ragged Sq=Sk=1000 D32.
+   A bound is the largest of bytes, operations and exponentials (one per
+   visible score at 16 per clock per SM on 132 SMs, at nvidia-smi's
+   maximum SM clock); at D = 16 and 32 the exponentials set it.
 3. Golden parity: the tiny float32 model of tests/data/torch_port_golden.npz
    (weights, logits, greedy tokens and one step's loss and gradients of the
    JAX package) through the kernels, TF32 off: logits within 1e-4, greedy
@@ -139,9 +146,11 @@ from the root of a checkout. Phases, each of which raises on failure
    layers times its decode steps; (d) ring and Ulysses attention
    over sp=2 at B4 S1024 H16 D64 bf16, causal, gathered and held against
    the flash kernel's full-sequence output at the bf16 tolerance. Then
-   (e) `parallel.dryrun.dryrun_multichip(4, device="cuda")`: 4 ranks, the
+   (e) `parallel.dryrun.dryrun_ranks(4, device="cuda")`: 4 ranks, the
    dp.sp2.tp2, fsdp2.tp2 and ep2 MoE training steps, GPipe over pp=2 and
-   tp=4 generation, each against its unsharded twin; and (f) each kernel
+   tp=4 generation at the reference's widths (heads of 16), each against
+   its unsharded twin, every kernel launched at D = 16 on the ranks; and
+   (f) each kernel
    at its per-rank shape against its plain version (decode B8 Hq8 KV8,
    flash forward and backward B4 S1024 H8, which is also Ulysses' per-rank
    head slice).
@@ -190,6 +199,18 @@ from the root of a checkout. Phases, each of which raises on failure
    runs there (RT_NODE_ID) on the card, and the idle node is reaped
    within 60 s. Each part's seconds are logged; the phase must take
    at most 120 s.
+15. The reference's widths, run right after phase 3 (under 60 s): (a)
+   tests/data/torch_port_golden_heads.npz, the dryrun's training model
+   (8 heads of 16) and entry()'s (8 heads of 32), f32, TF32 off: logits
+   within 1e-4, the engines' greedy tokens equal to the JAX package's,
+   and the training model's loss within 1e-5 and its kept gradient
+   entries within 1e-4 * max(1, |ref|); (b) entry()'s model as
+   __graft_entry__.py defines it (vocab 2048, d_model 256, 2 layers, 8
+   heads, d_ff 688), bf16, seeded tokens [2, 128]: its forward through
+   the flash kernel at D = 32 and one backward through the backward
+   kernel against the plain attention path on the card, as relative
+   norms within TRAIN_GRAD_REL_TOL; (c) each kernel's launches by head
+   dim on (a) and (b): every kernel at D = 16 and at D = 32.
 
 Launch counts: the decode kernel's from phase 4, the flash forward's from
 phases 5 and 6, the flash backward's from phase 6, each path's counts set
@@ -206,6 +227,10 @@ per-rank shape (`per_rank_shape`) and `tp_launches`, the decode launches
 of (b) and the flash launches of (c), summed over the ranks. The decode
 row also carries `ops_launches`, phase 14's: the job's actor (b), the
 traced stream's actor (c) and the autoscaled node's task (e), summed.
+Each row also carries `narrow_heads`: phase 2's D = 16 and 32 cases of
+its kernel, its launches by head dim on phase 15's paths (`launches`)
+and in phase 12 (e)'s dryrun, summed over the ranks
+(`dryrun_launches`).
 
 It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`, one JSON line {"kernels": [...]}, and last
@@ -232,6 +257,12 @@ import numpy as np
 # is max(bytes / HBM rate, flops / peak rate of its type).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# The exponentials of a softmax run on the SMs' special function units, 16
+# per clock per SM on the H100's 132 SMs (at the SM clock nvidia-smi
+# reports as its maximum): at head dims 16 and 32 they, not the products,
+# bound the flash kernels.
+EXP_PER_CLOCK_PER_SM = 16
+SMS = 132
 # Tolerances of a kernel against its plain version on the same inputs.
 # Both keep softmax state in f32 and differ in summation order; a bf16
 # output may then round to the neighbouring bf16 value (one ulp: 1/128 of
@@ -377,6 +408,32 @@ def _smi_sampler(period_ms: int = 200):
             summary[name] = [col[0], statistics.median(col), col[-1]]
 
 
+_SM_CLOCK_HZ: list = []
+
+
+def _max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi (read once)."""
+    if not _SM_CLOCK_HZ:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout
+        _SM_CLOCK_HZ.append(float(out.splitlines()[0]) * 1e6)
+    return _SM_CLOCK_HZ[0]
+
+
+def _bound(nbytes: float, flops: float, exps: float, dtype: str) -> tuple:
+    """(bound ms, what bounds it): the largest of the bytes over the HBM
+    rate, the flops over the peak rate of their type and the exponentials
+    over the special function units' rate."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": flops / PEAK_FLOPS[dtype],
+             "exponentials": exps / (EXP_PER_CLOCK_PER_SM * SMS
+                                     * _max_sm_clock_hz())}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
 def _max_err(out, ref, dtype_name: str) -> float:
     """Max abs error; raises when it passes the stated tolerance."""
     import torch
@@ -425,15 +482,14 @@ def _decode_case(name, b, hq, kv, d, s, dtype, lengths, flush, gen):
     ms, library_ms, backend = _timed_in_turns(
         lambda: decode_attention_cuda(q, k, v, lens), lambda: lib,
         MASKED_SDPA, flush)
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
+    bound_ms, bound_by = _bound(nbytes, flops, rows * hq, dtype)
     rec = {
-        "case": name, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
+        "case": name, "d": d, "max_abs_err": err, "tol": TOL[dtype],
+        "ms": ms,
         "plain_ms": _timed_ms(
             lambda: _reference_decode_attention(q, k, v, lens), flush),
         "library_ms": library_ms, "library_backend": backend,
-        "bound_ms": bound_ms,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / PEAK_FLOPS[dtype] else "operations"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "gb_per_s": nbytes / ms / 1e6, "share_of_bound": bound_ms / ms,
     }
     log("decode " + json.dumps(rec))
@@ -462,18 +518,17 @@ def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     ms, library_ms, backend = _timed_in_turns(
         lambda: flash_attention_cuda(q, k, v, causal), lambda: sdpa,
         backends, flush)
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
+    bound_ms, bound_by = _bound(nbytes, flops, b * hq * pairs, dtype)
     rec = {
-        "case": name, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
+        "case": name, "d": d, "max_abs_err": err, "tol": TOL[dtype],
+        "ms": ms,
         "ms_with_lse": _timed_ms(
             lambda: flash_attention_cuda(q, k, v, causal, with_lse=True),
             flush),
         "plain_ms": _timed_ms(
             lambda: _reference_flash_attention(q, k, v, causal), flush),
         "library_ms": library_ms, "library_backend": backend,
-        "bound_ms": bound_ms,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / PEAK_FLOPS[dtype] else "operations"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "tflop_per_s": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
     }
     log("flash " + json.dumps(rec))
@@ -556,15 +611,14 @@ def _flash_bwd_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     nbytes = (4 * b * sq * hq * d + 4 * b * sk * hkv * d) * elem \
         + 4 * b * hq * sq
     flops = 10 * b * hq * d * pairs
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
+    bound_ms, bound_by = _bound(nbytes, flops, b * hq * pairs, dtype)
     rec = {
-        "case": name, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
+        "case": name, "d": d, "max_abs_err": err, "tol": TOL[dtype],
+        "ms": ms,
         "plain_ms": _timed_ms(plain, flush),
         "library_ms": library_ms, "library_backend": backend,
         "library_call": "torch.autograd.grad of SDPA's output",
-        "bound_ms": bound_ms,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / PEAK_FLOPS[dtype] else "operations"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         "tflop_per_s": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
     }
@@ -622,8 +676,38 @@ def _kernel_cases():
                     "float32", True, flush, gen)
     _flash_bwd_case("backward Sq1024 > Sk512 h8 d64 bf16 causal", 1, 1024,
                     512, 8, 8, 64, "bfloat16", True, flush, gen)
+    narrow = _narrow_cases(ragged, flush, gen)
     del flush
-    return decode_main, flash_main, bwd_main
+    return decode_main, flash_main, bwd_main, narrow
+
+
+def _narrow_cases(ragged, flush, gen) -> dict:
+    """Phase 2 at the reference's own head widths, D = 16 and 32: each
+    kernel's records by name."""
+    decode = [
+        _decode_case("serving heads B8 Hq16 KV16 D32 S1024 bf16", 8, 16, 16,
+                     32, 1024, "bfloat16", ragged, flush, gen),
+        _decode_case("GQA B8 Hq16 KV4 D16 S1024 bf16", 8, 16, 4, 16, 1024,
+                     "bfloat16", ragged, flush, gen),
+        _decode_case("f32 B2 Hq4 KV4 D16 S64", 2, 4, 4, 16, 64, "float32",
+                     [64, 17], flush, gen)]
+    shapes = [  # name, b, sq, sk, hq, hkv, d, dtype
+        ("B4 S1024 H16 D32 bf16 causal", 4, 1024, 1024, 16, 16, 32,
+         "bfloat16"),
+        ("entry() B2 S128 H8 D32 bf16 causal", 2, 128, 128, 8, 8, 32,
+         "bfloat16"),
+        ("dryrun training f32 B8 S32 H8 D16 causal", 8, 32, 32, 8, 8, 16,
+         "float32"),
+        ("GQA Hq8 Hkv2 Sq512 < Sk1024 D16 bf16 causal", 2, 512, 1024, 8, 2,
+         16, "bfloat16"),
+        ("ragged Sq=Sk=1000 H8 D32 bf16 causal", 2, 1000, 1000, 8, 8, 32,
+         "bfloat16")]
+    flash = [_flash_case(f"forward {n}", *a, True, flush, gen)
+             for n, *a in shapes]
+    bwd = [_flash_bwd_case(f"backward {n}", *a, True, flush, gen)
+           for n, *a in shapes]
+    return {"decode_attention": decode, "flash_attention": flash,
+            "flash_attention_bwd": bwd}
 
 
 # ------------------------------------------------------------- phase 3
@@ -706,6 +790,267 @@ def phase_golden() -> None:
         f"gradient err {worst} at {worst_name} (tol 1e-4 * max(1, |ref|))")
     if not (loss_err <= 1e-5 and worst <= 1e-4):
         raise AssertionError("golden loss or gradients differ from JAX's")
+
+
+# ------------------------------------------------ the reference's widths
+GOLDEN_HEADS = os.path.join(REPO, "tests", "data",
+                            "torch_port_golden_heads.npz")
+#: The JAX package's own configurations at its own head widths, as
+#: LLMConfig derives a model from them (d_ff = int(8/3 d_model) // 8 * 8):
+#: the dryrun's training model (__graft_entry__.py:90-93, d_model 128 in 8
+#: heads, so D = 16; its TransformerConfig has d_ff 344, this 336) and
+#: entry()'s model (__graft_entry__.py:21, d_model 256 in 8 heads, so
+#: D = 32; d_ff 688 there, 680 here). Attention, the part these check, is
+#: the same in both forms.
+HEADS_MODELS = {
+    "train": dict(vocab_size=512, d_model=128, n_layers=2, n_heads=8,
+                  max_seq=64),
+    "entry": dict(vocab_size=2048, d_model=256, n_layers=2, n_heads=8,
+                  max_seq=256),
+}
+HEADS_SEED = 21
+HEADS_PROMPTS = ([5, 17, 250, 3, 99], [1, 2, 3, 4, 5, 6, 7, 8, 9])
+HEADS_MAX_TOKENS = 12
+#: Gradient entries the file keeps per parameter tensor (all of a smaller
+#: tensor), at indices drawn from the seed: the whole gradient of the
+#: training model would be 1.8 MB. The CPU test holds every entry of the
+#: port's gradient to the JAX package's, recomputed.
+HEADS_GRAD_SAMPLES = 1024
+
+
+def heads_params(name: str) -> dict:
+    """Flax param tree (numpy f32) of HEADS_MODELS[name], drawn with numpy
+    from HEADS_SEED (the layout of tests/test_torch_golden.py's)."""
+    cfg = HEADS_MODELS[name]
+    rng = np.random.RandomState(HEADS_SEED + sorted(HEADS_MODELS).index(name))
+    d, h = cfg["d_model"], cfg["n_heads"]
+    hd, ff = d // h, int(d * 8 / 3) // 8 * 8
+
+    def normal(shape, fan_in):
+        return (rng.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    def norm():
+        return {"scale": (1.0 + 0.1 * rng.randn(d)).astype(np.float32)}
+
+    # the tied head's logits then have unit scale, so each greedy step
+    # has a clear top-1
+    tree = {"tok_emb": normal((cfg["vocab_size"], d), d)}
+    for i in range(cfg["n_layers"]):
+        tree[f"layer_{i}"] = {
+            "attn_norm": norm(),
+            "attn": {"wq": {"kernel": normal((d, h, hd), d)},
+                     "wk": {"kernel": normal((d, h, hd), d)},
+                     "wv": {"kernel": normal((d, h, hd), d)},
+                     "wo": {"kernel": normal((h, hd, d), d)}},
+            "mlp_norm": norm(),
+            "mlp": {"w_gate": {"kernel": normal((d, ff), d)},
+                    "w_up": {"kernel": normal((d, ff), d)},
+                    "w_down": {"kernel": normal((ff, d), ff)}},
+        }
+    tree["final_norm"] = norm()
+    return tree
+
+
+def heads_tokens(name: str) -> np.ndarray:
+    """Seeded tokens [2, 32] whose full-forward logits the file holds."""
+    return np.random.RandomState(HEADS_SEED + 10).randint(
+        0, HEADS_MODELS[name]["vocab_size"], size=(2, 32)).astype(np.int32)
+
+
+def heads_train_tokens() -> np.ndarray:
+    """The training model's batch: [2, max_seq + 1] seeded tokens."""
+    cfg = HEADS_MODELS["train"]
+    return np.random.RandomState(HEADS_SEED + 20).randint(
+        0, cfg["vocab_size"], size=(2, cfg["max_seq"] + 1)).astype(np.int32)
+
+
+def heads_flat(tree, prefix: str = "") -> dict:
+    """A flax tree as {"a/b/c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(heads_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def heads_grad_index(key: str, size: int) -> np.ndarray:
+    """The flat indices of one gradient tensor that the file keeps."""
+    if size <= HEADS_GRAD_SAMPLES:
+        return np.arange(size)
+    rng = np.random.RandomState(HEADS_SEED + sum(map(ord, key)))
+    return np.sort(rng.choice(size, HEADS_GRAD_SAMPLES, replace=False))
+
+
+def heads_port_outputs(device) -> dict:
+    """The port at the file's weights on `device` (float32; TF32 off on
+    the card): each model's full-forward logits and its ContinuousEngine's
+    greedy tokens, and the training model's loss and sampled gradients of
+    one step, keyed as in the file."""
+    import torch
+
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import (ContinuousEngine, SamplingParams,
+                                          model_config)
+    from ray_tpu_torch.models.convert import params_from_flax
+    from ray_tpu_torch.models.transformer import Transformer, loss_fn
+
+    out = {}
+    for name, cfg in HEADS_MODELS.items():
+        tree = heads_params(name)
+        lcfg = LLMConfig(**cfg, dtype="float32",
+                         params=params_from_flax(tree))
+        model = Transformer(model_config(lcfg), device=device)
+        model.load_state_dict(lcfg.params)
+        with torch.no_grad():
+            out[f"{name}/logits"] = model(torch.from_numpy(
+                heads_tokens(name)).long().to(device)).cpu().numpy()
+        eng = ContinuousEngine(lcfg, max_batch=2, decode_chunk=4,
+                               device=device)
+        try:
+            streams = [eng.submit(p, SamplingParams(
+                temperature=0.0, max_tokens=HEADS_MAX_TOKENS))
+                for p in HEADS_PROMPTS]
+            out[f"{name}/greedy"] = np.asarray([s.tokens() for s in streams],
+                                               np.int32)
+        finally:
+            eng.shutdown()
+        if name != "train":
+            continue
+        loss = loss_fn(model, torch.from_numpy(
+            heads_train_tokens()).long().to(device))
+        loss.backward()
+        out["train/loss"] = np.float32(loss.item())
+        grads = {n: p.grad.detach().cpu().numpy()
+                 for n, p in model.named_parameters()}
+        for key, leaf in heads_flat(tree).items():
+            g = grads[_port_name(key)]
+            assert g.shape == leaf.shape, (key, g.shape, leaf.shape)
+            g = g.reshape(-1)
+            out[f"train/grad/{key}"] = g[heads_grad_index(key, g.size)]
+    return out
+
+
+def _port_name(key: str) -> str:
+    """A flax key ("layer_0/attn/wq/kernel") as the port's parameter name
+    ("layers.0.attn.wq"); models/convert.py keeps every leaf's shape."""
+    return re.sub(r"^layer_(\d+)", r"layers.\1",
+                  key.removesuffix("/kernel")).replace("/", ".")
+
+
+def heads_check(g: dict, out: dict) -> dict:
+    """Hold the port's outputs to the file: logits within 1e-4, greedy
+    tokens equal, loss within 1e-5 and every kept gradient entry within
+    1e-4 * max(1, |ref|) (f32, other summation order). Returns the worst
+    errors; raises on a miss."""
+    rec = {}
+    for name in HEADS_MODELS:
+        rec[f"{name}_logit_err"] = float(np.abs(
+            out[f"{name}/logits"] - g[f"{name}/logits"]).max())
+        if not np.array_equal(out[f"{name}/greedy"], g[f"{name}/greedy"]):
+            raise AssertionError(
+                f"{name}: greedy tokens differ from the JAX package's:\n"
+                f"{out[f'{name}/greedy']}\n{g[f'{name}/greedy']}")
+        if not rec[f"{name}_logit_err"] <= 1e-4:
+            raise AssertionError(f"{name}: logits differ by "
+                                 f"{rec[f'{name}_logit_err']}")
+    rec["train_loss_err"] = abs(float(out["train/loss"])
+                                - float(g["train/loss"]))
+    worst = max(float((np.abs(out[k] - g[k])
+                       / np.maximum(1.0, np.abs(g[k]))).max())
+                for k in g if k.startswith("train/grad/"))
+    rec["train_grad_err"] = worst
+    if not (rec["train_loss_err"] <= 1e-5 and worst <= 1e-4):
+        raise AssertionError(f"training step differs from the JAX "
+                             f"package's: {rec}")
+    return rec
+
+
+#: Phase 15 (b): entry()'s model as __graft_entry__.py:21 defines it (d_model
+#: 256 in 8 heads, so D = 32, d_ff 688), in bf16, on seeded tokens [2, 128].
+ENTRY_MODEL = dict(vocab_size=2048, d_model=256, n_layers=2, n_heads=8,
+                   n_kv_heads=8, d_ff=688, max_seq=256)
+
+
+def phase_widths(device: str = "cuda") -> dict:
+    """Phase 15: the reference's own head widths on the card. (a) the
+    golden file at D = 16 and 32 (heads_port_outputs / heads_check, f32,
+    TF32 off); (b) entry()'s model in bf16: its forward through the flash
+    kernel at D = 32 and one backward through the backward kernel against
+    the plain attention path on the card, as relative norms within
+    TRAIN_GRAD_REL_TOL; (c) each kernel's launches by head dim on (a) and
+    (b), none of the six (kernel, D) pairs at 0. `device="cpu"` rehearses
+    it with the plain versions (where (b) and (c) find no launches)."""
+    import torch
+
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig, loss_fn)
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with np.load(GOLDEN_HEADS) as f:
+        g = {k: f[k] for k in f.files}
+    kernels.reset_launch_counts()
+    golden = heads_check(g, heads_port_outputs(device))
+    launches = kernels.launch_counts_by_head_dim()
+    rec = {"golden": golden, "golden_launches": launches}
+    log("widths golden " + json.dumps(rec))
+
+    cfg = TransformerConfig(**ENTRY_MODEL, dtype=torch.bfloat16)
+    model = Transformer(cfg, device=device, seed=0)
+    tokens = torch.from_numpy(np.random.RandomState(HEADS_SEED).randint(
+        0, cfg.vocab_size, (2, 128))).to(device)
+
+    def run(context):
+        model.zero_grad(set_to_none=True)
+        with context():
+            with torch.no_grad():
+                logits = model(tokens)
+            loss_fn(model, tokens).backward()
+        return logits, {n: p.grad.clone()
+                        for n, p in model.named_parameters()}
+
+    kernels.reset_launch_counts()
+    logits, grads = run(contextlib.nullcontext)
+    entry_launches = kernels.launch_counts_by_head_dim()
+    ref_logits, ref_grads = run(_plain_attention)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("entry() logits are not finite")
+    rel = {n: float((grads[n] - r).norm() / r.norm())
+           for n, r in ref_grads.items()}
+    worst = max(rel, key=rel.get)
+    rec["entry"] = {
+        "logits_rel_err_vs_plain": float((logits - ref_logits).norm()
+                                         / ref_logits.norm()),
+        "worst_grad_rel_err_vs_plain": [worst, rel[worst]],
+        "launches": entry_launches}
+    log("widths entry() " + json.dumps(rec["entry"]))
+    want = {"flash_attention": {32: 2 * cfg.n_layers},
+            "flash_attention_bwd": {32: cfg.n_layers}}
+    for name, by_d in want.items():
+        if entry_launches[name] != by_d:
+            raise AssertionError(f"entry(): {name} launched "
+                                 f"{entry_launches[name]}, want {by_d}")
+    if not (rec["entry"]["logits_rel_err_vs_plain"] <= TRAIN_GRAD_REL_TOL
+            and rel[worst] <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"entry() differs from the plain path: "
+                             f"{rec['entry']}")
+
+    for name, by_d in entry_launches.items():
+        for d, n in by_d.items():
+            launches[name][d] = launches[name].get(d, 0) + n
+    rec["launches"] = launches
+    missing = [(name, d) for name in launches for d in (16, 32)
+               if launches[name].get(d, 0) == 0]
+    if missing:
+        raise AssertionError(f"never launched on phase 15's paths: {missing}")
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"phase 15 (the reference's widths): {rec['phase_s']:.1f} s, "
+        f"launches by head dim {json.dumps(launches)}")
+    return rec
 
 
 # ------------------------------------------------------------- phase 4
@@ -2464,7 +2809,8 @@ def phase_tensor_parallel(lone) -> dict:
     kernels at their per-rank shapes against their plain versions."""
     import torch
 
-    from ray_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.parallel.dryrun import dryrun_ranks, run_ranks
 
     rng = np.random.RandomState(0)
 
@@ -2496,10 +2842,20 @@ def phase_tensor_parallel(lone) -> dict:
             raise AssertionError("Ulysses did not run the flash kernel once "
                                  "per call")
     t0 = time.perf_counter()
-    dryrun = dryrun_multichip(4, device="cuda")
-    rec["dryrun"] = {"labels": [label for label, _ in dryrun],
-                     "s": time.perf_counter() - t0}
+    dryrun = dryrun_ranks(4, device="cuda")
+    launches = {k.name: {} for k in kernels.KERNELS}
+    for r in dryrun:
+        for name, by_d in r["launches"].items():
+            for d, n in by_d.items():
+                launches[name][d] = launches[name].get(d, 0) + n
+    rec["dryrun"] = {"labels": [label for label, _ in dryrun[0]["runs"]],
+                     "s": time.perf_counter() - t0,
+                     "launches_by_head_dim": launches}
     log("dryrun on the card " + json.dumps(rec["dryrun"]))
+    # the reference's configurations: heads of 16 in training and generation
+    if any(by_d.get(16, 0) == 0 for by_d in launches.values()):
+        raise AssertionError(f"the dryrun did not launch every kernel at "
+                             f"head dim 16: {launches}")
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -3516,8 +3872,9 @@ def main() -> int:
             for line in _ptxas_summary(k.build_log.read_text()):
                 log(f"ptxas {k.name}: {line}")
 
-    decode_rec, flash_rec, bwd_rec = phase_kernels()
+    decode_rec, flash_rec, bwd_rec, narrow_recs = phase_kernels()
     phase_golden()
+    widths_rec = phase_widths()
 
     server = OpenAIServer(LLMConfig(**SERVE), max_batch=8, decode_chunk=16,
                           default_max_tokens=64, device="cuda")
@@ -3569,6 +3926,16 @@ def main() -> int:
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
+    def narrow_heads(name):
+        """Phase 2's D = 16 and 32 cases of the kernel, its launches by head
+        dim on phase 15's paths and in phase 12 (e)'s dryrun."""
+        return {"narrow_heads": {
+            "cases": [{k: r[k] for k in (
+                "case", "d", "max_abs_err", "ms", "bound_ms", "bound_by",
+                "plain_ms", "library_ms")} for r in narrow_recs[name]],
+            "launches": widths_rec["launches"][name],
+            "dryrun_launches": tp_rec["dryrun"]["launches_by_head_dim"][name]}}
+
     def per_rank(name, rec):
         """Phase 12: the kernel at its per-rank shape, and its launches in
         phase 12's ranks (summed over them)."""
@@ -3585,20 +3952,23 @@ def main() -> int:
          "batch_launches": batch_rec["actor_decode_launches"],
          "pipeline_launches": pipe_rec["pipeline_launches"],
          "ops_launches": ops_rec["ops_launches"],
-         **per_rank("decode_attention", tp_rec["kernels"]["decode"])},
+         **per_rank("decode_attention", tp_rec["kernels"]["decode"]),
+         **narrow_heads("decode_attention")},
         {**line(kernels.FLASH_ATTENTION, flash_rec,
                 forward_rec["flash_launches"] + train_rec["flash_launches"],
                 "ray_tpu/ops/flash_attention.py:74"),
          "trainer_launches": trainer_launches["flash_attention"],
          "tune_launches": tune_launches["flash_attention"],
-         **per_rank("flash_attention", tp_rec["kernels"]["flash"])},
+         **per_rank("flash_attention", tp_rec["kernels"]["flash"]),
+         **narrow_heads("flash_attention")},
         {**line(kernels.FLASH_ATTENTION_BWD, bwd_rec,
                 train_rec["flash_bwd_launches"],
                 "gradient of ray_tpu/ops/flash_attention.py:74 (no Pallas "
                 "counterpart)"),
          "trainer_launches": trainer_launches["flash_attention_bwd"],
          "tune_launches": tune_launches["flash_attention_bwd"],
-         **per_rank("flash_attention_bwd", tp_rec["kernels"]["flash_bwd"])},
+         **per_rank("flash_attention_bwd", tp_rec["kernels"]["flash_bwd"]),
+         **narrow_heads("flash_attention_bwd")},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

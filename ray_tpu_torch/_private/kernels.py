@@ -10,7 +10,8 @@ hash of its source, the shared headers and the flags, and loaded with
 starts one `nvcc` per source at once and waits for all of them.
 
 Every `Kernel` counts its launches in a plain integer, `launches`, so a run
-can show that its main path went through the kernel. A build failure and a
+can show that its main path went through the kernel, and by head dim in
+`launches_by_head_dim` where the wrapper names it. A build failure and a
 non-zero launch status (`cudaGetLastError()` right after the launch) both
 raise; nothing falls back to a plain version.
 """
@@ -63,6 +64,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.launches_by_head_dim: dict[int, int] = {}
         self._fn = None
         self._err = None
         self._lock = threading.Lock()
@@ -121,16 +123,19 @@ class Kernel:
                 self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, head_dim: int | None = None) -> None:
         """Call the C entry point (which launches on the given stream and
         returns cudaGetLastError()); raise on a non-zero status, count the
-        launch otherwise."""
+        launch otherwise (also under `head_dim` when given)."""
         rc = (self._fn or self._load())(*args)
         if rc != 0:
             msg = self._err(rc).decode(errors="replace")
             raise KernelLaunchError(
                 f"{self.name} launch failed: cudaError {rc} ({msg})")
         self.launches += 1
+        if head_dim is not None:
+            self.launches_by_head_dim[head_dim] = \
+                self.launches_by_head_dim.get(head_dim, 0) + 1
 
 
 _P = ctypes.c_void_p
@@ -153,6 +158,13 @@ FLASH_ATTENTION_BWD = Kernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
      _I, _I, _I, _I, _P])
 KERNELS = (DECODE_ATTENTION, FLASH_ATTENTION, FLASH_ATTENTION_BWD)
+# One wgmma product through each narrow-row descriptor of hopper.cuh, for
+# the card's tests only (no model path launches it, so it is not in
+# KERNELS and build_all does not build it).
+WGMMA_PROBE = Kernel(
+    "wgmma_probe", "wgmma_probe.cu", "rt_wgmma_probe",
+    # a, b, p, out, D, which, stream
+    [_P, _P, _P, _P, _I, _I, _P])
 
 
 def build_all() -> None:
@@ -172,10 +184,15 @@ def build_all() -> None:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.launches_by_head_dim = {}
 
 
 def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def launch_counts_by_head_dim() -> dict[str, dict[int, int]]:
+    return {k.name: dict(k.launches_by_head_dim) for k in KERNELS}
 
 
 def dtype_code(dtype) -> int:

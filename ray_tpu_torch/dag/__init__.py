@@ -71,7 +71,10 @@ Counterpart: ray_tpu/dag/__init__.py (copied). An edge pins a
 (`device_store.pin_edge`), so a stage that later changes the tensor in
 place does not change what its consumer reads. Channels are named under
 the runtime's session (`rtch_torch_<session>_<tag>_<n>`), and the
-session's shutdown unlinks any that a killed driver left behind.
+session's shutdown unlinks any that a killed driver left behind. A
+stage's node is recorded at compile, while the stage lives, and its
+`dag_stage_death` event names it from that record (the reference looks
+it up only after the death; `CompiledDAG._stage_node`).
 """
 
 from __future__ import annotations
@@ -96,6 +99,10 @@ from ray_tpu_torch.experimental.channel import Channel
 from ray_tpu_torch.workflow import DAGNode
 
 _SHUTDOWN = "__rt_dag_stop__"
+# How long compile waits for its stage actors to be placed, so each
+# stage's node is recorded while it lives (_record_stage_nodes); a stage
+# placed later is looked up at its death.
+_NODE_RECORD_WAIT_S = 5.0
 _CANCELLED = object()  # edge-op sentinel: the hosting loop was cancelled
 
 
@@ -419,7 +426,8 @@ class DagRef:
 class _Stage:
     """Driver-side bookkeeping for one stage loop."""
 
-    __slots__ = ("name", "kind", "ref", "actor_id", "handle", "settled")
+    __slots__ = ("name", "kind", "ref", "actor_id", "handle", "settled",
+                 "node")
 
     def __init__(self, name: str, kind: str, ref, actor_id: str, handle):
         self.name = name
@@ -428,6 +436,7 @@ class _Stage:
         self.actor_id = actor_id
         self.handle = handle      # ActorHandle (stage actors only)
         self.settled = False
+        self.node: Optional[str] = None  # recorded while the stage lives
 
 
 class CompiledDAG:
@@ -571,6 +580,7 @@ class CompiledDAG:
                     pass
             raise
         self._multi = isinstance(dag, MultiOutputNode)
+        self._record_stage_nodes(wait_s=_NODE_RECORD_WAIT_S)
 
         # ---- pipelined-driver state
         self._dead = False
@@ -773,8 +783,37 @@ class CompiledDAG:
                 self._on_stage_death(st, cause)
                 return
 
+    def _record_stage_nodes(self, wait_s: float) -> None:
+        """Record each stage's node while the stage is alive, at compile,
+        waiting up to `wait_s` for the stage actors to be placed. One
+        `list_actors` call a round; a failed call records nothing and is
+        tried again."""
+        from ray_tpu_torch.util import state
+
+        deadline = time.monotonic() + wait_s
+        while True:
+            try:
+                placed = {row["actor_id"]: row.get("node_id")
+                          for row in state.list_actors(limit=1 << 30)}
+            except Exception:
+                placed = {}
+            for st in self._stages:
+                if st.node is None:
+                    st.node = placed.get(st.actor_id)
+            if all(st.node is not None for st in self._stages) \
+                    or time.monotonic() >= deadline:
+                return
+            time.sleep(0.05)
+
     def _stage_node(self, st: _Stage) -> Optional[str]:
-        """Best-effort: which node the (dead) stage lived on."""
+        """Which node the (dead) stage lived on: the node recorded at
+        compile (`_record_stage_nodes`), else a best-effort lookup now.
+        This departs from ray_tpu/dag/__init__.py:757-767, which only looks
+        the node up after the death: that `util.state.list_actors` call
+        is an RPC with a 30 s timeout, made while the runtime is busy
+        reaping the dead stage, and under load it lost the node."""
+        if st.node is not None:
+            return st.node
         try:
             from ray_tpu_torch.util import state
 

@@ -44,7 +44,10 @@
 // query heads: bf16 D=64 77 / 107 / 128 / 225 registers and 1,060 /
 // 2,116 / 8,452 / 16,900 bytes of static shared memory; bf16 D=128 77 /
 // 108 / 127 / 225 registers and 2,084 / 4,164 / 16,644 / 33,284 bytes;
-// f32 64 to 149 registers; no instance spills.
+// f32 64 to 149 registers; no instance spills. D = 32 and 16 (a row is
+// 4 or 2 bf16 lanes, 8 or 4 f32 lanes; the shuffles of the score sum and
+// of the workers' merge run over those lane counts) are new instances of
+// the same source; their resources are in PERF.md.
 // The TPU kernel's sequential grid over cache blocks, its 8-row q padding
 // and its (rep, 128) scratch have no counterpart here.
 
@@ -65,10 +68,12 @@ __host__ __device__ constexpr int threads() {
 // Blocks per SM the register budget must allow, so that no variant
 // spills: one query head at D=64 fits in 80 registers a thread (6 blocks
 // of 128), two heads or D=128 in 128; groups of 4 (256 threads) in 128 and
-// groups of 8 in up to 255.
+// groups of 8 in up to 255. A lane's state is one 16-byte slice per query
+// head at every D, so at D = 32 and 16 one head gets D=64's budget and two
+// heads D=64's two-head budget.
 template <int D, int REP>
 __host__ __device__ constexpr int min_blocks() {
-  return REP >= 4 ? (REP == 4 ? 2 : 1) : (REP * D <= 64 ? 6 : 4);
+  return REP >= 4 ? (REP == 4 ? 2 : 1) : ((D < 64 ? REP == 1 : REP * D <= 64) ? 6 : 4);
 }
 
 using rt::load_raw;
@@ -383,8 +388,12 @@ extern "C" int rt_decode_attention(const void* q, const void* k,
       (long long)chunk * n_splits < S)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 16) return (int)by_group<float, 16>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
+  if (dtype == 0 && D == 32) return (int)by_group<float, 32>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
   if (dtype == 0 && D == 64) return (int)by_group<float, 64>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
   if (dtype == 0 && D == 128) return (int)by_group<float, 128>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
+  if (dtype == 1 && D == 16) return (int)by_group<__nv_bfloat16, 16>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
+  if (dtype == 1 && D == 32) return (int)by_group<__nv_bfloat16, 32>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
   if (dtype == 1 && D == 64) return (int)by_group<__nv_bfloat16, 64>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
   if (dtype == 1 && D == 128) return (int)by_group<__nv_bfloat16, 128>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
   return (int)cudaErrorInvalidValue;

@@ -21,6 +21,14 @@
 // tensor-core peak (989 TFLOP/s). The exponentials (one per score, 16 per
 // clock per SM) cost about as much as the D=64 products, so the design
 // keeps the tensor cores busy while the softmax runs.
+// At D = 32 and 16 the products shrink with D and the exponentials do not:
+// one exponential per visible score at 16 per clock per SM on 132 SMs takes
+// longer than the products (at B4 S1024 H16 D32 causal and 1,980 MHz about
+// 7.9 us against 4.3 us) and than the bytes (5.0 us), so the exponentials
+// bound these instances. They keep the same schedule, which already
+// overlaps one warpgroup's softmax with the other's products; a score tile
+// is 128 keys wide at every D, so the exponentials per wgmma issued grow
+// as D shrinks and the products hide behind them.
 //
 // bfloat16 design (FlashAttention-3's schedule): one block per (128-row
 // q tile, head, batch), issued heaviest causal tile first, with three
@@ -29,16 +37,21 @@
 //   its threads issues TMA loads: Q once, then K and V tiles of 128 keys
 //   into a two-stage ring, each stage with a full and an empty mbarrier.
 //   The tensor maps are 4-D over [B, S, H, D] as they lie in memory (no
-//   transpose, no copy), 64 columns per box with the 128-byte swizzle;
-//   rows past Sq or Sk come back as zeros.
+//   transpose, no copy), 64 columns per box with the 128-byte swizzle
+//   (at D = 32 and 16 the whole row per box, with the 64- or 32-byte
+//   swizzle); rows past Sq or Sk come back as zeros.
 // - Two consumer warpgroups (setmaxnreg 232) own 64 query rows each.
 //   S = Q K^T is wgmma m64n128k16 with Q and K read from shared memory
 //   (both K-major). The online softmax runs in registers in the exp2
 //   domain with f32 state; P is rounded to bf16 in registers and is the
 //   A operand of O += P V, a register-sourced wgmma that reads V from
 //   shared memory as an MN-major operand (transpose bit), so V is never
-//   transposed. The next tile's Q K^T is issued right behind this tile's
-//   P V, and the two warpgroups' softmaxes overlap each other's products.
+//   transposed. At D = 32 and 16 that is m64n32k16 / m64n16k16 on V's
+//   64- or 32-byte-swizzled rows, one swizzle atom wide along N (each
+//   descriptor is checked alone against a plain product through
+//   wgmma_probe.cu). The next tile's Q K^T is issued right behind this
+//   tile's P V, and the two warpgroups' softmaxes overlap each other's
+//   products.
 // - Masks run only on tiles that cross the causal diagonal or the Sk edge.
 // - The epilogue normalises O in registers, stages it as bf16 in the
 //   warpgroup's own rows of the Q tile and writes 16-byte stores, masking
@@ -52,7 +65,10 @@
 // 164,864 (D=128) bytes of dynamic shared memory (Q, two K and two V tiles
 // and 1 KB of alignment slack), no spills; the f32 kernel 64 (D=64) or
 // 102 (D=128) registers, no spills. The logsumexp store leaves all of
-// these unchanged and adds no serialised wgmma.
+// these unchanged and adds no serialised wgmma. The D = 32 and 16
+// instances are written so that the D = 64 and 128 ones compile from the
+// same source as before (every difference is an `if constexpr` on D or a
+// constant equal to the old one there); their resources are in PERF.md.
 // The TPU kernel's (8, 128) tile rule and its (block_q, 128) scratch have
 // no counterpart here.
 
@@ -295,10 +311,11 @@ constexpr int kConsumerWarps = 8;
 
 // Shared memory of one block: Q, then kStages K tiles, then kStages V
 // tiles, each [D / 64 panels][128 rows][64 columns] bf16 in TMA's 128-byte
-// swizzle, from a 1024-byte aligned base.
+// swizzle (at D = 32 and 16 [128 rows][D columns] in the 64- or 32-byte
+// swizzle), from a 1024-byte aligned base.
 template <int D>
 struct Smem {
-  static constexpr int kTileBytes = (D / 64) * kPanelBytes;
+  static constexpr int kTileBytes = kTile * 2 * D;
   static constexpr int kK = kTileBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBytes = kV + kStages * kTileBytes + 1024;  // + alignment
@@ -309,13 +326,21 @@ enum { kQFull = 0, kKFull = 1, kVFull = 3, kKEmpty = 5, kVEmpty = 7, kNumBars = 
 
 // S(64 q rows x 128 keys) = Q K^T over D: q_a is this warpgroup's 64 rows
 // of the Q tile, k_b a K tile; a k-step of 16 columns is 32 bytes along a
-// swizzled row, and every 4 steps the next 64-column panel.
+// swizzled row, and every 4 steps the next 64-column panel (D = 32 and 16
+// have one panel, in rows of 2D bytes).
 template <int D>
 __device__ __forceinline__ void issue_qk(float* s, uint32_t q_a, uint32_t k_b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    if (kk == 0)
+    if constexpr (D < 64) {
+      if (kk == 0)
+        wgmma_ss_n128_first(s, k_major_desc_narrow<D>(q_a + off),
+                            k_major_desc_narrow<D>(k_b + off));
+      else
+        wgmma_ss_n128(s, k_major_desc_narrow<D>(q_a + off),
+                      k_major_desc_narrow<D>(k_b + off));
+    } else if (kk == 0)
       wgmma_ss_n128_first(s, k_major_desc(q_a + off), k_major_desc(k_b + off));
     else
       wgmma_ss_n128(s, k_major_desc(q_a + off), k_major_desc(k_b + off));
@@ -323,12 +348,15 @@ __device__ __forceinline__ void issue_qk(float* s, uint32_t q_a, uint32_t k_b) {
 }
 
 // O(64 x D) += P(64 x 128 keys, registers) V(128 keys x D); a k-step of
-// 16 keys is 16 rows (2048 bytes) of every panel.
+// 16 keys is 16 rows (2048 bytes) of every panel (16 rows of 2D bytes at
+// D = 32 and 16).
 template <int D>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t* p, uint32_t v_b) {
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk) {
-    if constexpr (D == 64)
+    if constexpr (D < 64)
+      wgmma_rs_narrow<D>(o, p + 4 * kk, mn_major_desc_narrow<D>(v_b + kk * 16 * 2 * D), 1);
+    else if constexpr (D == 64)
       wgmma_rs_n64(o, p + 4 * kk, mn_major_desc(v_b + kk * 2048, kPanelBytes), 1);
     else
       wgmma_rs_n128(o, p + 4 * kk, mn_major_desc(v_b + kk * 2048, kPanelBytes), 1);
@@ -388,7 +416,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       constexpr uint32_t kTx = L::kTileBytes;
       mbar_expect_tx(bar0 + 8 * kQFull, kTx);
 #pragma unroll
-      for (int p = 0; p < D / 64; ++p)
+      for (int p = 0; p < panels<D>(); ++p)
         tma_load_4d(q_s + p * kPanelBytes, &q_map, bar0 + 8 * kQFull, p * 64, h, q0, b);
       for (int n = 0; n < n_tiles; ++n) {
         const int st = n & 1;
@@ -398,13 +426,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_wait(bar0 + 8 * (kKEmpty + st), ph ^ 1);
         mbar_expect_tx(k_full, kTx);
 #pragma unroll
-        for (int p = 0; p < D / 64; ++p)
+        for (int p = 0; p < panels<D>(); ++p)
           tma_load_4d(k_s + st * L::kTileBytes + p * kPanelBytes, &k_map, k_full, p * 64,
                       hk, n * kTile, b);
         mbar_wait(bar0 + 8 * (kVEmpty + st), ph ^ 1);
         mbar_expect_tx(v_full, kTx);
 #pragma unroll
-        for (int p = 0; p < D / 64; ++p)
+        for (int p = 0; p < panels<D>(); ++p)
           tma_load_4d(v_s + st * L::kTileBytes + p * kPanelBytes, &v_map, v_full, p * 64,
                       hk, n * kTile, b);
       }
@@ -431,7 +459,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (n_tiles > 0) {
       float s[64];
       uint32_t p[32];
-      const uint32_t q_a = q_s + c * 64 * 128;
+      const uint32_t q_a = q_s + c * 64 * row_bytes<D>();
       mbar_wait(bar0 + 8 * kQFull, 0);
       mbar_wait(bar0 + 8 * kKFull, 0);
       wgmma_fence();
@@ -540,25 +568,51 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // whole 16-byte pieces of rows below Sq.
     fence_proxy_async();
     const int lr = c * 64 + warp * 16 + g;  // tile rows lr and lr + 8
+    if constexpr (D < 64) {
+      // Rows of 2D bytes, 16-byte chunks where the swizzle of such rows
+      // puts them.
+      constexpr int RB = 2 * D;
+      constexpr int kPieces = D / 8;  // 16-byte pieces per row
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int piece = (j / 8) * kPanelBytes + (((j % 8) ^ (lr & 7)) * 16) + t * 4;
-      *reinterpret_cast<uint32_t*>(smem + piece + lr * 128) =
-          pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-      *reinterpret_cast<uint32_t*>(smem + piece + (lr + 8) * 128) =
-          pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-    }
-    named_bar_sync(1 + c, kWgThreads);
-    constexpr int kPieces = D / 8;  // 16-byte pieces per row
-    for (int idx = tid; idx < 64 * kPieces; idx += kWgThreads) {
-      const int r = c * 64 + idx / kPieces;
-      const int pc = idx % kPieces;
-      const int qi = q0 + r;
-      if (qi < Sq) {
-        const uint4 val = *reinterpret_cast<const uint4*>(
-            smem + (pc / 8) * kPanelBytes + r * 128 + (((pc % 8) ^ (r & 7)) * 16));
-        *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * D + pc * 8) =
-            val;
+      for (int j = 0; j < kPieces; ++j) {
+        *reinterpret_cast<uint32_t*>(smem + lr * RB + swizzled_chunk<RB>(lr, j) * 16 + t * 4) =
+            pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(smem + (lr + 8) * RB + swizzled_chunk<RB>(lr + 8, j) * 16 +
+                                     t * 4) = pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+      named_bar_sync(1 + c, kWgThreads);
+      for (int idx = tid; idx < 64 * kPieces; idx += kWgThreads) {
+        const int r = c * 64 + idx / kPieces;
+        const int pc = idx % kPieces;
+        const int qi = q0 + r;
+        if (qi < Sq) {
+          const uint4 val =
+              *reinterpret_cast<const uint4*>(smem + r * RB + swizzled_chunk<RB>(r, pc) * 16);
+          *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * D + pc * 8) =
+              val;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int piece = (j / 8) * kPanelBytes + (((j % 8) ^ (lr & 7)) * 16) + t * 4;
+        *reinterpret_cast<uint32_t*>(smem + piece + lr * 128) =
+            pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(smem + piece + (lr + 8) * 128) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+      named_bar_sync(1 + c, kWgThreads);
+      constexpr int kPieces = D / 8;  // 16-byte pieces per row
+      for (int idx = tid; idx < 64 * kPieces; idx += kWgThreads) {
+        const int r = c * 64 + idx / kPieces;
+        const int pc = idx % kPieces;
+        const int qi = q0 + r;
+        if (qi < Sq) {
+          const uint4 val = *reinterpret_cast<const uint4*>(
+              smem + (pc / 8) * kPanelBytes + r * 128 + (((pc % 8) ^ (r & 7)) * 16));
+          *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * D + pc * 8) =
+              val;
+        }
       }
     }
   }
@@ -602,8 +656,12 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (dtype == 0 && D == 16) return (int)launch<float, 16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (dtype == 0 && D == 32) return (int)launch<float, 32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
   if (dtype == 0 && D == 64) return (int)launch<float, 64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
   if (dtype == 0 && D == 128) return (int)launch<float, 128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (dtype == 1 && D == 16) return (int)launch_wgmma<16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (dtype == 1 && D == 32) return (int)launch_wgmma<32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
   if (dtype == 1 && D == 64) return (int)launch_wgmma<64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
   if (dtype == 1 && D == 128) return (int)launch_wgmma<128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
   return (int)cudaErrorInvalidValue;

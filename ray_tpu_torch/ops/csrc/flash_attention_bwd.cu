@@ -35,7 +35,8 @@
 //      key tile, into a two-stage ring (full and empty mbarriers), with
 //      their lse and Delta by bulk copy. The tensor maps are 4-D over
 //      [B, S, H, D] as they lie in memory, 64 columns per box in the
-//      128-byte swizzle; rows past Sq or Sk come back as zeros.
+//      128-byte swizzle (at D = 32 and 16 the whole row per box, in the
+//      64- or 32-byte swizzle); rows past Sq or Sk come back as zeros.
 //    - Two consumer warpgroups (setmaxnreg 232) own 64 keys each. Per
 //      query tile: S^T = K Q^T and dP^T = V dO^T as SS wgmma with Q and dO
 //      read K-major; P^T = exp2(S^T scale log2 e - lse) and
@@ -46,7 +47,9 @@
 //      goes to shared memory (double-buffered, one named barrier per tile
 //      between the two warpgroups) and dQ = dS K is an SS wgmma reading dS
 //      and K MN-major, each warpgroup one 64 x 64 block of it, added into
-//      the f32 accumulator with vector atomics. Five products per visible
+//      the f32 accumulator with vector atomics (at D = 32 and 16 each
+//      warpgroup's block is 64 x D, m64n32k16 / m64n16k16 reading K's
+//      narrow rows MN-major). Five products per visible
 //      tile pair, each once. dK and dV stay in registers across the KV
 //      head's query heads (the GQA sum inside the block) and are written
 //      once.
@@ -57,8 +60,15 @@
 // memory, dK/dV and dQ in two kernels, no atomics) so the golden gradient
 // check keeps full f32 precision.
 //
+// At D = 32 and 16 the products shrink with D but the exponentials (one per
+// visible score) do not, so they, not the products, bound those instances;
+// the schedule is the same, with 128-row query tiles (dK and dV are 16 or
+// 32 registers a thread there).
+//
 // Resources (nvcc -Xptxas -v, sm_90a): see PERF.md (the ptxas lines that
-// chip_smoke.py prints for every instance).
+// chip_smoke.py prints for every instance). The D = 64 and 128 instances
+// compile from the same source as before the narrow ones were added: each
+// difference is an `if constexpr` on D or a constant equal to the old one.
 
 #include <math.h>
 
@@ -128,23 +138,25 @@ constexpr int kWsThreads = 3 * kWgThreads;  // producer + two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kKPanel = kKeys * 128;        // 128 rows of one 64-column panel
 
-// Query rows per tile: 128 at D = 64; 64 at D = 128, where dK and dV alone
-// take 128 registers a thread.
+// Query rows per tile: 128 at D <= 64; 64 at D = 128, where dK and dV
+// alone take 128 registers a thread.
 template <int D>
 __host__ __device__ constexpr int q_rows() {
-  return D == 64 ? 128 : 64;
+  return D == 128 ? 64 : 128;
 }
 
 // Shared memory of one block, from a 1024-byte aligned base: K and V,
 // kStages Q and dO tiles (each [D / 64 panels][rows][64 columns] bf16 in
-// the 128-byte swizzle), two dS^T buffers ([rows / 64 panels][128 keys][64
-// query rows], same swizzle), then kStages rows of lse and of Delta (f32).
+// the 128-byte swizzle; at D = 32 and 16 [rows][D columns] in the 64- or
+// 32-byte swizzle), two dS^T buffers ([rows / 64 panels][128 keys][64
+// query rows], 128-byte swizzle), then kStages rows of lse and of Delta
+// (f32).
 template <int D>
 struct BwdSmem {
   static constexpr int kRows = q_rows<D>();
   static constexpr int kQPanel = kRows * 128;
-  static constexpr int kKVBytes = (D / 64) * kKPanel;
-  static constexpr int kQBytes = (D / 64) * kQPanel;
+  static constexpr int kKVBytes = kKeys * 2 * D;
+  static constexpr int kQBytes = kRows * 2 * D;
   static constexpr int kDSBytes = (kRows / 64) * kKPanel;
   static constexpr int kV = kKVBytes;
   static constexpr int kQ = 2 * kKVBytes;
@@ -161,34 +173,48 @@ enum { kKVFull = 0, kFull = 1, kEmpty = 1 + kStages, kNumBars = 1 + 2 * kStages 
 // S^T (64 keys x 64 query rows) = K_wg Q^T over D, or dP^T = V_wg dO^T:
 // a is this warpgroup's 64 rows of the K (V) tile, b 64 rows of a Q (dO)
 // tile, both K-major; a k-step of 16 columns is 32 bytes along a swizzled
-// row, every 4 steps the next panel.
+// row, every 4 steps the next panel (one panel at D = 32 and 16).
 template <int D>
 __device__ __forceinline__ void issue_scores(float* acc, uint32_t a, uint32_t b) {
   using L = BwdSmem<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t da = k_major_desc(a + (kk / 4) * kKPanel + (kk % 4) * 32);
-    const uint64_t db = k_major_desc(b + (kk / 4) * L::kQPanel + (kk % 4) * 32);
-    if (kk == 0)
-      wgmma_ss_n64_first<0, 0>(acc, da, db);
-    else
-      wgmma_ss_n64<0, 0>(acc, da, db);
+    if constexpr (D < 64) {
+      const uint64_t da = k_major_desc_narrow<D>(a + kk * 32);
+      const uint64_t db = k_major_desc_narrow<D>(b + kk * 32);
+      if (kk == 0)
+        wgmma_ss_n64_first<0, 0>(acc, da, db);
+      else
+        wgmma_ss_n64<0, 0>(acc, da, db);
+    } else {
+      const uint64_t da = k_major_desc(a + (kk / 4) * kKPanel + (kk % 4) * 32);
+      const uint64_t db = k_major_desc(b + (kk / 4) * L::kQPanel + (kk % 4) * 32);
+      if (kk == 0)
+        wgmma_ss_n64_first<0, 0>(acc, da, db);
+      else
+        wgmma_ss_n64<0, 0>(acc, da, db);
+    }
   }
 }
 
 // dV (64 keys x D) += P^T (64 keys x 64 query rows, registers) dO (64 rows
 // x D), or dK += dS^T Q: b 64 rows of a dO (Q) tile, read MN-major; a
-// k-step of 16 query rows is 16 rows (2048 bytes) of every panel.
+// k-step of 16 query rows is 16 rows (2048 bytes) of every panel (16 rows
+// of 2D bytes at D = 32 and 16).
 template <int D>
 __device__ __forceinline__ void issue_grad(float* acc, const uint32_t* frag, uint32_t b) {
   using L = BwdSmem<D>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = mn_major_desc(b + kk * 2048, L::kQPanel);
-    if constexpr (D == 64)
-      wgmma_rs_n64(acc, frag + 4 * kk, db, 1);
-    else
-      wgmma_rs_n128(acc, frag + 4 * kk, db, 1);
+    if constexpr (D < 64) {
+      wgmma_rs_narrow<D>(acc, frag + 4 * kk, mn_major_desc_narrow<D>(b + kk * 16 * 2 * D), 1);
+    } else {
+      const uint64_t db = mn_major_desc(b + kk * 2048, L::kQPanel);
+      if constexpr (D == 64)
+        wgmma_rs_n64(acc, frag + 4 * kk, db, 1);
+      else
+        wgmma_rs_n128(acc, frag + 4 * kk, db, 1);
+    }
   }
 }
 
@@ -205,6 +231,17 @@ __device__ __forceinline__ void issue_dq(float* acc, uint32_t a, uint32_t b) {
     else
       wgmma_ss_n64<1, 1>(acc, da, db);
   }
+}
+
+// dQ (64 query rows x D) = dS K over the 128 keys at D = 32 and 16: a as in
+// issue_dq, b the K tile's narrow rows, read MN-major; a k-step of 16 keys
+// is 2048 bytes of dS^T and 16 rows of K.
+template <int D>
+__device__ __forceinline__ void issue_dq_narrow(float* acc, uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    wgmma_ss_narrow<D, 1, 1>(acc, mn_major_desc(a + kk * 2048, kKPanel),
+                             mn_major_desc_narrow<D>(b + kk * 16 * 2 * D), kk > 0);
 }
 
 // Accumulator and A-fragment layouts of wgmma: hopper.cuh. Here the rows
@@ -267,7 +304,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 0 && per_head > 0) {
       mbar_expect_tx(bar0 + 8 * kKVFull, 2 * L::kKVBytes);
 #pragma unroll
-      for (int p = 0; p < D / 64; ++p) {
+      for (int p = 0; p < panels<D>(); ++p) {
         tma_load_4d(k_s + p * kKPanel, &k_map, bar0 + 8 * kKVFull, p * 64, hk, k0, b);
         tma_load_4d(v_s + p * kKPanel, &v_map, bar0 + 8 * kKVFull, p * 64, hk, k0, b);
       }
@@ -280,7 +317,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           mbar_wait(bar0 + 8 * (kEmpty + st), ((n / kStages) & 1) ^ 1);
           mbar_expect_tx(full, 2 * L::kQBytes + 2 * R * 4);
 #pragma unroll
-          for (int p = 0; p < D / 64; ++p) {
+          for (int p = 0; p < panels<D>(); ++p) {
             tma_load_4d(q_s + st * L::kQBytes + p * L::kQPanel, &q_map, full, p * 64, h,
                         m * R, b);
             tma_load_4d(do_s + st * L::kQBytes + p * L::kQPanel, &do_map, full, p * 64, h,
@@ -311,8 +348,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     if (per_head > 0) {
-      const uint32_t k_a = k_s + c * 64 * 128;  // this warpgroup's rows of K and V
-      const uint32_t v_a = v_s + c * 64 * 128;
+      constexpr int RB = row_bytes<D>();
+      const uint32_t k_a = k_s + c * 64 * RB;  // this warpgroup's rows of K and V
+      const uint32_t v_a = v_s + c * 64 * RB;
       // this warpgroup's 64 x 64 block of each dQ tile: query rows
       // [dq_r0, dq_r0 + 64) of the tile and columns [dq_c0, dq_c0 + 64)
       const int dq_r0 = R == 128 ? c * 64 : 0;
@@ -386,13 +424,13 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             fence_regs<16>(pf);
             fence_regs<16>(df);
             wgmma_fence();
-            issue_grad<D>(dv_acc, pf, do_b + hf * 64 * 128);
-            issue_grad<D>(dk_acc, df, q_b + hf * 64 * 128);
+            issue_grad<D>(dv_acc, pf, do_b + hf * 64 * RB);
+            issue_grad<D>(dk_acc, df, q_b + hf * 64 * RB);
             wgmma_commit();
             if (hf + 1 < R / 64) {  // the next half's scores, behind them
-              issue_scores<D>(s, k_a, q_b + (hf + 1) * 64 * 128);
+              issue_scores<D>(s, k_a, q_b + (hf + 1) * 64 * RB);
               wgmma_commit();
-              issue_scores<D>(dp, v_a, do_b + (hf + 1) * 64 * 128);
+              issue_scores<D>(dp, v_a, do_b + (hf + 1) * 64 * RB);
               wgmma_commit();
             }
             // dS^T into this tile's buffer (panel hf), in the swizzle the
@@ -410,11 +448,18 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           }
           fence_proxy_async();
           named_bar_sync(1, 2 * kWgThreads);  // both halves of dS^T are in place
-          float dq[32];
-          issue_dq(dq, ds_b + (dq_r0 / 64) * kKPanel, k_s + (dq_c0 / 64) * kKPanel);
+          constexpr int kDqRegs = D < 64 ? D / 2 : 32;  // a 64 x min(D, 64) block
+          float dq[kDqRegs];
+          if constexpr (D < 64) {
+#pragma unroll
+            for (int i = 0; i < kDqRegs; ++i) dq[i] = 0.f;
+            issue_dq_narrow<D>(dq, ds_b + (dq_r0 / 64) * kKPanel, k_s);
+          } else {
+            issue_dq(dq, ds_b + (dq_r0 / 64) * kKPanel, k_s + (dq_c0 / 64) * kKPanel);
+          }
           wgmma_commit();
           wgmma_wait<0>();
-          fence_regs<32>(dq);
+          fence_regs<kDqRegs>(dq);
           fence_regs<D / 2>(dv_acc);
           fence_regs<D / 2>(dk_acc);
           mbar_arrive_if(bar0 + 8 * (kEmpty + st), lane == 0);  // one arrival a warp
@@ -423,7 +468,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           // no row needs a bound check).
           float* dst = dq_h + (size_t)(q0 + dq_r0 + warp * 16 + g) * D + dq_c0 + 2 * t;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < kDqRegs / 4; ++j) {
             atomicAdd(reinterpret_cast<float2*>(dst + j * 8),
                       make_float2(dq[4 * j], dq[4 * j + 1]));
             atomicAdd(reinterpret_cast<float2*>(dst + 8 * D + j * 8),
@@ -765,9 +810,9 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
                                       void* dk, void* dv, int B, int Sq, int Sk, int Hq,
                                       int Hkv, int D, int causal, int dtype, int block_k,
                                       int block_q, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128) ||
-      (dtype != 0 && dtype != 1) || block_k != kKeys ||
-      block_q != (D == 64 ? q_rows<64>() : q_rows<128>()))
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      (D != 16 && D != 32 && D != 64 && D != 128) || (dtype != 0 && dtype != 1) ||
+      block_k != kKeys || block_q != (D == 128 ? q_rows<128>() : q_rows<64>()))
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && (lse_log2 == nullptr || dq_accum == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -776,8 +821,12 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   float* dl = static_cast<float*>(delta);
   float* l2 = static_cast<float*>(lse_log2);
   float* acc = static_cast<float*>(dq_accum);
+  if (dtype == 0 && D == 16) return (int)launch_f32<16>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (dtype == 0 && D == 32) return (int)launch_f32<32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, s);
   if (dtype == 0 && D == 64) return (int)launch_f32<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, s);
   if (dtype == 0 && D == 128) return (int)launch_f32<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (D == 16) return (int)launch_bf16<16>(q, k, v, o, dout, l, dl, l2, acc, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, s);
+  if (D == 32) return (int)launch_bf16<32>(q, k, v, o, dout, l, dl, l2, acc, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, s);
   if (D == 64) return (int)launch_bf16<64>(q, k, v, o, dout, l, dl, l2, acc, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, s);
   return (int)launch_bf16<128>(q, k, v, o, dout, l, dl, l2, acc, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, s);
 }

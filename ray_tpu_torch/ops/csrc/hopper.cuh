@@ -1,13 +1,17 @@
 // Hopper (sm_90a) building blocks shared by the flash attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads and
 // the tensor-map encoder, register reallocation, named barriers, the
-// 128-byte-swizzle wgmma descriptors and the wgmma instructions with bf16
-// operands and f32 accumulators.
+// swizzled wgmma descriptors and the wgmma instructions with bf16 operands
+// and f32 accumulators.
 //
-// Layout of every tile these kernels move with TMA: [cols / 64 panels]
-// [rows][64 columns] bf16, one 128-byte row per tile row, in TMA's 128-byte
-// swizzle, from a 1024-byte aligned address. A panel holds `rows * 128`
-// bytes.
+// Layout of every tile these kernels move with TMA: at D >= 64, [D / 64
+// panels][rows][64 columns] bf16, one 128-byte row per tile row, in TMA's
+// 128-byte swizzle, from a 1024-byte aligned address; a panel holds
+// `rows * 128` bytes. At D = 32 and 16 a tile row is the whole head row,
+// 64 or 32 bytes, in the 64- or 32-byte swizzle (one panel). In every
+// mode the swizzle XORs the 16-byte chunk bits of an address (bits 4 and
+// up) with the bits of its 128-byte line (bits 7 and up), so a pattern
+// repeats every 8 rows; TMA and wgmma apply the same one.
 //
 // What ptxas showed on these (PERF.md): a wgmma behind a branch the
 // compiler cannot prove uniform is serialised (warning C7520), so a
@@ -146,6 +150,58 @@ __device__ __forceinline__ uint64_t k_major_desc(uint32_t addr) {
 // 2048 bytes.
 __device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr, uint32_t panel_bytes) {
   return sw128_desc(addr, panel_bytes, 1024);
+}
+
+// Bytes of one swizzled tile row at head dim D: a 64-column panel's 128,
+// or the whole row (64 or 32 bytes) at D = 32 and 16.
+template <int D>
+__host__ __device__ constexpr int row_bytes() {
+  return D >= 64 ? 128 : 2 * D;
+}
+
+// Panels of 64 columns in a row at head dim D (one below D = 64).
+template <int D>
+__host__ __device__ constexpr int panels() {
+  return D >= 64 ? D / 64 : 1;
+}
+
+// Where the swizzle of `kRowBytes`-byte rows (128, 64 or 32) puts the
+// 16-byte chunk `c` of row `r` of a tile with an aligned base.
+template <int kRowBytes>
+__host__ __device__ constexpr int swizzled_chunk(int r, int c) {
+  return c ^ (((r * kRowBytes) >> 7) & (kRowBytes / 16 - 1));
+}
+
+// wgmma shared-memory descriptor for the swizzle of `kRowBytes`-byte rows
+// (layout type 1 for 128, 2 for 64, 3 for 32): start address and leading
+// byte offset as given, stride byte offset 8 rows (the distance between
+// 8-row groups of a densely packed tile).
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t swizzle_desc(uint32_t addr, uint32_t lbo) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64 || kRowBytes == 32,
+                "wgmma swizzles rows of 128, 64 or 32 bytes");
+  constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>(8 * kRowBytes >> 4) << 32) | (kLayout << 62);
+}
+
+// K-major operand in rows of one whole head row (D = 32 or 16): a k-step of
+// 16 columns is 32 bytes along the row.
+template <int D>
+__device__ __forceinline__ uint64_t k_major_desc_narrow(uint32_t addr) {
+  static_assert(D == 32 || D == 16, "narrow rows are D = 32 or 16");
+  return swizzle_desc<2 * D>(addr, 16);
+}
+
+// MN-major operand (transpose bit) whose N axis is one whole head row
+// (D = 32 or 16): N = D fits in one swizzle atom, so the leading byte offset
+// (the next atom along N) is never taken; the K axis runs down the rows, a
+// k-step of 16 is 16 rows (16 * 2D bytes).
+template <int D>
+__device__ __forceinline__ uint64_t mn_major_desc_narrow(uint32_t addr) {
+  static_assert(D == 32 || D == 16, "narrow rows are D = 32 or 16");
+  return swizzle_desc<2 * D>(addr, 16 * 2 * D);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -337,6 +393,86 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D(64 x 32, f32) (+)= A(64 x 16, registers) * B(16 x 32, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D(64 x 16, f32) (+)= A(64 x 16, registers) * B(16 x 16, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D(64 x 32, f32) (+)= A(64 x 16, smem) * B(16 x 32, smem); scale_d 0
+// writes D without reading it (the first k-step). TA / TB are the
+// transpose bits: 0 reads the operand K-major, 1 MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D(64 x 16, f32) (+)= A(64 x 16, smem) * B(16 x 16, smem); as above.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// O(64 x D) (+)= A(64 x 16, registers) * B(16 x D, smem, MN-major) at a
+// narrow head dim.
+template <int D>
+__device__ __forceinline__ void wgmma_rs_narrow(float* d, const uint32_t* a, uint64_t db,
+                                                int scale_d) {
+  if constexpr (D == 32)
+    wgmma_rs_n32(d, a, db, scale_d);
+  else
+    wgmma_rs_n16(d, a, db, scale_d);
+}
+
+template <int D, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_narrow(float* d, uint64_t da, uint64_t db,
+                                                int scale_d) {
+  if constexpr (D == 32)
+    wgmma_ss_n32<TA, TB>(d, da, db, scale_d);
+  else
+    wgmma_ss_n16<TA, TB>(d, da, db, scale_d);
+}
+
 // ------------------------------------------------------------ host side
 
 // cuTensorMapEncodeTiled, fetched at run time through the CUDA runtime's
@@ -366,21 +502,28 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D map over a contiguous bf16 [B, S, H, D] tensor, boxes of 64
-// columns x 1 head x `rows` rows x 1 batch in the 128-byte swizzle; boxes
-// reaching past S (or any edge) are filled with zeros.
+// columns x 1 head x `rows` rows x 1 batch in the 128-byte swizzle, or at
+// D = 32 and 16 of the whole row in the 64- or 32-byte swizzle (the
+// swizzle's span is the box's row); boxes reaching past S (or any edge) are
+// filled with zeros.
 inline bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
                         int rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  if (D != 16 && D != 32 && D % 64 != 0) return false;
+  const cuuint32_t box_cols = D < 64 ? D : 64;
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {box_cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

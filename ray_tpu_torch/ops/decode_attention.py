@@ -29,7 +29,7 @@ import torch
 
 from ray_tpu_torch._private import kernels
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 # Query heads one block serves (the kernel is built for these).
 GROUP_SIZES = (1, 2, 4, 8)
 # Blocks the grid should hold when every sequence fills the cache: about
@@ -45,7 +45,8 @@ def rows_per_round(group: int, d: int, elem_bytes: int) -> int:
     """Cache rows a block of the kernel loads at once: its workers (D /
     (16 / elem_bytes) lanes each) times the rows each keeps in flight. The
     kernel runs 128 threads with 4 rows in flight per worker, or 256 threads
-    with 2 for groups of 4 or 8 query heads."""
+    with 2 for groups of 4 or 8 query heads. At D = 16 in bf16 a worker is
+    2 lanes, so a round is 256 rows for every group."""
     threads, unroll = (256, 2) if group >= 4 else (128, 4)
     return threads * 16 // (d * elem_bytes) * unroll
 
@@ -178,7 +179,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
             counters.data_ptr(), b, hq, kv, s, d, code, plan.group,
-            plan.chunk, plan.n_splits, stream)
+            plan.chunk, plan.n_splits, stream, head_dim=d)
     return out
 
 

@@ -27,11 +27,11 @@ import torch
 
 from ray_tpu_torch._private import kernels
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 # The bf16 backward kernel's tiles by head dim: (keys, query rows). One
 # block owns a key tile and steps over query tiles; the scratch rows are
 # padded to a multiple of the query tile. The kernel refuses any other pair.
-BWD_TILES = {64: (128, 128), 128: (128, 64)}
+BWD_TILES = {16: (128, 128), 32: (128, 128), 64: (128, 128), 128: (128, 64)}
 
 
 def _compute_dtype(dtype):
@@ -164,7 +164,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True, *,
         kernels.FLASH_ATTENTION.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            b, sq, sk, hq, hkv, d, int(causal), code, stream)
+            b, sq, sk, hq, hkv, d, int(causal), code, stream, head_dim=d)
     return (out, lse) if with_lse else out
 
 
@@ -201,7 +201,7 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
             None if lse_log2 is None else lse_log2.data_ptr(),
             None if dq_accum is None else dq_accum.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d, int(causal),
-            code, block_k, block_q, stream)
+            code, block_k, block_q, stream, head_dim=d)
     return dq, dk, dv
 
 

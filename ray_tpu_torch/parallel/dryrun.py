@@ -18,10 +18,11 @@ kernels at the per-rank shapes, but nothing here measures multi-GPU
 scaling. With a card per rank, "nccl" moves CUDA tensors directly (and
 refuses ranks that share a card).
 
-The models are the reference's but for one width: the kernels take head
-dims 64 and 128, so every head here is 64 wide on both devices. The
-training step has 2 heads at d_model 128 (the reference: 8 of 16), and
-generation d_model 256 in 4 heads (the reference: d_model 64).
+The models are the reference's, at its widths: the training step's 8
+heads of 16 at d_model 128 and generation's d_model 64 in 4 heads
+(TRAIN_CONFIG, GENERATE_CONFIG). On "cuda" the flash kernels run the
+training step and the decode kernel the generation at head dim 16;
+`dryrun_ranks` also returns each rank's launches by kernel and head dim.
 """
 
 from __future__ import annotations
@@ -38,9 +39,20 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch._private import kernels
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
                                          data_sharding, shard_tensor)
+
+
+#: The sharded training step's model: __graft_entry__.py's run_sharded_step
+#: (d_model 128 in 8 heads, so head dim 16; f32 for exactness).
+TRAIN_CONFIG = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=8,
+                    n_kv_heads=8, d_ff=344, max_seq=64)
+#: The tp generate's model: __graft_entry__.py's run_tp_generate (d_model
+#: 64 in 4 heads, so head dim 16).
+GENERATE_CONFIG = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                       max_seq=64)
 
 
 def _rank_main(rank, world_size, store, out_dir, backend, fn, args):
@@ -97,10 +109,8 @@ def run_sharded_step(rank: int, mcfg: MeshConfig, label: str,
 
     device = resolve_device(device)
     mesh = build_mesh(mcfg)
-    cfg = TransformerConfig(
-        vocab_size=512, d_model=128, n_layers=2, n_heads=2,
-        n_kv_heads=2, d_ff=344, max_seq=64, dtype=torch.float32,
-        moe_experts=moe_experts)
+    cfg = TransformerConfig(**TRAIN_CONFIG, dtype=torch.float32,
+                            moe_experts=moe_experts)
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (8, 33))).to(device)
 
@@ -167,8 +177,7 @@ def run_tp_generate(rank: int, tp: int, label: str, device="cuda"):
     from ray_tpu_torch.llm import LLMConfig
     from ray_tpu_torch.llm.engine import ContinuousEngine, SamplingParams
 
-    cfg = LLMConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
-                    max_seq=64)
+    cfg = LLMConfig(**GENERATE_CONFIG)
     mesh = build_mesh(MeshConfig(dp=-1, tp=tp))
     eng = ContinuousEngine(cfg, max_batch=2, decode_chunk=4, mesh=mesh,
                            device=device)
@@ -193,11 +202,13 @@ def run_tp_generate(rank: int, tp: int, label: str, device="cuda"):
     return out
 
 
-def _dryrun_rank(rank: int, n: int, device: str) -> list:
+def _dryrun_rank(rank: int, n: int, device: str) -> dict:
     """The reference's configurations for n ranks (every parallelism axis
-    > 1 across them; dp=-1 absorbs the rest)."""
+    > 1 across them; dp=-1 absorbs the rest): {"runs": [(label, result)],
+    "launches": this rank's kernel launches by name and head dim}."""
     if resolve_device(device).type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
+    kernels.reset_launch_counts()
     runs = []
     if n % 4 == 0:
         fsdp = MeshConfig(dp=-1, fsdp=2, tp=2)
@@ -225,16 +236,22 @@ def _dryrun_rank(rank: int, n: int, device: str) -> list:
             arg, label = args
             out.append((label, fn(rank, arg, label, device)))
     _say(rank, f"dryrun_multichip({n}) OK")
-    return out
+    return {"runs": out, "launches": kernels.launch_counts_by_head_dim()}
+
+
+def dryrun_ranks(n_devices: int, device: str = "cuda",
+                 backend: str = "gloo") -> list[dict]:
+    """Spawn n_devices ranks of `backend` and run every sharded path of
+    the port's parallelism layer; raises on the first that disagrees.
+    Returns each rank's {"runs", "launches"} (see `_dryrun_rank`)."""
+    return run_ranks(_dryrun_rank, n_devices, n_devices, device,
+                     backend=backend)
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda",
                      backend: str = "gloo") -> list:
-    """Spawn n_devices ranks of `backend` and run every sharded path of
-    the port's parallelism layer; raises on the first that disagrees.
-    Returns rank 0's (label, result) list."""
-    return run_ranks(_dryrun_rank, n_devices, n_devices, device,
-                     backend=backend)[0]
+    """`dryrun_ranks`, returning rank 0's (label, result) list."""
+    return dryrun_ranks(n_devices, device, backend)[0]["runs"]
 
 
 if __name__ == "__main__":

@@ -10,8 +10,8 @@ never share a head.json).
 
 Counterpart: ray_tpu/scripts/cli.py (copied; `start --num-gpus` in place
 of `--num-tpus`, `profile --mode torch` in place of `jax`, `top` shows
-the torch allocator's GPU memory and no compile seconds, `lint` checks
-`ray_tpu_torch` and `tools` by default). Run it as
+the torch allocator's GPU memory and no compile seconds, `lint` runs
+rtcheck's passes pointed at the port, scripts/lint.py). Run it as
 `python -m ray_tpu_torch.scripts.cli` or `ray-tpu-torch`.
 """
 
@@ -738,48 +738,20 @@ def cmd_timeline(args) -> int:
     return 0
 
 
-#: `lint`'s roots when none are given (rtcheck's own default names the
-#: JAX package's).
-LINT_ROOTS = ("ray_tpu_torch", "tools")
-
-
 def cmd_lint(args) -> int:
-    """`ray-tpu-torch lint` — the rtcheck static analysis suite (README
-    "Static analysis & invariants"): five AST passes encoding the runtime's
-    invariants (async-blocking, wire-schema, knob-registry,
-    lock-discipline, exception-taxonomy). Exit 0 = no non-baselined
-    findings."""
-    try:
-        from tools.rtcheck import core as rtcheck_core
-    except ImportError:
-        # Installed entry point outside the repo (or a foreign top-level
-        # `tools` package shadowing ours): resolve tools/ relative to the
-        # ray_tpu_torch package's checkout and retry with the stale module
-        # purged — sys.modules would otherwise pin the foreign package.
-        import ray_tpu_torch
+    """`ray-tpu-torch lint` — the rtcheck static analysis suite, its six
+    passes pointed at the port (scripts/lint.py): async-blocking,
+    wire-schema, knob-registry, lock-discipline, exception-taxonomy and
+    event-kinds. Exit 0 = no non-baselined findings."""
+    from ray_tpu_torch.scripts import lint
 
-        repo = os.path.dirname(os.path.dirname(
-            os.path.abspath(ray_tpu_torch.__file__)))
-        if not os.path.isdir(os.path.join(repo, "tools", "rtcheck")):
-            print("ray-tpu-torch lint needs the tools/rtcheck checkout "
-                  "(run from the repo)", file=sys.stderr)
-            return 2
-        for mod in [m for m in sys.modules
-                    if m == "tools" or m.startswith("tools.")]:
-            del sys.modules[mod]
-        sys.path.insert(0, repo)
-        try:
-            from tools.rtcheck import core as rtcheck_core
-        except ImportError as e:
-            print(f"ray-tpu-torch lint could not import tools/rtcheck from "
-                  f"{repo}: {e}", file=sys.stderr)
-            return 2
-    argv = list(args.paths) or list(LINT_ROOTS)
-    if args.json:
-        argv.append("--json")
-    if args.no_cache:
-        argv.append("--no-cache")
-    return rtcheck_core.main(argv)
+    try:
+        lint.rtcheck()
+    except ImportError as e:
+        print(f"ray-tpu-torch lint needs the tools/rtcheck checkout (run "
+              f"from the repo): {e}", file=sys.stderr)
+        return 2
+    return lint.main(args.paths, as_json=args.json)
 
 
 def cmd_dashboard(args) -> int:
@@ -908,18 +880,17 @@ def main(argv=None) -> int:
     pn = sub.add_parser(
         "lint",
         help="run the rtcheck static analysis suite",
-        description="Run tools/rtcheck: the five invariant passes "
+        description="Run tools/rtcheck's six invariant passes "
                     "(async-blocking, wire-schema, knob-registry, "
-                    "lock-discipline, exception-taxonomy) over "
-                    "ray_tpu_torch/ + tools/. Suppress deliberate findings "
-                    "inline with "
+                    "lock-discipline, exception-taxonomy, event-kinds), "
+                    "pointed at the port, over ray_tpu_torch/. Suppress "
+                    "deliberate findings inline with "
                     "`# rtcheck: disable=<pass>`; grandfathered findings "
-                    "live in tools/rtcheck/baseline.json.")
+                    "live in ray_tpu_torch/scripts/lint_baseline.json.")
     pn.add_argument("paths", nargs="*", default=[],
-                    help="roots to analyze (default: ray_tpu_torch tools)")
+                    help="roots to analyze (default: ray_tpu_torch)")
     pn.add_argument("--json", action="store_true",
                     help="machine-readable findings for tooling")
-    pn.add_argument("--no-cache", action="store_true")
     pn.set_defaults(fn=cmd_lint)
 
     po = sub.add_parser(

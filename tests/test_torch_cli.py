@@ -356,11 +356,91 @@ def test_stalls_cli_lists_reports(shutdown_only, tmp_path, capsys):
 
 
 # ---- lint
-def test_lint_with_no_paths_checks_the_port(capsys):
-    from ray_tpu_torch.scripts.cli import LINT_ROOTS
+#: One file per pass of `ray-tpu-torch lint` that violates that pass, at
+#: a path under ray_tpu_torch/ the pass reads.
+LINT_PLANTS = {
+    "async-blocking": ("ray_tpu_torch/_private/plant_async.py", """
+import time
 
-    assert LINT_ROOTS == ("ray_tpu_torch", "tools")
-    assert cli_main(["lint", "--json", "--no-cache"]) == 0
+
+async def handler():
+    time.sleep(1)
+"""),
+    "exception-taxonomy": ("ray_tpu_torch/_private/plant_except.py", """
+def swallow():
+    try:
+        return 1
+    except:
+        return 0
+"""),
+    "knob-registry": ("ray_tpu_torch/plant_knob.py", """
+import os
+
+VALUE = os.environ.get("RT_NOT_A_REGISTERED_KNOB")
+"""),
+    "event-kinds": ("ray_tpu_torch/plant_event.py", """
+from ray_tpu_torch._private.events import emit_event
+
+
+def report():
+    emit_event("no_such_event_kind", "plant")
+"""),
+    "lock-discipline": ("ray_tpu_torch/plant_lock.py", """
+import threading
+
+
+class TwoLocks:
+    def __init__(self):
+        self._a = threading.Lock()
+        self._b = threading.Lock()
+
+    def one(self):
+        with self._a:
+            with self._b:
+                pass
+
+    def other(self):
+        with self._b:
+            with self._a:
+                pass
+"""),
+    "wire-schema": ("ray_tpu_torch/plant_wire.py", """
+class Record:
+    def __getstate__(self):
+        return (self.a, self.b, self.c)
+
+    def __setstate__(self, state):
+        self.a, self.b = state
+"""),
+}
+
+
+def test_lint_with_no_paths_checks_the_port(capsys, tmp_path):
+    """`ray-tpu-torch lint` runs rtcheck's six passes over ray_tpu_torch/
+    (every .py file counted) and the tree is clean; on a scratch tree with
+    the port's registry files, each pass finds the file planted to violate
+    it (and the planted files are all it finds)."""
+    import shutil
+
+    from ray_tpu_torch.scripts import lint
+
+    assert cli_main(["lint", "--json"]) == 0
     rep = json.loads(capsys.readouterr().out)
-    assert rep["ok"] and not rep["findings"]
-    assert rep["files"] > 100
+    assert rep["ok"] and not rep["findings"] and not rep["baselined"]
+    n_files = sum(name.endswith(".py") for _, _, names in
+                  os.walk(os.path.join(lint.REPO_ROOT, "ray_tpu_torch"))
+                  for name in names)
+    assert rep["files"] == n_files > 100
+
+    for rel in (lint.REGISTRY_PATH, lint.EVENTS_PATH, *lint.TAXONOMY_FILES,
+                "README.md"):
+        os.makedirs(tmp_path / os.path.dirname(rel), exist_ok=True)
+        shutil.copy(os.path.join(lint.REPO_ROOT, rel), tmp_path / rel)
+    for rel, source in LINT_PLANTS.values():
+        os.makedirs(tmp_path / os.path.dirname(rel), exist_ok=True)
+        (tmp_path / rel).write_text(source)
+    res = lint.run(root=str(tmp_path))
+    found = {(f.pass_id, f.path) for f in res.findings}
+    assert found == {(pid, rel) for pid, (rel, _) in LINT_PLANTS.items()}, \
+        [f.render() for f in res.findings]
+    assert {p.id for p in lint.passes()} == set(LINT_PLANTS)

@@ -404,7 +404,7 @@ def test_batch_inference_of_two_rows_on_the_card(gen):
     from ray_tpu_torch import data
     from ray_tpu_torch.llm import LLMConfig, LLMEngine, batch_inference
 
-    # D = 64: the decode kernel takes head dims 64 and 128
+    # D = 64
     cfg = LLMConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
                     max_seq=64, max_new_tokens=8)
     prompts = np.random.RandomState(1).randint(0, 256, (2, 6)).astype(
@@ -471,6 +471,109 @@ def test_pipelined_engine_on_the_card_gives_golden_tokens(gen):
         assert s["decode_steps"] > 0
         assert s["kernel_launches"]["decode_attention"] == \
             len(s["layers"]) * s["decode_steps"]
+
+
+# ---- the reference's narrow heads: D = 16 and 32
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+def test_wgmma_descriptor_products_match_a_plain_product(gen, d, which):
+    """One wgmma product through each descriptor the flash kernels use,
+    on tiles loaded by TMA as the kernels load them (wgmma_probe.cu): 0 the
+    forward's Q K^T (both K-major), 1 the backward's K Q^T, 2 P V with P
+    from registers and V MN-major, 3 dQ = dS K with dS^T and K MN-major.
+    D = 64 runs the 128-byte swizzle's descriptors as a control. Both
+    sides sum bf16 products in f32: within 1e-3 * max(1, |ref|)."""
+    dt = torch.bfloat16
+    shapes = {0: ((64, d), (128, d)), 1: ((64, d), (64, d)),
+              2: ((64, 128), (128, d)), 3: ((128, 64), (128, d))}[which]
+    a, b = (_randn(gen, *shape, dtype=dt) for shape in shapes)
+    ref = {0: lambda: a.float() @ b.float().T,
+           1: lambda: a.float() @ b.float().T,
+           2: lambda: a.float() @ b.float(),
+           3: lambda: a.float().T @ b.float()}[which]()
+    out = torch.full_like(ref, float("nan"))
+    stream = torch.cuda.current_stream().cuda_stream
+    kernels.WGMMA_PROBE.launch(
+        None if which == 2 else a.data_ptr(), b.data_ptr(),
+        a.data_ptr() if which == 2 else None, out.data_ptr(), d, which,
+        stream)
+    torch.cuda.synchronize()
+    err = (out - ref).abs() / ref.abs().clamp(min=1)
+    assert torch.isfinite(out).all() and float(err.max()) <= 1e-3
+
+
+NARROW_DECODE_CASES = [
+    (4, 4, 16, 300), (16, 4, 16, 1024),   # rep 1 and 4 at D = 16
+    (16, 16, 32, 1024), (16, 8, 32, 600),  # serving heads, rep 2 at D = 32
+    (4, 1, 32, 300),                       # rep 4 at D = 32
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kv,d,s", NARROW_DECODE_CASES)
+def test_decode_kernel_matches_plain_at_narrow_heads(gen, dtype, hq, kv, d,
+                                                     s):
+    """As test_decode_kernel_matches_plain, at head dims 16 and 32."""
+    b = len(_edge_lengths(6, hq, kv, d, s, dtype))
+    _decode_and_check(gen, dtype, b, hq, kv, d, s)
+
+
+NARROW_FLASH_CASES = [
+    (2, 200, 200, 4, 4, 16, True),
+    (1, 77, 300, 8, 2, 32, True),      # GQA, Sq < Sk, ragged tiles
+    (1, 130, 70, 2, 2, 16, True),      # Sq > Sk: rows without keys
+    (2, 64, 190, 4, 1, 32, False),     # GQA rep 4
+    (1, 129, 127, 2, 2, 32, True),     # Sq > Sk by one
+    (1, 1000, 1000, 4, 1, 16, True),   # ragged, rep 4
+    (8, 32, 32, 8, 8, 16, True),       # the dryrun's training heads
+    (2, 128, 128, 8, 8, 32, True),     # entry()'s heads
+    (1, 512, 1024, 8, 2, 16, True),    # GQA Sq512 < Sk1024
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", NARROW_FLASH_CASES)
+def test_flash_kernels_match_plain_at_narrow_heads(gen, dtype, b, sq, sk, hq,
+                                                   hkv, d, causal):
+    """The forward (with its logsumexp) and the backward at head dims 16
+    and 32 against their plain versions, as at 64 and 128."""
+    q = _randn(gen, b, sq, hq, d, dtype=dtype)
+    k, v = (_randn(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    dout = _randn(gen, b, sq, hq, d, dtype=dtype)
+    before = kernels.FLASH_ATTENTION.launches
+    _check(flash_attention_cuda(q, k, v, causal),
+           _reference_flash_attention(q, k, v, causal), dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    assert kernels.FLASH_ATTENTION.launches == before + 2
+    ref_out, ref_lse = _reference_flash_attention_lse(q, k, v, causal)
+    _check(out, ref_out, dtype)
+    dead = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), dead)
+    diff = (lse - ref_lse)[~dead].abs()
+    assert diff.numel() == 0 or float(diff.max()) <= 1e-4
+    before = kernels.FLASH_ATTENTION_BWD.launches
+    grads = flash_attention_backward_cuda(q, k, v, out, dout, lse, causal)
+    assert kernels.FLASH_ATTENTION_BWD.launches == before + 1
+    refs = _reference_flash_attention_backward(q, k, v, out, dout, lse,
+                                               causal)
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape
+        _check(g, r, dtype)
+    if causal and sq > sk:
+        assert torch.all(out[:, :sq - sk] == 0)
+        assert torch.all(grads[0][:, :sq - sk] == 0)
+
+
+def test_flash_backward_kernel_repeats_at_narrow_heads(gen):
+    """dk and dv stay bitwise repeatable at D = 16 and 32; dq (f32
+    atomics) within the tolerance."""
+    for d in (16, 32):
+        args = _backward_case(gen, 2, 300, 300, 8, 2, d, True)
+        first = flash_attention_backward_cuda(*args, True)
+        second = flash_attention_backward_cuda(*args, True)
+        _check(first[0], second[0], torch.bfloat16)
+        assert torch.equal(first[1], second[1])
+        assert torch.equal(first[2], second[2])
 
 
 # ---- the parallelism layer: ranks sharing the card

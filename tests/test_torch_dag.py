@@ -441,13 +441,15 @@ def test_dag_events_compiled_and_teardown(cluster):
 
 def test_stage_death_event_names_its_node(cluster):
     """A killed stage fails the open invocation with a DagStageError, and
-    its dag_stage_death event names the node the stage lived on (looked
-    up through `util.state.list_actors`, as the reference does)."""
+    its dag_stage_death event names the node the stage lived on (recorded
+    at compile, while the stage lived)."""
     from ray_tpu_torch.dag import InputNode, compile
 
     @rt.remote(num_cpus=0)
     class Stage:
         def work(self, x):
+            if x == 2:
+                time.sleep(60)  # invocation 2 is still open at the kill
             return x + 1
 
     s = Stage.remote()
@@ -456,13 +458,44 @@ def test_stage_death_event_names_its_node(cluster):
     cdag = compile(dag)
     try:
         assert cdag.execute(1).get(timeout=60) == 2
+        # kill() returns before the stage's process is gone, so an
+        # invocation made after it could still be answered; this one is
+        # open (submitted, held by the stage) when the stage is killed
+        ref = cdag.execute(2)
         rt.kill(s)
         with pytest.raises(DagStageError):
-            cdag.execute(2).get(timeout=60)
+            ref.get(timeout=60)
         rows = _wait(lambda: [e for e in state.list_events(entity=cdag.dag_id)
                               if e["kind"] == "dag_stage_death"] or None,
                      what="dag_stage_death event")
         assert rows[0]["attrs"]["node"] == state.list_nodes()[0]["node_id"]
+    finally:
+        cdag.teardown()
+
+
+def test_compile_records_each_stage_node_while_it_lives(cluster):
+    """compile records the node of every stage, an actor method's and a
+    function stage's, while the stages are alive; a dag_stage_death event
+    names its node from that record rather than from a lookup made after
+    the death."""
+    from ray_tpu_torch.dag import InputNode, compile
+
+    @rt.remote(num_cpus=0)
+    class Stage:
+        def work(self, x):
+            return x + 1
+
+    def double(x):
+        return 2 * x
+
+    s = Stage.remote()
+    with InputNode() as inp:
+        dag = rt.remote(double).bind(s.work.bind(inp))
+    cdag = compile(dag)
+    try:
+        node = state.list_nodes()[0]["node_id"]
+        assert [st.node for st in cdag._stages] == [node, node]
+        assert cdag.execute(1).get(timeout=60) == 4
     finally:
         cdag.teardown()
 

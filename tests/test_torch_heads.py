@@ -1,0 +1,210 @@
+"""The port's attention at the JAX package's own narrow head widths, D = 16
+and 32, on the CPU.
+
+The plain versions of the three kernels against the JAX package (its
+Pallas kernels in interpret mode, its XLA paths, `jax.vjp` of
+`_xla_attention` for the gradient) in float32 within 1e-5, at the TPU
+kernels' tile rules (Sq a multiple of 8, Sk and cache lengths multiples of
+128); the decode kernel's split plan at these widths; the wrappers'
+refusal of the widths no kernel takes; and the port's dryrun at the
+reference's own configurations (heads of 16). The kernels themselves run
+on the card: tests/test_torch_cuda.py.
+"""
+
+import ast
+import importlib
+import os
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from ray_tpu.ops.attention import _xla_attention
+from ray_tpu.ops.decode_attention import (_xla_decode_attention,
+                                          decode_attention_pallas)
+from ray_tpu.ops.flash_attention import flash_attention as jax_flash
+from ray_tpu_torch.ops import decode_attention, flash_attention
+from ray_tpu_torch.ops.decode_attention import (decode_attention_cuda,
+                                                rows_per_round, split_plan)
+from ray_tpu_torch.ops.flash_attention import (
+    _reference_flash_attention_backward, _reference_flash_attention_lse,
+    flash_attention_backward_cuda, flash_attention_cuda)
+from ray_tpu_torch.parallel import dryrun
+
+# the modules (ray_tpu_torch.ops re-exports their functions by these names)
+decode_mod = importlib.import_module("ray_tpu_torch.ops.decode_attention")
+flash_mod = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = 1e-5
+
+
+def _randn(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+def _close(a, b, tol=TOL):
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    np.testing.assert_allclose(a, np.asarray(b), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("b,hq,kv,s,lengths", [
+    (3, 4, 4, 256, [1, 100, 256]),   # MHA, ragged, a full cache row
+    (2, 8, 2, 128, [1, 77]),         # GQA rep 4
+])
+def test_decode_attention_matches_jax_at_narrow_heads(d, b, hq, kv, s,
+                                                      lengths):
+    rng = np.random.RandomState(0)
+    q, k, v = _randn(rng, b, hq, d), _randn(rng, b, s, kv, d), \
+        _randn(rng, b, s, kv, d)
+    lens = np.asarray(lengths, np.int32)
+    port = decode_attention(*map(torch.from_numpy, (q, k, v, lens)))
+    jq, jk, jv, jl = map(jnp.asarray, (q, k, v, lens))
+    _close(port, decode_attention_pallas(jq, jk, jv, jl, block_k=128,
+                                         interpret=True))
+    _close(port, _xla_decode_attention(jq, jk, jv, jl))
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv", [
+    (2, 128, 128, 4, 4),
+    (1, 64, 256, 8, 2),   # GQA, Sq < Sk (diagonal offset 192)
+])
+def test_flash_attention_matches_jax_at_narrow_heads(d, causal, b, sq, sk,
+                                                     hq, hkv):
+    rng = np.random.RandomState(1)
+    q, k, v = _randn(rng, b, sq, hq, d), _randn(rng, b, sk, hkv, d), \
+        _randn(rng, b, sk, hkv, d)
+    port = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(port, jax_flash(jq, jk, jv, causal=causal, block_q=min(sq, 128),
+                           block_k=128, interpret=True))
+    _close(port, _xla_attention(jq, jk, jv, causal=causal))
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,causal", [
+    (2, 64, 128, 4, 4, True),
+    (1, 32, 128, 8, 2, False),   # GQA, Sq < Sk
+    (8, 32, 32, 8, 8, True),     # the dryrun's training heads (D = 16)
+])
+def test_flash_backward_matches_jax_grad_at_narrow_heads(d, b, sq, sk, hq,
+                                                         hkv, causal):
+    """The plain backward (from lse and Delta) and the CPU autograd
+    Function both equal jax.vjp of `_xla_attention` within 1e-5."""
+    rng = np.random.RandomState(6)
+    q, dout = _randn(rng, b, sq, hq, d), _randn(rng, b, sq, hq, d)
+    k, v = _randn(rng, b, sk, hkv, d), _randn(rng, b, sk, hkv, d)
+    _, vjp = jax.vjp(lambda a, c, e: _xla_attention(a, c, e, causal=causal),
+                     *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(dout))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = _reference_flash_attention_lse(tq, tk, tv, causal)
+    plain = _reference_flash_attention_backward(tq, tk, tv, out, tdo, lse,
+                                                causal)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    flash_attention(*leaves, causal=causal).backward(tdo)
+    for g, leaf, r in zip(plain, leaves, ref):
+        _close(g, r)
+        _close(leaf.grad, r)
+
+
+def _kernel_rows_per_round(group: int, d: int, elem: int) -> int:
+    """decode_attention.cu: threads<REP>() threads, D / (16 / elem) lanes
+    per row (TPR), so 32 / TPR rows per warp at once, kUnroll rows in
+    flight per worker."""
+    threads = 256 if group >= 4 else 128
+    unroll = 2 if group >= 4 else 4
+    tpr = d // (16 // elem)
+    return threads // 32 * (32 // tpr) * unroll
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("b,hq,kv,s,lengths", [
+    (8, 16, 16, 1024, [1, 1024, 517, 64, 300, 900, 128, 777]),
+    (8, 16, 4, 1024, [1, 1024, 517, 64, 300, 900, 128, 777]),
+    (2, 4, 4, 64, [64, 1]),
+])
+def test_split_plan_at_narrow_heads(d, elem, b, hq, kv, s, lengths):
+    """rows_per_round is the kernel's rows per round at D = 16 and 32 (a
+    worker of 2 or 4 bf16 lanes, 4 or 8 f32 lanes), and the chunks of the
+    plan cover every row of every length once."""
+    plan = split_plan(b, hq, kv, s, d, elem)
+    rows = rows_per_round(plan.group, d, elem)
+    assert rows == _kernel_rows_per_round(plan.group, d, elem)
+    assert plan.chunk % rows == 0 and plan.n_splits * plan.chunk >= s
+    for length in lengths:
+        hits = np.zeros(length, np.int64)
+        for split in range(plan.n_splits):
+            hits[split * plan.chunk:min((split + 1) * plan.chunk,
+                                        length)] += 1
+        assert np.all(hits == 1)
+    if d == 16 and elem == 2:
+        assert rows == 256  # so S = 1024 gives 2 splits
+        if s == 1024:
+            assert plan.n_splits == 2
+
+
+@pytest.mark.parametrize("d", [8, 96])
+def test_wrappers_name_the_supported_head_dims(d):
+    """Each CUDA wrapper refuses a head dim no kernel takes with a
+    ValueError that names the ones they do (before looking at devices)."""
+    assert decode_mod.SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
+    assert flash_mod.SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
+    z = torch.zeros
+    named = r"\(16, 32, 64, 128\)"
+    with pytest.raises(ValueError, match=named):
+        decode_attention_cuda(z(1, 2, d), z(1, 8, 2, d), z(1, 8, 2, d),
+                              z(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match=named):
+        flash_attention_cuda(z(1, 8, 2, d), z(1, 8, 2, d), z(1, 8, 2, d))
+    with pytest.raises(ValueError, match=named):
+        flash_attention_backward_cuda(*(z(1, 8, 2, d) for _ in range(5)),
+                                      z(1, 2, 8))
+
+
+def _reference_config_kwargs(call: str) -> dict:
+    """The constant keyword arguments of the `call(...)` in
+    __graft_entry__.py's dryrun_multichip."""
+    tree = ast.parse(open(os.path.join(REPO, "__graft_entry__.py")).read())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "dryrun_multichip")
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr",
+                                                  getattr(node.func, "id",
+                                                          None)) == call:
+            return {kw.arg: kw.value.value for kw in node.keywords
+                    if isinstance(kw.value, ast.Constant)}
+    raise AssertionError(f"no {call}(...) in __graft_entry__.py")
+
+
+def test_dryrun_runs_the_reference_configurations():
+    """The port's dryrun_multichip(4) on the CPU: the training step's model
+    and the tp generate's are the reference's (heads of 16), and every
+    configuration runs within its tolerance on 4 ranks."""
+    assert dryrun.TRAIN_CONFIG == {
+        k: v for k, v in _reference_config_kwargs("TransformerConfig").items()
+        if k in dryrun.TRAIN_CONFIG}
+    assert set(dryrun.TRAIN_CONFIG) >= {"vocab_size", "d_model", "n_layers",
+                                        "n_heads", "n_kv_heads", "d_ff",
+                                        "max_seq"}
+    assert dryrun.GENERATE_CONFIG == _reference_config_kwargs("LLMConfig")
+    assert dryrun.TRAIN_CONFIG["d_model"] // dryrun.TRAIN_CONFIG["n_heads"] \
+        == 16
+    assert dryrun.GENERATE_CONFIG["d_model"] \
+        // dryrun.GENERATE_CONFIG["n_heads"] == 16
+    ranks = dryrun.dryrun_ranks(4, device="cpu")
+    assert [label for label, _ in ranks[0]["runs"]] == [
+        "dp.sp2.tp2", "fsdp2.tp2", "ep2.moe", "pp2.pipeline",
+        "tp4.llm.generate"]
+    losses = dict(ranks[0]["runs"][:4])
+    assert all(np.isfinite(v) for v in losses.values())
+    # the plain versions ran: no kernel launches on the CPU
+    for r in ranks:
+        assert all(not by_d for by_d in r["launches"].values())

@@ -238,7 +238,8 @@ def _c_entry_points():
     return found
 
 
-@pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
+@pytest.mark.parametrize("kernel", (*kernels.KERNELS, kernels.WGMMA_PROBE),
+                         ids=lambda k: k.name)
 def test_kernel_argtypes_match_the_c_entry_point(kernel):
     """Each Kernel's ctypes argtypes follow its C signature: as many
     parameters, c_void_p for every pointer and c_int for every int. ctypes
@@ -358,13 +359,14 @@ def test_flash_backward_schedule_rows_without_keys():
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """The CUDA wrappers raise ValueError naming the shape for head dims
-    other than 64/128, and refuse CPU tensors rather than computing."""
+    other than 16/32/64/128, and refuse CPU tensors rather than
+    computing."""
     z = torch.zeros
-    with pytest.raises(ValueError, match="D=32"):
-        decode_attention_cuda(z(1, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32),
+    with pytest.raises(ValueError, match="D=96"):
+        decode_attention_cuda(z(1, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96),
                               z(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="D=32"):
-        flash_attention_cuda(z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32))
+    with pytest.raises(ValueError, match="D=96"):
+        flash_attention_cuda(z(1, 8, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96))
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(z(1, 2, 64), z(1, 8, 2, 64), z(1, 8, 2, 64),
                               z(1, dtype=torch.int32))
@@ -492,10 +494,10 @@ def test_backward_and_decode_wrappers_refuse_what_the_kernels_do_not_take():
     z = torch.zeros
     q, k = z(1, 8, 2, 64), z(1, 8, 2, 64)
     lse = z(1, 2, 8)
-    with pytest.raises(ValueError, match="D=32"):
-        flash_attention_backward_cuda(z(1, 8, 2, 32), z(1, 8, 2, 32),
-                                      z(1, 8, 2, 32), z(1, 8, 2, 32),
-                                      z(1, 8, 2, 32), lse)
+    with pytest.raises(ValueError, match="D=96"):
+        flash_attention_backward_cuda(z(1, 8, 2, 96), z(1, 8, 2, 96),
+                                      z(1, 8, 2, 96), z(1, 8, 2, 96),
+                                      z(1, 8, 2, 96), lse)
     with pytest.raises(ValueError, match="shaped like q"):
         flash_attention_backward_cuda(q, k, k, q, z(1, 7, 2, 64), lse)
     with pytest.raises(ValueError, match="CUDA"):
