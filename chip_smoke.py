@@ -211,6 +211,24 @@ from the root of a checkout. Phases, each of which raises on failure
    kernel against the plain attention path on the card, as relative
    norms within TRAIN_GRAD_REL_TOL; (c) each kernel's launches by head
    dim on (a) and (b): every kernel at D = 16 and at D = 32.
+16. The other head widths the JAX package's kernels take (every multiple
+   of 8 from 8 to 256), run right after phase 15 (about 80-100 s): (0)
+   the golden heads file's 2-layer f32 models at D = 8, 80, 96 and 256
+   (TF32 off) under phase 15's bounds, loss and gradients included; (a)
+   Phi-3-mini's widths (PHI3_MINI, D = 96, 32 layers, about 3.8 B seeded
+   weights) served over HTTP by a `build_openai_app` replica holding the
+   card: a greedy prompt and phase 4's 6-request mix, each answered with
+   finish reason "length"; (b) Gemma-2B's attention width (GEMMA_2B, D =
+   256, 18 layers) served in process by OpenAIServer, the same mix; (c)
+   for each, a greedy prompt's first 4 decode steps through the slot
+   cache against the same weights on the decode kernel's plain version,
+   each within 2% relative norm (for Phi-3-mini an in-process engine of
+   the same seed, built while the replica deploys); (d) both
+   TransformerConfigs cut to 2 layers (Gemma's multi-query, n_kv_heads=1)
+   on one seeded batch [2, 2049]: loss and gradients against the plain
+   attention path within TRAIN_GRAD_REL_TOL, then 3 Adam steps; every
+   kernel must launch at each of D = 8, 80, 96 and 256 on these paths.
+   Phase 2 times the new instances at phase 16's shapes (`_wide_cases`).
 
 Launch counts: the decode kernel's from phase 4, the flash forward's from
 phases 5 and 6, the flash backward's from phase 6, each path's counts set
@@ -230,7 +248,8 @@ traced stream's actor (c) and the autoscaled node's task (e), summed.
 Each row also carries `narrow_heads`: phase 2's D = 16 and 32 cases of
 its kernel, its launches by head dim on phase 15's paths (`launches`)
 and in phase 12 (e)'s dryrun, summed over the ranks
-(`dryrun_launches`).
+(`dryrun_launches`), and `wide_heads`: phase 2's cases at D = 8, 40, 80,
+96, 120 and 256 and its launches by head dim on phase 16's paths.
 
 It prints the device line of `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`, one JSON line {"kernels": [...]}, and last
@@ -649,6 +668,9 @@ def _kernel_cases():
                  "float32", ragged, flush, gen)
     _decode_case("D128 GQA rep 16 B4 Hq32 KV2 S600 bf16", 4, 32, 2, 128,
                  600, "bfloat16", [1, 600, 333, 17], flush, gen)
+    # long context, few items: the split plan's most chunks per sequence
+    _decode_case("long context B1 Hq8 KV1 D64 S32768 bf16", 1, 8, 1, 64,
+                 32768, "bfloat16", [32768], flush, gen)
     flash_main = _flash_case("forward B4 S1024 H16 D64 bf16 causal",
                              4, 1024, 1024, 16, 16, 64, "bfloat16", True,
                              flush, gen)
@@ -677,8 +699,9 @@ def _kernel_cases():
     _flash_bwd_case("backward Sq1024 > Sk512 h8 d64 bf16 causal", 1, 1024,
                     512, 8, 8, 64, "bfloat16", True, flush, gen)
     narrow = _narrow_cases(ragged, flush, gen)
+    wide = _wide_cases(ragged, flush, gen)
     del flush
-    return decode_main, flash_main, bwd_main, narrow
+    return decode_main, flash_main, bwd_main, narrow, wide
 
 
 def _narrow_cases(ragged, flush, gen) -> dict:
@@ -702,6 +725,50 @@ def _narrow_cases(ragged, flush, gen) -> dict:
          16, "bfloat16"),
         ("ragged Sq=Sk=1000 H8 D32 bf16 causal", 2, 1000, 1000, 8, 8, 32,
          "bfloat16")]
+    flash = [_flash_case(f"forward {n}", *a, True, flush, gen)
+             for n, *a in shapes]
+    bwd = [_flash_bwd_case(f"backward {n}", *a, True, flush, gen)
+           for n, *a in shapes]
+    return {"decode_attention": decode, "flash_attention": flash,
+            "flash_attention_bwd": bwd}
+
+
+def _wide_cases(ragged, flush, gen) -> dict:
+    """Phase 2 at the other head widths the JAX package's kernels take:
+    Phi-3-mini's D = 96 and Gemma-2B's D = 256 at phase 16's shapes (the
+    serving caches ragged over S, Gemma's both as trained, multi-query, and
+    as served, 8 KV heads; the training step's B2 S2048), Phi-2's
+    D = 80, D = 8, D = 256 in f32, and widths no listed model uses (D = 120
+    decode, D = 40 forward and backward: the runtime-width instances of
+    tiles 128 and 64). Each kernel's records by name."""
+    def spread(s):  # phase 2's ragged lengths stretched over S
+        return [max(1, n * s // 1024) for n in ragged]
+
+    decode = [
+        _decode_case("Phi-3-mini B8 Hq32 KV32 D96 S4096 bf16", 8, 32, 32, 96,
+                     4096, "bfloat16", spread(4096), flush, gen),
+        _decode_case("Gemma-2B MQA B8 Hq8 KV1 D256 S8192 bf16", 8, 8, 1, 256,
+                     8192, "bfloat16", spread(8192), flush, gen),
+        _decode_case("Gemma-2B served B8 Hq8 KV8 D256 S8192 bf16", 8, 8, 8,
+                     256, 8192, "bfloat16", spread(8192), flush, gen),
+        _decode_case("Phi-2 B8 Hq32 KV32 D80 S2048 bf16", 8, 32, 32, 80,
+                     2048, "bfloat16", spread(2048), flush, gen),
+        _decode_case("GQA B8 Hq16 KV4 D8 S1024 bf16", 8, 16, 4, 8, 1024,
+                     "bfloat16", ragged, flush, gen),
+        _decode_case("f32 B2 Hq8 KV1 D256 S512", 2, 8, 1, 256, 512,
+                     "float32", [512, 77], flush, gen),
+        _decode_case("runtime width B8 Hq16 KV4 D120 S1024 bf16", 8, 16, 4,
+                     120, 1024, "bfloat16", ragged, flush, gen)]
+    shapes = [  # name, b, sq, sk, hq, hkv, d, dtype
+        ("Phi-3-mini B2 S2048 H32 D96 bf16 causal", 2, 2048, 2048, 32, 32,
+         96, "bfloat16"),
+        ("Gemma-2B MQA B2 S2048 Hq8 Hkv1 D256 bf16 causal", 2, 2048, 2048, 8,
+         1, 256, "bfloat16"),
+        ("Phi-2 B2 S2048 H32 D80 bf16 causal", 2, 2048, 2048, 32, 32, 80,
+         "bfloat16"),
+        ("f32 B2 S256 H4 D8 causal", 2, 256, 256, 4, 4, 8, "float32"),
+        ("runtime width B2 S2048 H16 D40 bf16 causal", 2, 2048, 2048, 16, 16,
+         40, "bfloat16")]
     flash = [_flash_case(f"forward {n}", *a, True, flush, gen)
              for n, *a in shapes]
     bwd = [_flash_bwd_case(f"backward {n}", *a, True, flush, gen)
@@ -802,13 +869,31 @@ GOLDEN_HEADS = os.path.join(REPO, "tests", "data",
 #: entry()'s model (__graft_entry__.py:21, d_model 256 in 8 heads, so
 #: D = 32; d_ff 688 there, 680 here). Attention, the part these check, is
 #: the same in both forms.
+#: Phase 16's small models at the other widths the JAX package's kernels
+#: take (D = 8, 80, 96 and 256), 2 layers each, as LLMConfig derives them.
 HEADS_MODELS = {
     "train": dict(vocab_size=512, d_model=128, n_layers=2, n_heads=8,
                   max_seq=64),
     "entry": dict(vocab_size=2048, d_model=256, n_layers=2, n_heads=8,
                   max_seq=256),
+    "d8": dict(vocab_size=256, d_model=32, n_layers=2, n_heads=4,
+               max_seq=64),
+    "d80": dict(vocab_size=256, d_model=160, n_layers=2, n_heads=2,
+                max_seq=64),
+    "d96": dict(vocab_size=256, d_model=288, n_layers=2, n_heads=3,
+                max_seq=64),
+    "d256": dict(vocab_size=256, d_model=512, n_layers=2, n_heads=2,
+                 max_seq=64),
 }
+#: The models of phase 15 (the reference's widths) and of phase 16.
+REFERENCE_HEADS = ("train", "entry")
+WIDE_HEADS = ("d8", "d80", "d96", "d256")
+#: Models whose training step (loss and sampled gradients) the file holds.
+HEADS_TRAINED = ("train", *WIDE_HEADS)
 HEADS_SEED = 21
+#: Each model's weight seed (train and entry as the file had them first).
+HEADS_SEEDS = {"entry": 21, "train": 22, "d8": 23, "d80": 24, "d96": 25,
+               "d256": 26}
 HEADS_PROMPTS = ([5, 17, 250, 3, 99], [1, 2, 3, 4, 5, 6, 7, 8, 9])
 HEADS_MAX_TOKENS = 12
 #: Gradient entries the file keeps per parameter tensor (all of a smaller
@@ -822,7 +907,7 @@ def heads_params(name: str) -> dict:
     """Flax param tree (numpy f32) of HEADS_MODELS[name], drawn with numpy
     from HEADS_SEED (the layout of tests/test_torch_golden.py's)."""
     cfg = HEADS_MODELS[name]
-    rng = np.random.RandomState(HEADS_SEED + sorted(HEADS_MODELS).index(name))
+    rng = np.random.RandomState(HEADS_SEEDS[name])
     d, h = cfg["d_model"], cfg["n_heads"]
     hd, ff = d // h, int(d * 8 / 3) // 8 * 8
 
@@ -857,9 +942,9 @@ def heads_tokens(name: str) -> np.ndarray:
         0, HEADS_MODELS[name]["vocab_size"], size=(2, 32)).astype(np.int32)
 
 
-def heads_train_tokens() -> np.ndarray:
-    """The training model's batch: [2, max_seq + 1] seeded tokens."""
-    cfg = HEADS_MODELS["train"]
+def heads_train_tokens(name: str = "train") -> np.ndarray:
+    """A trained model's batch: [2, max_seq + 1] seeded tokens."""
+    cfg = HEADS_MODELS[name]
     return np.random.RandomState(HEADS_SEED + 20).randint(
         0, cfg["vocab_size"], size=(2, cfg["max_seq"] + 1)).astype(np.int32)
 
@@ -883,11 +968,11 @@ def heads_grad_index(key: str, size: int) -> np.ndarray:
     return np.sort(rng.choice(size, HEADS_GRAD_SAMPLES, replace=False))
 
 
-def heads_port_outputs(device) -> dict:
+def heads_port_outputs(device, names=REFERENCE_HEADS) -> dict:
     """The port at the file's weights on `device` (float32; TF32 off on
-    the card): each model's full-forward logits and its ContinuousEngine's
-    greedy tokens, and the training model's loss and sampled gradients of
-    one step, keyed as in the file."""
+    the card): each named model's full-forward logits and its
+    ContinuousEngine's greedy tokens, and each trained model's loss and
+    sampled gradients of one step, keyed as in the file."""
     import torch
 
     from ray_tpu_torch.llm import LLMConfig
@@ -897,7 +982,8 @@ def heads_port_outputs(device) -> dict:
     from ray_tpu_torch.models.transformer import Transformer, loss_fn
 
     out = {}
-    for name, cfg in HEADS_MODELS.items():
+    for name in names:
+        cfg = HEADS_MODELS[name]
         tree = heads_params(name)
         lcfg = LLMConfig(**cfg, dtype="float32",
                          params=params_from_flax(tree))
@@ -916,19 +1002,19 @@ def heads_port_outputs(device) -> dict:
                                                np.int32)
         finally:
             eng.shutdown()
-        if name != "train":
+        if name not in HEADS_TRAINED:
             continue
         loss = loss_fn(model, torch.from_numpy(
-            heads_train_tokens()).long().to(device))
+            heads_train_tokens(name)).long().to(device))
         loss.backward()
-        out["train/loss"] = np.float32(loss.item())
+        out[f"{name}/loss"] = np.float32(loss.item())
         grads = {n: p.grad.detach().cpu().numpy()
                  for n, p in model.named_parameters()}
         for key, leaf in heads_flat(tree).items():
             g = grads[_port_name(key)]
             assert g.shape == leaf.shape, (key, g.shape, leaf.shape)
             g = g.reshape(-1)
-            out[f"train/grad/{key}"] = g[heads_grad_index(key, g.size)]
+            out[f"{name}/grad/{key}"] = g[heads_grad_index(key, g.size)]
     return out
 
 
@@ -939,13 +1025,13 @@ def _port_name(key: str) -> str:
                   key.removesuffix("/kernel")).replace("/", ".")
 
 
-def heads_check(g: dict, out: dict) -> dict:
-    """Hold the port's outputs to the file: logits within 1e-4, greedy
-    tokens equal, loss within 1e-5 and every kept gradient entry within
-    1e-4 * max(1, |ref|) (f32, other summation order). Returns the worst
-    errors; raises on a miss."""
+def heads_check(g: dict, out: dict, names=REFERENCE_HEADS) -> dict:
+    """Hold the port's outputs of the named models to the file: logits
+    within 1e-4, greedy tokens equal, and for the trained ones loss within
+    1e-5 and every kept gradient entry within 1e-4 * max(1, |ref|) (f32,
+    other summation order). Returns the worst errors; raises on a miss."""
     rec = {}
-    for name in HEADS_MODELS:
+    for name in names:
         rec[f"{name}_logit_err"] = float(np.abs(
             out[f"{name}/logits"] - g[f"{name}/logits"]).max())
         if not np.array_equal(out[f"{name}/greedy"], g[f"{name}/greedy"]):
@@ -955,15 +1041,16 @@ def heads_check(g: dict, out: dict) -> dict:
         if not rec[f"{name}_logit_err"] <= 1e-4:
             raise AssertionError(f"{name}: logits differ by "
                                  f"{rec[f'{name}_logit_err']}")
-    rec["train_loss_err"] = abs(float(out["train/loss"])
-                                - float(g["train/loss"]))
-    worst = max(float((np.abs(out[k] - g[k])
-                       / np.maximum(1.0, np.abs(g[k]))).max())
-                for k in g if k.startswith("train/grad/"))
-    rec["train_grad_err"] = worst
-    if not (rec["train_loss_err"] <= 1e-5 and worst <= 1e-4):
-        raise AssertionError(f"training step differs from the JAX "
-                             f"package's: {rec}")
+        if name not in HEADS_TRAINED:
+            continue
+        loss_err = abs(float(out[f"{name}/loss"]) - float(g[f"{name}/loss"]))
+        worst = max(float((np.abs(out[k] - g[k])
+                           / np.maximum(1.0, np.abs(g[k]))).max())
+                    for k in g if k.startswith(f"{name}/grad/"))
+        rec[f"{name}_loss_err"], rec[f"{name}_grad_err"] = loss_err, worst
+        if not (loss_err <= 1e-5 and worst <= 1e-4):
+            raise AssertionError(f"{name}: training step differs from the "
+                                 f"JAX package's: {rec}")
     return rec
 
 
@@ -1049,6 +1136,413 @@ def phase_widths(device: str = "cuda") -> dict:
         raise AssertionError(f"never launched on phase 15's paths: {missing}")
     rec["phase_s"] = time.perf_counter() - t0
     log(f"phase 15 (the reference's widths): {rec['phase_s']:.1f} s, "
+        f"launches by head dim {json.dumps(launches)}")
+    return rec
+
+
+# ------------------------------------------------- the other head widths
+#: Phase 16 (a): Phi-3-mini's widths, microsoft/Phi-3-mini-4k-instruct's
+#: config.json (hidden_size 3072, 32 heads and 32 KV heads, so D = 96,
+#: intermediate_size 8192, 32 layers, vocab_size 32064, 4096 positions);
+#: LLMConfig derives the same d_ff (8192) and KV heads. About 3.8 B
+#: parameters (7.6 GB in bf16) and 12.9 GB of slot caches at max_batch 8.
+PHI3_MINI = dict(vocab_size=32064, d_model=3072, n_layers=32, n_heads=32,
+                 max_seq=4096, dtype="bfloat16", seed=0)
+#: (b): Gemma-2B's attention width, google/gemma-2b's config.json
+#: (hidden_size 2048, 8 heads of 256, 18 layers, vocab_size 256000, 8192
+#: positions). LLMConfig derives the rest, so it differs from Gemma-2B in
+#: two ways: 8 KV heads where Gemma has 1 (multi-query), and a SwiGLU
+#: d_ff of 5456 where Gemma has GeGLU at 16384. The port adds nothing the
+#: JAX package lacks; (d) trains the multi-query form (n_kv_heads=1), so
+#: the group-8 backward runs.
+GEMMA_2B = dict(vocab_size=256000, d_model=2048, n_layers=18, n_heads=8,
+                max_seq=8192, dtype="bfloat16", seed=0)
+#: (d): both models' TransformerConfig with depth cut to this many layers,
+#: one batch [2, 2049], this many Adam steps.
+WIDE_TRAIN_LAYERS = 2
+WIDE_TRAIN_STEPS = 3
+#: (c): a greedy prompt's first decode steps, logits of the kernels against
+#: the same model on the plain attention functions, as ||got - want|| /
+#: ||want|| per step: both compute in bf16 and differ in attention's
+#: rounding only.
+WIDE_DECODE_STEPS = 4
+WIDE_LOGIT_REL_TOL = 2e-2
+
+
+@contextlib.contextmanager
+def _plain_decode():
+    """The model's decode attention swapped for the decode kernel's plain
+    version (for the comparison run only)."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops.decode_attention import _reference_decode_attention
+
+    saved = transformer.decode_attention
+    transformer.decode_attention = _reference_decode_attention
+    try:
+        yield
+    finally:
+        transformer.decode_attention = saved
+
+
+def _wide_logits(model, prompt, tokens, other=None) -> dict:
+    """(c): the prefill and WIDE_DECODE_STEPS decode steps of `prompt`
+    followed by a server's greedy `tokens`, teacher forced through a 1-slot
+    cache, with the decode kernel and with its plain version. Each decode
+    step's relative norm is held to WIDE_LOGIT_REL_TOL. The server chose
+    its tokens on a cache of 8 slots, whose split plan sums attention in
+    another order, so a near-tie can round apart: each token must be the
+    plain path's largest logit, or below it by at most twice the larger of
+    the row's kernel-vs-plain difference and one bf16 step (2^-7) of the
+    row's largest |logit|. `other`, greedy tokens of the same prompt from
+    another engine, is held to the same rule where it first departs from
+    `tokens` (past that its prefix differs)."""
+    import torch
+
+    toks = list(tokens[:WIDE_DECODE_STEPS + 1])
+    got = _teacher_forced_logits(model, prompt, toks)
+    with _plain_decode():
+        want = _teacher_forced_logits(model, prompt, toks)
+    if not torch.isfinite(got).all():
+        raise AssertionError("decode logits are not finite")
+    rel = [float((g - w).norm() / w.norm()) for g, w in zip(got[1:], want[1:])]
+    allowed = 2 * torch.maximum((got - want).abs().amax(dim=1),
+                                2.0 ** -7 * want.abs().amax(dim=1))
+
+    def gap(row, token):
+        return float(want[row].max() - want[row, token])
+
+    gaps = [gap(i, t) for i, t in enumerate(toks)]
+    shares = [g / float(allowed[i]) for i, g in enumerate(gaps)]
+    rec = {"decode_steps": len(rel), "logits_rel_err_vs_plain": rel,
+           "argmax_equal_steps": int((got.argmax(1) == want.argmax(1)).sum()),
+           "tokens_plain_argmax": sum(g == 0 for g in gaps),
+           "worst_gap": max(gaps), "allowed_gaps": allowed.tolist()}
+    if other is not None:
+        other = list(other[:len(toks)])
+        same = [a == b for a, b in zip(toks, other)]
+        first = same.index(False) if False in same else len(same)
+        rec["other_tokens"], rec["other_equal_prefix"] = other, first
+        if first < len(toks):
+            rec["other_gap_where_it_departs"] = gap(first, other[first])
+            shares.append(rec["other_gap_where_it_departs"]
+                          / float(allowed[first]))
+    rec["worst_share_of_allowed"] = max(shares)
+    if len(rel) != WIDE_DECODE_STEPS or max(rel) > WIDE_LOGIT_REL_TOL:
+        raise AssertionError(f"decode logits differ from the plain path: "
+                             f"{rec}")
+    if rec["worst_share_of_allowed"] > 1.0:
+        raise AssertionError(f"a greedy token is no near-argmax of the "
+                             f"plain path: {rec}")
+    return rec
+
+
+def _check_answers(bodies, results, vocab: int) -> int:
+    """Every request answered with its tokens and finish reason "length";
+    returns the tokens generated."""
+    n = 0
+    for body, out in zip(bodies, results):
+        if out is None:
+            raise AssertionError("a completion was not answered")
+        toks = out["token_ids"]
+        reason = out["choices"][0]["finish_reason"]
+        if len(toks) != body["max_tokens"] or reason != "length" or \
+                not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"completion gave {len(toks)} tokens of "
+                                 f"{body['max_tokens']}, finish {reason}")
+        n += len(toks)
+    return n
+
+
+def _concurrent(call, bodies) -> tuple[list, float]:
+    """Phase 4's staggered concurrent requests through `call`; (answers,
+    wall seconds)."""
+    results = [None] * len(bodies)
+
+    def worker(i):
+        results[i] = call(bodies[i])
+
+    t0 = time.perf_counter()
+    threads = []
+    for i in range(len(bodies)):
+        threads.append(threading.Thread(target=worker, args=(i,)))
+        threads[-1].start()
+        time.sleep(0.05)
+    for t in threads:
+        t.join(timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def _wide_serve(name: str, widths: dict, call, stats) -> tuple[dict, tuple]:
+    """(a) or (b): a greedy prompt, then phase 4's 6-request mix (prompts
+    of 64 to 256 tokens) through `call`; every request answered with its
+    finish reason. `stats()` gives (decode steps, decode launches)."""
+    rng = np.random.RandomState(16)
+    vocab = widths["vocab_size"]
+
+    def prompt(n):
+        return rng.randint(0, vocab, n).tolist()
+
+    lone = {"prompt": prompt(128), "temperature": 0.0,
+            "max_tokens": WIDE_DECODE_STEPS + 1}
+    t0 = time.perf_counter()
+    first = call(lone)
+    _check_answers([lone], [first], vocab)
+    first_s = time.perf_counter() - t0
+    steps0, launches0 = stats()
+    bodies = _serve_mix(prompt)
+    results, wall = _concurrent(call, bodies)
+    n_tokens = _check_answers(bodies, results, vocab)
+    steps, launches = stats()
+    steps, launches = steps - steps0, launches - launches0
+    need = widths["n_layers"] * steps
+    if launches < need or steps == 0:
+        raise AssertionError(f"{name}: the decode kernel launched {launches} "
+                             f"times for {steps} steps of "
+                             f"{widths['n_layers']} layers")
+    rec = {"model": name, "d": widths["d_model"] // widths["n_heads"],
+           "lone_prompt_s": first_s, "concurrent_requests": len(bodies),
+           "generated_tokens": n_tokens, "wall_s": wall,
+           "tokens_per_s": n_tokens / wall, "decode_steps": steps,
+           "ms_per_decode_step_wall": 1e3 * wall / steps,
+           "decode_launches": launches}
+    return rec, (lone["prompt"], first["token_ids"])
+
+
+def _wide_phi3_http() -> tuple[dict, tuple, dict]:
+    """(a): Phi-3-mini served through build_openai_app by a replica actor
+    that holds the card: its record, its greedy prompt and tokens, and the
+    replica's launches by head dim."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.openai import build_openai_app
+
+    rt.init(num_cpus=4)
+    try:
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        serve.run(build_openai_app(LLMConfig(**PHI3_MINI), max_batch=8,
+                                   decode_chunk=16, default_max_tokens=64,
+                                   ray_actor_options={"num_gpus": 1}),
+                  port=port)
+        deploy_s = time.perf_counter() - t0
+
+        def stats():
+            st = _http(f"{base}/v1/stats")
+            return st["decode_steps"], st["kernel_launches"]["decode_attention"]
+
+        rec, lone = _wide_serve(
+            "Phi-3-mini", PHI3_MINI,
+            lambda body: _http(f"{base}/v1/completions", body), stats)
+        st = _http(f"{base}/v1/stats")
+        if st["pid"] == os.getpid():
+            raise AssertionError("Phi-3-mini was not served by a replica")
+        rec.update(deploy_s=deploy_s, replica_pid=st["pid"],
+                   replica_device_bytes=st["device_bytes"])
+        by_d = {name: {int(d): n for d, n in c.items()}
+                for name, c in st["kernel_launches_by_head_dim"].items()}
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    return rec, lone, by_d
+
+
+def _wide_train(name: str, widths: dict, n_kv_heads: int, kernels) -> dict:
+    """(d): the model's TransformerConfig cut to WIDE_TRAIN_LAYERS layers,
+    f32 parameters and bf16 compute, one seeded batch [2, 2049]: the first
+    step's loss and gradients against the plain attention path (relative
+    norms within TRAIN_GRAD_REL_TOL), then WIDE_TRAIN_STEPS Adam steps with
+    the flash kernels once per layer per step."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import model_config
+    from ray_tpu_torch.models.transformer import Transformer, loss_fn
+
+    cfg = dataclasses.replace(model_config(LLMConfig(**widths)),
+                              n_layers=WIDE_TRAIN_LAYERS,
+                              n_kv_heads=n_kv_heads)
+    model = Transformer(cfg, device="cuda", seed=1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2049),
+                           generator=torch.Generator().manual_seed(16)).cuda()
+
+    def grads(context):
+        model.zero_grad(set_to_none=True)
+        with context():
+            loss = loss_fn(model, tokens)
+            loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    ref_loss, ref = grads(_plain_attention)
+    kernels.reset_launch_counts()
+    loss0, got = grads(contextlib.nullcontext)
+    rel = {n: float((got[n] - r).norm() / r.norm()) for n, r in ref.items()}
+    del ref, got
+    worst = max(rel, key=rel.get)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    losses = []
+    for _ in range(WIDE_TRAIN_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    by_d = kernels.launch_counts_by_head_dim()
+    d = cfg.head_dim
+    rec = {"model": name, "d": d, "n_kv_heads": n_kv_heads,
+           "layers": WIDE_TRAIN_LAYERS,
+           "loss_rel_err_vs_plain": abs(loss0 - ref_loss) / abs(ref_loss),
+           "worst_grad_rel_err_vs_plain": [worst, rel[worst]],
+           "losses": losses, "launches": by_d}
+    log("wide train " + json.dumps(rec))
+    want = WIDE_TRAIN_LAYERS * (WIDE_TRAIN_STEPS + 1)
+    if by_d["flash_attention"] != {d: want} or \
+            by_d["flash_attention_bwd"] != {d: want}:
+        raise AssertionError(f"{name}: flash kernels not launched once per "
+                             f"layer per step at D = {d}: {by_d}")
+    if not (rec["loss_rel_err_vs_plain"] <= TRAIN_GRAD_REL_TOL
+            and rel[worst] <= TRAIN_GRAD_REL_TOL
+            and all(np.isfinite(losses))):
+        raise AssertionError(f"{name}: training differs from the plain "
+                             f"path: {rec}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_wide() -> dict:
+    """Phase 16: the other head widths the JAX package's kernels take, at
+    full width through the normal entry points. (0) the golden heads
+    file's models at D = 8, 80, 96 and 256 (f32, TF32 off): logits,
+    greedy tokens, loss and kept gradient entries under phase 15's
+    bounds; (a) Phi-3-mini (D = 96) served over HTTP by a replica actor
+    holding the card, with phase 4's request mix; (b) Gemma-2B's attention
+    width (D = 256) served in process by OpenAIServer, the same mix; (c)
+    for each, the server's greedy tokens of a prompt teacher forced
+    through the kernels and through the plain attention path on the same
+    weights (`_wide_logits`; for Phi-3-mini an in-process engine from the
+    same seed with a 1-slot cache, whose own greedy tokens are held to
+    the same rule where they depart from the replica's); (d) both
+    TransformerConfigs cut to 2 layers (Gemma's multi-query,
+    n_kv_heads=1) trained 3 Adam steps
+    against the plain attention path; every kernel must launch at each of
+    D = 8, 80, 96 and 256 on these paths."""
+    import torch
+
+    from ray_tpu_torch._private import kernels
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm.engine import ContinuousEngine, SamplingParams
+    from ray_tpu_torch.llm.openai import OpenAIServer
+
+    t_phase = time.perf_counter()
+    rec, launches = {}, {k.name: {} for k in kernels.KERNELS}
+
+    def add(by_d):
+        for name, counts in by_d.items():
+            for d, n in counts.items():
+                launches[name][d] = launches[name].get(d, 0) + n
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with np.load(GOLDEN_HEADS) as f:
+        g = {k: f[k] for k in f.files}
+    kernels.reset_launch_counts()
+    rec["golden"] = heads_check(g, heads_port_outputs("cuda", WIDE_HEADS),
+                                WIDE_HEADS)
+    add(kernels.launch_counts_by_head_dim())
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        tf32
+    log("wide golden " + json.dumps(rec["golden"]))
+
+    # (a) Phi-3-mini over HTTP from a replica while an engine of the same
+    # seed is built in this process for (c) (each draws 3.8 B weights on
+    # the host, so the two overlap) and decodes the same prompt
+    t0 = time.perf_counter()
+    prompt = np.random.RandomState(16).randint(
+        0, PHI3_MINI["vocab_size"], 128).tolist()
+    local: dict = {}
+
+    def in_process():
+        try:
+            eng = ContinuousEngine(LLMConfig(**PHI3_MINI), max_batch=1,
+                                   decode_chunk=4, device="cuda")
+            try:
+                kernels.reset_launch_counts()
+                local["tokens"] = eng.submit(prompt, SamplingParams(
+                    temperature=0.0,
+                    max_tokens=WIDE_DECODE_STEPS + 1)).tokens()
+                local["model"] = eng.model  # kept for (c)
+            finally:
+                eng.shutdown()
+        except BaseException as e:  # re-raised below, in this thread
+            local["error"] = e
+
+    worker = threading.Thread(target=in_process)
+    worker.start()
+    try:
+        phi3, (lone_prompt, toks), by_d = _wide_phi3_http()
+        worker.join()
+        if "error" in local:
+            raise local["error"]
+        if lone_prompt != prompt:
+            raise AssertionError("(a) and (c) took different prompts")
+        # (c) on the replica's own tokens, and on the in-process engine's
+        # (a cache of 1 slot) where they first depart from the replica's
+        phi3["logits"] = _wide_logits(local["model"], prompt, toks,
+                                      other=local["tokens"])
+        add(kernels.launch_counts_by_head_dim())
+    finally:
+        worker.join()
+        local.clear()
+    torch.cuda.empty_cache()
+    add(by_d)
+    phi3["phase_s"] = time.perf_counter() - t0
+    log("wide serve " + json.dumps(phi3))
+    rec["phi3_mini"] = phi3
+
+    # (b) Gemma-2B's width in process, then (c) on the server's own model
+    t0 = time.perf_counter()
+    server = OpenAIServer(LLMConfig(**GEMMA_2B), max_batch=8, decode_chunk=16,
+                          default_max_tokens=64, device="cuda")
+    try:
+        eng = server.engine
+        kernels.reset_launch_counts()
+        gemma, (prompt, toks) = _wide_serve(
+            "Gemma-2B", GEMMA_2B,
+            lambda body: server(_Request("/v1/completions", body)),
+            lambda: (eng.decode_steps,
+                     kernels.launch_counts()["decode_attention"]))
+        gemma["logits"] = _wide_logits(eng.model, prompt, toks)
+        add(kernels.launch_counts_by_head_dim())
+    finally:
+        server.shutdown()
+    del server, eng
+    torch.cuda.empty_cache()
+    gemma["phase_s"] = time.perf_counter() - t0
+    log("wide serve " + json.dumps(gemma))
+    rec["gemma_2b"] = gemma
+
+    # (d) training at both widths
+    for name, widths, kv in (("Phi-3-mini", PHI3_MINI, PHI3_MINI["n_heads"]),
+                             ("Gemma-2B", GEMMA_2B, 1)):
+        train = _wide_train(name, widths, kv, kernels)
+        add(train["launches"])
+        rec[f"train_{name}"] = train
+
+    rec["launches"] = launches
+    missing = [(name, d) for name in launches for d in (8, 80, 96, 256)
+               if launches[name].get(d, 0) == 0]
+    if missing:
+        raise AssertionError(f"never launched on phase 16's paths: {missing}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 (the other head widths): {rec['phase_s']:.1f} s, "
         f"launches by head dim {json.dumps(launches)}")
     return rec
 
@@ -3822,25 +4316,44 @@ def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
     return rec
 
 
+def _instance(mangled: str) -> str:
+    """A kernel instance's name and template arguments from its mangled
+    name ("flash_attention_wgmma_kernel<80>",
+    "decode_attention_kernel<bf16,64,1>"):
+    the identifier whose length prefix matches, past the anonymous
+    namespace's hash."""
+    m = re.search(r"\d+([a-z_][a-z0-9_]*_kernel)(?:I(\w+?)EEv|E)", mangled)
+    if not m:
+        return "?"
+    name = m.group(1)
+    for run in re.finditer(r"\d+", name):
+        rest = name[run.end():]
+        if any(int(run.group()[i:]) == len(rest)
+               for i in range(len(run.group()))):
+            name = rest
+            break
+    args = [a or ("f32" if f else "bf16") for f, _, a in re.findall(
+        r"(?<![a-z_])(f)(?=L|E)|(13__nv_bfloat16)|Li(\d+)E", m.group(2) or "")]
+    return f"{name}<{','.join(args)}>"
+
+
 def _ptxas_summary(build_log: str) -> list[str]:
     """One line per kernel instance from nvcc -Xptxas -v: its name and
     template arguments, registers, shared memory and spills, plus any
-    performance warning."""
+    performance warning with the instance it names."""
     out, name, spill = [], "?", ""
     for line in build_log.splitlines():
-        m = re.search(
-            r"Compiling entry function '\w*?\d+([a-z_][a-z0-9_]*_kernel)I(\w+?)EEv",
-            line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            args = [a or ("f32" if f else "bf16") for f, _, a in re.findall(
-                r"(?<![a-z_])(f)(?=L|E)|(13__nv_bfloat16)|Li(\d+)E", m.group(2))]
-            name = f"{m.group(1)}<{','.join(args)}>"
+            name = _instance(m.group(1))
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
         elif "Performance Loss" in line or "setmaxnreg" in line:
-            out.append(line.split(":", 1)[1].strip()[:160])
+            fn = re.search(r"function '(\w+)'", line)
+            text = line.split(":", 1)[1].split(" for the function")[0].strip()
+            out.append(f"{_instance(fn.group(1)) if fn else name}: {text[:160]}")
     return out
 
 
@@ -3872,9 +4385,10 @@ def main() -> int:
             for line in _ptxas_summary(k.build_log.read_text()):
                 log(f"ptxas {k.name}: {line}")
 
-    decode_rec, flash_rec, bwd_rec, narrow_recs = phase_kernels()
+    decode_rec, flash_rec, bwd_rec, narrow_recs, wide_recs = phase_kernels()
     phase_golden()
     widths_rec = phase_widths()
+    wide_rec = phase_wide()
 
     server = OpenAIServer(LLMConfig(**SERVE), max_batch=8, decode_chunk=16,
                           default_max_tokens=64, device="cuda")
@@ -3936,6 +4450,17 @@ def main() -> int:
             "launches": widths_rec["launches"][name],
             "dryrun_launches": tp_rec["dryrun"]["launches_by_head_dim"][name]}}
 
+    def wide_heads(name):
+        """Phase 2's cases of the kernel at D = 8, 80, 96, 120 (decode),
+        40 (flash) and 256, and its launches by head dim on phase 16's
+        paths."""
+        return {"wide_heads": {
+            "cases": [{k: r[k] for k in (
+                "case", "d", "max_abs_err", "ms", "bound_ms", "bound_by",
+                "plain_ms", "library_ms", "library_backend")}
+                for r in wide_recs[name]],
+            "launches": wide_rec["launches"][name]}}
+
     def per_rank(name, rec):
         """Phase 12: the kernel at its per-rank shape, and its launches in
         phase 12's ranks (summed over them)."""
@@ -3953,14 +4478,16 @@ def main() -> int:
          "pipeline_launches": pipe_rec["pipeline_launches"],
          "ops_launches": ops_rec["ops_launches"],
          **per_rank("decode_attention", tp_rec["kernels"]["decode"]),
-         **narrow_heads("decode_attention")},
+         **narrow_heads("decode_attention"),
+         **wide_heads("decode_attention")},
         {**line(kernels.FLASH_ATTENTION, flash_rec,
                 forward_rec["flash_launches"] + train_rec["flash_launches"],
                 "ray_tpu/ops/flash_attention.py:74"),
          "trainer_launches": trainer_launches["flash_attention"],
          "tune_launches": tune_launches["flash_attention"],
          **per_rank("flash_attention", tp_rec["kernels"]["flash"]),
-         **narrow_heads("flash_attention")},
+         **narrow_heads("flash_attention"),
+         **wide_heads("flash_attention")},
         {**line(kernels.FLASH_ATTENTION_BWD, bwd_rec,
                 train_rec["flash_bwd_launches"],
                 "gradient of ray_tpu/ops/flash_attention.py:74 (no Pallas "
@@ -3968,7 +4495,8 @@ def main() -> int:
          "trainer_launches": trainer_launches["flash_attention_bwd"],
          "tune_launches": tune_launches["flash_attention_bwd"],
          **per_rank("flash_attention_bwd", tp_rec["kernels"]["flash_bwd"]),
-         **narrow_heads("flash_attention_bwd")},
+         **narrow_heads("flash_attention_bwd"),
+         **wide_heads("flash_attention_bwd")},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -154,9 +154,10 @@ FLASH_ATTENTION = Kernel(
 FLASH_ATTENTION_BWD = Kernel(
     "flash_attention_bwd", "flash_attention_bwd.cu", "rt_flash_attention_bwd",
     # q, k, v, o, dout, lse, delta, lse_log2, dq_accum, dq, dk, dv, B, Sq,
-    # Sk, Hq, Hkv, D, causal, dtype, block_k, block_q, stream
+    # Sk, Hq, Hkv, D, causal, dtype, block_k, block_q, dkv_accum, hsplit,
+    # stream
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-     _I, _I, _I, _I, _P])
+     _I, _I, _I, _I, _P, _I, _P])
 KERNELS = (DECODE_ATTENTION, FLASH_ATTENTION, FLASH_ATTENTION_BWD)
 # One wgmma product through each narrow-row descriptor of hopper.cuh, for
 # the card's tests only (no model path launches it, so it is not in
@@ -193,6 +194,16 @@ def launch_counts() -> dict[str, int]:
 
 def launch_counts_by_head_dim() -> dict[str, dict[int, int]]:
     return {k.name: dict(k.launches_by_head_dim) for k in KERNELS}
+
+
+#: The head dims the three kernels take (the JAX package's Pallas kernels
+#: take any D): the wrappers raise a ValueError stating this rule for any
+#: other.
+HEAD_DIM_RULE = "a multiple of 8 from 8 to 256"
+
+
+def supported_head_dim(d: int) -> bool:
+    return d % 8 == 0 and 8 <= d <= 256
 
 
 def dtype_code(dtype) -> int:

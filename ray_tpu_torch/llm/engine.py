@@ -73,6 +73,33 @@ from ray_tpu_torch.parallel.collectives import broadcast_object
 
 logger = logging.getLogger(__name__)
 
+#: Cumulative tokens delivered to GenStream consumers across every engine
+#: in this process: the source of the `llm.tokens_per_s` telemetry series
+#: (telemetry.WorkerSampler reads the per-tick rate through
+#: tokens_per_s_snapshot, only where this module is imported).
+_tok_lock = threading.Lock()
+_tok_count = 0
+_tok_rate_state: list = [None, 0]  # [last snapshot monotonic, last count]
+
+
+def _count_tokens(n: int) -> None:
+    global _tok_count
+    with _tok_lock:
+        _tok_count += n
+
+
+def tokens_per_s_snapshot() -> float:
+    """Tokens delivered per second since the previous snapshot (the
+    telemetry tick); the first call anchors the window and reports 0."""
+    with _tok_lock:
+        c = _tok_count
+    now = time.monotonic()
+    t0, c0 = _tok_rate_state
+    _tok_rate_state[0], _tok_rate_state[1] = now, c
+    if t0 is None or now <= t0:
+        return 0.0
+    return (c - c0) / (now - t0)
+
 
 @dataclass
 class SamplingParams:
@@ -798,6 +825,7 @@ class ContinuousEngine:
             finish = "length"
         if out:
             st.stream._q.put(out)
+            _count_tokens(len(out))
         if finish is not None:
             st.stream.finish_reason = finish
             self._retire(slot)

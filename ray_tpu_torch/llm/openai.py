@@ -132,7 +132,9 @@ class OpenAIServer:
                                     if dev.type == "cuda" and not stages
                                     else 0),
                    "decode_steps": self.engine.decode_steps,
-                   "kernel_launches": kernels.launch_counts()}
+                   "kernel_launches": kernels.launch_counts(),
+                   "kernel_launches_by_head_dim":
+                       kernels.launch_counts_by_head_dim()}
             if stages:
                 out["pipeline_stages"] = stages
                 out["pipeline"] = self.engine.pipeline_stats()

@@ -63,10 +63,11 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.rtconfig import CONFIG
-from ray_tpu_torch.llm.engine import (GenStream, SamplingParams, _load_params,
-                                      _sample, _Slot, make_stage_net,
-                                      model_config, stage_layer_split,
-                                      stage_param_slice, stream_key)
+from ray_tpu_torch.llm.engine import (GenStream, SamplingParams, _count_tokens,
+                                      _load_params, _sample, _Slot,
+                                      make_stage_net, model_config,
+                                      stage_layer_split, stage_param_slice,
+                                      stream_key)
 
 logger = logging.getLogger(__name__)
 
@@ -718,6 +719,7 @@ class PipelinedEngine:
             finish = "length"
         if out:
             st.stream._q.put(out)
+            _count_tokens(len(out))
         if finish is not None:
             st.stream.finish_reason = finish
             self._retire(slot)

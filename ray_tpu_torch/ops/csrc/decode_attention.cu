@@ -48,6 +48,18 @@
 // 4 or 2 bf16 lanes, 8 or 4 f32 lanes; the shuffles of the score sum and
 // of the workers' merge run over those lane counts) are new instances of
 // the same source; their resources are in PERF.md.
+// Other head dims (any multiple of 8 from 8 to 256) run on runtime-width
+// instances, decode_attention_rt_kernel<T, DP, REP>: the same body at a
+// tile width DP (8, 32, 64, 128 or 256, the power of two at or above D),
+// with the real D as an argument. A row is DP / VEC lanes (at most 32;
+// at DP = 256 in f32 each lane holds two 16-byte slices); lanes whose
+// slice starts at or past D load zeros and store nothing, so D = 80 and 96
+// in bf16 (10 and 12 lanes of data) run as workers of 16 lanes. The rows,
+// the workspace and the output are D wide, so nothing is padded in memory.
+// At DP = 256 a block serves at most 4 query heads (8 would need a 64 KB
+// merge buffer, over the 48 KB of static shared memory, and 2048 outputs
+// to merge in one block: split_plan gives Gemma's 8 query heads of one KV
+// head two blocks), and may use 255 registers.
 // The TPU kernel's sequential grid over cache blocks, its 8-row q padding
 // and its (rep, 128) scratch have no counterpart here.
 
@@ -73,7 +85,9 @@ __host__ __device__ constexpr int threads() {
 // heads D=64's two-head budget.
 template <int D, int REP>
 __host__ __device__ constexpr int min_blocks() {
-  return REP >= 4 ? (REP == 4 ? 2 : 1) : ((D < 64 ? REP == 1 : REP * D <= 64) ? 6 : 4);
+  return D == 256 ? 1
+                  : REP >= 4 ? (REP == 4 ? 2 : 1)
+                             : ((D < 64 ? REP == 1 : REP * D <= 64) ? 6 : 4);
 }
 
 using rt::load_raw;
@@ -86,18 +100,21 @@ __device__ __forceinline__ float rescale(float m, float m_new) {
   return m == -INFINITY ? 0.f : expf(m - m_new);
 }
 
-template <typename T, int D, int REP>
-__global__ void __launch_bounds__(threads<REP>(), (min_blocks<D, REP>()))
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        float* __restrict__ ws, int* __restrict__ counters,
-                        int S, int Hq, int KV, int rep, int n_groups,
-                        int chunk, int n_splits, float scale) {
+// The kernel at tile width D and head dim d: d == D (a compile-time
+// constant) for the exact instances, any multiple of 8 up to D for the
+// runtime-width ones (kRt), whose lanes past d load zeros and store
+// nothing.
+template <typename T, int D, int REP, bool kRt>
+__device__ __forceinline__ void decode_attention_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ lengths, T* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ counters, int S, int Hq, int KV, int rep, int n_groups, int chunk,
+    int n_splits, float scale, const int d) {
   constexpr int kThreads = threads<REP>();
   constexpr int kWarps = kThreads / 32;
   constexpr int VEC = Vec<T>::N;
-  constexpr int TPR = D / VEC;        // lanes that hold one cache row
+  constexpr int TPR = D / VEC < 32 ? D / VEC : 32;  // lanes that hold one cache row
+  constexpr int NV = D / VEC / TPR;   // 16-byte slices a lane holds (2 only at f32 D=256)
   constexpr int RPW = 32 / TPR;       // rows one warp reads at once
   constexpr int kWorkers = kWarps * RPW;
   constexpr int kUnroll = REP >= 4 ? 2 : 4;  // rows in flight per worker
@@ -120,36 +137,43 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int sub = lane / TPR;
   const int part = lane % TPR;
+  // The first column of this lane's slice sl, and whether it holds data.
+  auto col = [&](int sl) { return (sl * TPR + part) * VEC; };
+  auto live = [&](int sl) { return !kRt || col(sl) < d; };
 
   const int len = max(0, min(__ldg(lengths + b), S));
   const int row_begin = split * chunk;
   if (row_begin >= len) {
     if (split == 0)  // length 0: zeros
-      for (int idx = threadIdx.x; idx < nrep * D; idx += kThreads)
-        store(out + (q_row0 + idx / D) * D + idx % D, 0.f);
+      for (int idx = threadIdx.x; idx < nrep * d; idx += kThreads)
+        store(out + (q_row0 + idx / d) * d + idx % d, 0.f);
     return;
   }
   // q as loaded; it is unpacked after the first rows' loads are issued,
   // so its load and theirs are in flight together.
-  uint4 q_raw[REP];
+  uint4 q_raw[REP][NV];
 #pragma unroll
   for (int r = 0; r < REP; ++r)
-    q_raw[r] = r < nrep ? load_raw(q + (q_row0 + r) * D + part * VEC)
-                        : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int sl = 0; sl < NV; ++sl)
+      q_raw[r][sl] = r < nrep && live(sl) ? load_raw(q + (q_row0 + r) * d + col(sl))
+                                          : make_uint4(0, 0, 0, 0);
   const int row_end = min(row_begin + chunk, len);
   const int n_active = (len + chunk - 1) / chunk;
 
-  float m[REP], l[REP], acc[REP][VEC];
+  float m[REP], l[REP], acc[REP][NV][VEC];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
+    for (int sl = 0; sl < NV; ++sl)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[r][sl][i] = 0.f;
   }
 
-  const size_t row_stride = (size_t)KV * D;
-  const size_t base_off = ((size_t)b * S * KV + kvh) * D + part * VEC;
+  const size_t row_stride = (size_t)KV * d;
+  const size_t base_off = ((size_t)b * S * KV + kvh) * d + part * VEC;
   const T* kb = k + base_off;
   const T* vb = v + base_off;
 
@@ -158,37 +182,45 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
        base += kWorkers * kUnroll) {
     // Rows stay as loaded (16 bytes) until used: half the registers of
     // f32 for bf16.
-    uint4 kr[kUnroll], vr[kUnroll];
+    uint4 kr[kUnroll][NV], vr[kUnroll][NV];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + sub + u * kWorkers;
-      if (t < row_end) {
-        kr[u] = load_raw(kb + (size_t)t * row_stride);
-        vr[u] = load_raw(vb + (size_t)t * row_stride);
-      } else {
-        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int sl = 0; sl < NV; ++sl) {
+        if (t < row_end && live(sl)) {
+          kr[u][sl] = load_raw(kb + (size_t)t * row_stride + sl * TPR * VEC);
+          vr[u][sl] = load_raw(vb + (size_t)t * row_stride + sl * TPR * VEC);
+        } else {
+          kr[u][sl] = vr[u][sl] = make_uint4(0, 0, 0, 0);
+        }
       }
     }
-    float qv[REP][VEC];
+    float qv[REP][NV][VEC];
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      unpack(q_raw[r], q, qv[r]);
+    for (int r = 0; r < REP; ++r)
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) qv[r][i] *= scale;
-    }
+      for (int sl = 0; sl < NV; ++sl) {
+        unpack(q_raw[r][sl], q, qv[r][sl]);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) qv[r][sl][i] *= scale;
+      }
     // Scores of the rows in flight, then one rescale of the state for all
     // of them.
     float sc[kUnroll][REP];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool valid = base + sub + u * kWorkers < row_end;
-      float kf[VEC];
-      unpack(kr[u], kb, kf);
+      float kf[NV][VEC];
+#pragma unroll
+      for (int sl = 0; sl < NV; ++sl) unpack(kr[u][sl], kb, kf[sl]);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) s += qv[r][i] * kf[i];
+        for (int sl = 0; sl < NV; ++sl)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) s += qv[r][sl][i] * kf[sl][i];
 #pragma unroll
         for (int off = TPR / 2; off > 0; off >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -203,19 +235,24 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = rescale(m[r], m_new);
       l[r] *= alpha;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[r][i] *= alpha;
+      for (int sl = 0; sl < NV; ++sl)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[r][sl][i] *= alpha;
       m[r] = m_new;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      float vf[VEC];
-      unpack(vr[u], vb, vf);
+      float vf[NV][VEC];
+#pragma unroll
+      for (int sl = 0; sl < NV; ++sl) unpack(vr[u][sl], vb, vf[sl]);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float p = rescale(sc[u][r], m[r]);  // 0 for rows past the chunk
         l[r] += p;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[r][i] += p * vf[i];
+        for (int sl = 0; sl < NV; ++sl)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[r][sl][i] += p * vf[sl][i];
       }
     }
   }
@@ -233,10 +270,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float c = rescale(mo, m_new);
       l[r] = l[r] * a + lo * c;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float ao = __shfl_xor_sync(0xffffffffu, acc[r][i], off);
-        acc[r][i] = acc[r][i] * a + ao * c;
-      }
+      for (int sl = 0; sl < NV; ++sl)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[r][sl][i], off);
+          acc[r][sl][i] = acc[r][sl][i] * a + ao * c;
+        }
       m[r] = m_new;
     }
   }
@@ -248,20 +287,22 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sm_l[warp][r] = l[r];
       }
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) sm_acc[warp][r][part * VEC + i] = acc[r][i];
+      for (int sl = 0; sl < NV; ++sl)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) sm_acc[warp][r][col(sl) + i] = acc[r][sl][i];
     }
   }
   __syncthreads();
 
   // Merge the warps into this chunk's (max, denominator, accumulator); the
   // chunk holds at least one row, so the max is finite. Partials are laid
-  // out [item][split][REP] with D accumulator floats, then (max, denom).
+  // out [item][split][REP] with d accumulator floats, then (max, denom).
   const size_t slot0 = ((size_t)item * n_splits + split) * REP;
   float* ws_acc = ws;
-  float* ws_ml = ws + (size_t)gridDim.x * n_splits * REP * D;
-  for (int idx = threadIdx.x; idx < nrep * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx % D;
+  float* ws_ml = ws + (size_t)gridDim.x * n_splits * REP * d;
+  for (int idx = threadIdx.x; idx < nrep * d; idx += kThreads) {
+    const int r = idx / d;
+    const int dd = idx % d;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
@@ -270,13 +311,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int w = 0; w < kWarps; ++w) {
       const float c = rescale(sm_m[w][r], mx);
       den += sm_l[w][r] * c;
-      num += sm_acc[w][r][d] * c;
+      num += sm_acc[w][r][dd] * c;
     }
     if (n_active == 1) {
-      store(out + (q_row0 + r) * D + d, num / den);
+      store(out + (q_row0 + r) * d + dd, num / den);
     } else {
-      ws_acc[(slot0 + r) * D + d] = num;
-      if (d == 0) {
+      ws_acc[(slot0 + r) * d + dd] = num;
+      if (dd == 0) {
         ws_ml[2 * (slot0 + r)] = mx;
         ws_ml[2 * (slot0 + r) + 1] = den;
       }
@@ -316,12 +357,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int o = 0; o < kOut; ++o) {
       const int idx = threadIdx.x + o * kThreads;
-      const int r = idx / D;
+      const int r = idx / d;
       if (r < nrep) {
         const size_t slot = item0 + sp * REP + r;
         const float m_s = __ldcg(ws_ml + 2 * slot);
         const float l_s = __ldcg(ws_ml + 2 * slot + 1);
-        const float a_s = __ldcg(ws_acc + slot * D + idx % D);
+        const float a_s = __ldcg(ws_acc + slot * d + idx % d);
         const float m_new = fmaxf(mo[o], m_s);
         const float c_old = rescale(mo[o], m_new);
         const float c_s = expf(m_s - m_new);
@@ -334,47 +375,109 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int o = 0; o < kOut; ++o) {
     const int idx = threadIdx.x + o * kThreads;
-    if (idx / D < nrep) store(out + q_row0 * D + idx, no[o] / lo[o]);
+    if (idx / d < nrep) store(out + q_row0 * d + idx, no[o] / lo[o]);
   }
   if (threadIdx.x == 0) counters[item] = 0;  // ready for the next launch
 }
 
+// The instances of head dims 16, 32, 64 and 128.
 template <typename T, int D, int REP>
+__global__ void __launch_bounds__(threads<REP>(), (min_blocks<D, REP>()))
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int* __restrict__ lengths, T* __restrict__ out,
+                        float* __restrict__ ws, int* __restrict__ counters,
+                        int S, int Hq, int KV, int rep, int n_groups,
+                        int chunk, int n_splits, float scale) {
+  decode_attention_body<T, D, REP, false>(q, k, v, lengths, out, ws, counters, S, Hq, KV,
+                                          rep, n_groups, chunk, n_splits, scale, D);
+}
+
+// Runtime-width instances: head dim d (a multiple of 8, at most DP).
+template <typename T, int DP, int REP>
+__global__ void __launch_bounds__(threads<REP>(), (min_blocks<DP, REP>()))
+decode_attention_rt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const int* __restrict__ lengths,
+                           T* __restrict__ out, float* __restrict__ ws,
+                           int* __restrict__ counters, int S, int Hq, int KV, int rep,
+                           int n_groups, int chunk, int n_splits, float scale, int d) {
+  decode_attention_body<T, DP, REP, true>(q, k, v, lengths, out, ws, counters, S, Hq, KV,
+                                          rep, n_groups, chunk, n_splits, scale, d);
+}
+
+// The exact instance of head dim D (d == D), or with kRt the runtime-width
+// instance of tile D at head dim d.
+template <typename T, int D, int REP, bool kRt>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* out, void* ws, void* counters,
-                   int B, int Hq, int KV, int S, int chunk, int n_splits,
+                   int B, int Hq, int KV, int S, int chunk, int n_splits, int d,
                    cudaStream_t stream) {
   const int rep = Hq / KV;
   const int n_groups = (rep + REP - 1) / REP;
   const dim3 grid(B * KV * n_groups, n_splits);
-  const float scale = 1.0f / sqrtf((float)D);
-  decode_attention_kernel<T, D, REP><<<grid, threads<REP>(), 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), static_cast<float*>(ws),
-      static_cast<int*>(counters), S, Hq, KV, rep, n_groups, chunk, n_splits,
-      scale);
+  const float scale = 1.0f / sqrtf((float)d);
+  if constexpr (!kRt)
+    decode_attention_kernel<T, D, REP><<<grid, threads<REP>(), 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(lengths),
+        static_cast<T*>(out), static_cast<float*>(ws),
+        static_cast<int*>(counters), S, Hq, KV, rep, n_groups, chunk, n_splits,
+        scale);
+  else
+    decode_attention_rt_kernel<T, D, REP><<<grid, threads<REP>(), 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(lengths),
+        static_cast<T*>(out), static_cast<float*>(ws),
+        static_cast<int*>(counters), S, Hq, KV, rep, n_groups, chunk, n_splits,
+        scale, d);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRt>
 cudaError_t by_group(const void* q, const void* k, const void* v,
                      const void* lengths, void* out, void* ws, void* counters,
                      int B, int Hq, int KV, int S, int group, int chunk,
-                     int n_splits, cudaStream_t stream) {
+                     int n_splits, int d, cudaStream_t stream) {
   switch (group) {
-    case 1: return launch<T, D, 1>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, stream);
-    case 2: return launch<T, D, 2>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, stream);
-    case 4: return launch<T, D, 4>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, stream);
-    case 8: return launch<T, D, 8>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, stream);
+    case 1: return launch<T, D, 1, kRt>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, d, stream);
+    case 2: return launch<T, D, 2, kRt>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, d, stream);
+    case 4: return launch<T, D, 4, kRt>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, d, stream);
+    case 8:
+      if constexpr (D == 256) return cudaErrorInvalidValue;  // at most 4 heads there
+      else return launch<T, D, 8, kRt>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, chunk, n_splits, d, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The tile width of a runtime-width head dim D (ops/decode_attention.py,
+// decode_tile): the power of two at or above it, at least 8.
+inline int rt_tile(int D) { return D <= 8 ? 8 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+
+template <typename T>
+cudaError_t by_width(const void* q, const void* k, const void* v, const void* lengths,
+                     void* out, void* ws, void* counters, int B, int Hq, int KV, int S,
+                     int D, int group, int chunk, int n_splits, cudaStream_t s) {
+  switch (D) {  // the exact instances
+    case 16: return by_group<T, 16, false>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, 16, s);
+    case 32: return by_group<T, 32, false>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, 32, s);
+    case 64: return by_group<T, 64, false>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, 64, s);
+    case 128: return by_group<T, 128, false>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, 128, s);
+    default: break;
+  }
+  if (D < 8 || D > 256 || D % 8 != 0) return cudaErrorInvalidValue;
+  switch (rt_tile(D)) {
+    case 8: return by_group<T, 8, true>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, D, s);
+    case 32: return by_group<T, 32, true>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, D, s);
+    case 64: return by_group<T, 64, true>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, D, s);
+    case 128: return by_group<T, 128, true>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, D, s);
+    default: return by_group<T, 256, true>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, D, s);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. `group` query heads per block (1, 2,
-// 4 or 8), cache chunks of `chunk` rows, n_splits * chunk >= S; `ws`
+// dtype: 0 = float32, 1 = bfloat16. D: a multiple of 8 from 8 to 256.
+// `group` query heads per block (1, 2, 4 or 8), cache chunks of `chunk` rows, n_splits * chunk >= S; `ws`
 // holds B * KV * ceil(rep / group) * n_splits * group * (D + 2) floats and
 // `counters` B * KV * ceil(rep / group) zeroed ints. Returns the
 // cudaError_t of the launch.
@@ -388,14 +491,10 @@ extern "C" int rt_decode_attention(const void* q, const void* k,
       (long long)chunk * n_splits < S)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 16) return (int)by_group<float, 16>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
-  if (dtype == 0 && D == 32) return (int)by_group<float, 32>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
-  if (dtype == 0 && D == 64) return (int)by_group<float, 64>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
-  if (dtype == 0 && D == 128) return (int)by_group<float, 128>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
-  if (dtype == 1 && D == 16) return (int)by_group<__nv_bfloat16, 16>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
-  if (dtype == 1 && D == 32) return (int)by_group<__nv_bfloat16, 32>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
-  if (dtype == 1 && D == 64) return (int)by_group<__nv_bfloat16, 64>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
-  if (dtype == 1 && D == 128) return (int)by_group<__nv_bfloat16, 128>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, group, chunk, n_splits, s);
+  if (dtype == 0)
+    return (int)by_width<float>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, D, group, chunk, n_splits, s);
+  if (dtype == 1)
+    return (int)by_width<__nv_bfloat16>(q, k, v, lengths, out, ws, counters, B, Hq, KV, S, D, group, chunk, n_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

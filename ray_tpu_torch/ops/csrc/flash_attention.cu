@@ -69,6 +69,25 @@
 // instances are written so that the D = 64 and 128 ones compile from the
 // same source as before (every difference is an `if constexpr` on D or a
 // constant equal to the old one there); their resources are in PERF.md.
+//
+// Head dims. The TPU kernel takes any D; here every multiple of 8 from 8 to
+// 256 runs on a kernel. D = 16, 32, 64 and 128 have their instances (above),
+// and so have D = 80 and 96 (Phi-2's and Phi-3-mini's heads): their rows
+// are two 64-column panels, the 4-D tensor maps have the real D as their
+// inner extent so TMA fills the second panel past D with zeros, Q K^T
+// issues D / 16 k-steps (5 and 6), and P V is an m64n64k16 on the first
+// panel plus an m64n16k16 or m64n32k16 on the first 16 or 32 columns of the
+// second (part of a swizzle atom; wgmma_probe.cu checks both against a
+// plain product). They are faster than the tile of 128 that any other D
+// from 72 to 128 runs (chip_width_probe.py times both). Any other D runs on a runtime-width instance,
+// flash_attention_wgmma_rt_kernel<DT> (and flash_attention_rt_kernel<f32,
+// DT> on the CUDA cores): the tile DT is the power of two at or above D (16
+// to 256), the zeros TMA (or the masked loads) put past D go through the
+// products, and only D columns are stored. The tile of 256 (Gemma's D =
+// 256) takes 64-key K/V tiles: Q is 64 KB, and two stages of 128-key K and
+// V tiles would need 256 KB; with 64-key tiles the block holds 193 KB, the
+// scores are m64n64k16 products and P V two m64n128k16 per k-step. The new
+// instances' resources are in PERF.md (168 registers at entry, no spills).
 // The TPU kernel's (8, 128) tile rule and its (block_q, 128) scratch have
 // no counterpart here.
 
@@ -96,12 +115,14 @@ constexpr size_t smem_floats() {
          (size_t)kBQ * (kBK + 1) + 3 * kBQ;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                       float scale, int causal) {
+// The f32 kernel at tile width D and head dim d: d == D for the exact
+// instances; with kRt any multiple of 8 up to D, the columns past d loaded
+// as zeros and never stored.
+template <typename T, int D, bool kRt>
+__device__ __forceinline__ void flash_f32_body(const T* __restrict__ q, const T* __restrict__ k,
+                                               const T* __restrict__ v, T* __restrict__ out,
+                                               float* __restrict__ lse, int Sq, int Sk, int Hq,
+                                               int Hkv, float scale, int causal, const int d) {
   constexpr int VEC = Vec<T>::N;
   constexpr int VPR = D / VEC;  // 16-byte vectors per row
   constexpr int NJ = D / 16;    // output columns per thread
@@ -127,8 +148,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int c = (idx % VPR) * VEC;
     const int i = q0 + r;
     float tmp[VEC];
-    if (i < Sq) {
-      load_vec(q + (((size_t)b * Sq + i) * Hq + h) * D + c, tmp);
+    if (i < Sq && (!kRt || c < d)) {
+      load_vec(q + (((size_t)b * Sq + i) * Hq + h) * d + c, tmp);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) tmp[e] = 0.f;
@@ -162,8 +183,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = (idx % VPR) * VEC;
       const int j = k0 + r;
       float kt[VEC], vt[VEC];
-      if (j < Sk) {
-        const size_t o = (((size_t)b * Sk + j) * Hkv + hk) * D + c;
+      if (j < Sk && (!kRt || c < d)) {
+        const size_t o = (((size_t)b * Sk + j) * Hkv + hk) * d + c;
         load_vec(k + o, kt);
         load_vec(v + o, vt);
       } else {
@@ -267,9 +288,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= Sq) continue;
     const float den = row_l[row];
     const float inv = den > 0.f ? 1.f / den : 0.f;
-    T* orow = out + (((size_t)b * Sq + qi) * Hq + h) * D;
+    T* orow = out + (((size_t)b * Sq + qi) * Hq + h) * d;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) store(orow + tx + 16 * j, acc[i][j] * inv);
+    for (int j = 0; j < NJ; ++j)
+      if (!kRt || tx + 16 * j < d) store(orow + tx + 16 * j, acc[i][j] * inv);
   }
   if (lse != nullptr && threadIdx.x < kBQ && q0 + threadIdx.x < Sq) {
     const float den = row_l[threadIdx.x];
@@ -278,101 +300,189 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The instances of head dims 16, 32, 64 and 128.
 template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                       float scale, int causal) {
+  flash_f32_body<T, D, false>(q, k, v, out, lse, Sq, Sk, Hq, Hkv, scale, causal, D);
+}
+
+// Runtime-width instances: head dim d (a multiple of 8, at most DP).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_rt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ out,
+                          float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                          float scale, int causal, int d) {
+  flash_f32_body<T, DP, true>(q, k, v, out, lse, Sq, Sk, Hq, Hkv, scale, causal, d);
+}
+
+// The exact instance of head dim D (d == D), or with kRt the runtime-width
+// instance of tile D at head dim d.
+template <typename T, int D, bool kRt>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                   cudaStream_t stream) {
+                   int d, cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaError_t e;
+    if constexpr (kRt)
+      e = cudaFuncSetAttribute(flash_attention_rt_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    else
+      e = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  const float scale = 1.0f / sqrtf((float)D);
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv,
-      scale, causal);
+  const float scale = 1.0f / sqrtf((float)d);
+  if constexpr (kRt)
+    flash_attention_rt_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv,
+        scale, causal, d);
+  else
+    flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv,
+        scale, causal);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ bf16 path
 
-constexpr int kTile = 128;                  // q rows per block, keys per K/V tile
+constexpr int kTile = 128;                  // q rows per block
 constexpr int kStages = 2;                  // depth of the K/V ring
 constexpr int kWgThreads = 128;             // one warpgroup
 constexpr int kWsThreads = 3 * kWgThreads;  // producer + two consumers
 constexpr int kPanelBytes = kTile * 128;    // 128 rows of one 64-column panel
 constexpr int kConsumerWarps = 8;
 
-// Shared memory of one block: Q, then kStages K tiles, then kStages V
-// tiles, each [D / 64 panels][128 rows][64 columns] bf16 in TMA's 128-byte
-// swizzle (at D = 32 and 16 [128 rows][D columns] in the 64- or 32-byte
-// swizzle), from a 1024-byte aligned base.
+// An instance is named by its head dim D (0 for a runtime-width instance,
+// which takes D as an argument) and its tile width DT, the columns of a
+// tile row in shared memory: D itself at 16, 32, 64 and 128; 128 at D = 80
+// and 96 (two panels, TMA fills the second past D with zeros); the power of
+// two at or above D for a runtime width.
 template <int D>
+__host__ __device__ constexpr int wgmma_tile() {
+  return D <= 32 ? D : (D + 63) / 64 * 64;
+}
+
+// Keys per K/V tile: 128, or 64 at a tile of 256 columns, where Q (64 KB)
+// and two stages of 128-key K and V tiles (256 KB) would not fit.
+template <int DT>
+__host__ __device__ constexpr int keys() {
+  return DT == 256 ? 64 : 128;
+}
+
+// Columns of the P V product and of O: D, or the whole tile for a runtime
+// width (its columns past D are products with zeros).
+template <int D, int DT>
+__host__ __device__ constexpr int pv_width() {
+  return D == 0 ? DT : D;
+}
+
+// Shared memory of one block: Q, then kStages K tiles, then kStages V
+// tiles, each [panels][rows][64 columns] bf16 in TMA's 128-byte swizzle (at
+// a tile of 32 and 16 columns [rows][DT columns] in the 64- or 32-byte
+// swizzle), from a 1024-byte aligned base.
+template <int DT>
 struct Smem {
-  static constexpr int kTileBytes = kTile * 2 * D;
+  static constexpr int kRowBytes = row_bytes<DT>() * panels<DT>();
+  static constexpr int kTileBytes = kTile * kRowBytes;       // Q
+  static constexpr int kKVBytes = keys<DT>() * kRowBytes;    // one K or V tile
+  static constexpr int kKVPanel = keys<DT>() * 128;          // a K or V panel
   static constexpr int kK = kTileBytes;
-  static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBytes = kV + kStages * kTileBytes + 1024;  // + alignment
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBytes = kV + kStages * kKVBytes + 1024;  // + alignment
 };
 
 // mbarriers: Q full; K full, V full, K empty, V empty for each stage.
 enum { kQFull = 0, kKFull = 1, kVFull = 3, kKEmpty = 5, kVEmpty = 7, kNumBars = 9 };
 
-// S(64 q rows x 128 keys) = Q K^T over D: q_a is this warpgroup's 64 rows
-// of the Q tile, k_b a K tile; a k-step of 16 columns is 32 bytes along a
-// swizzled row, and every 4 steps the next 64-column panel (D = 32 and 16
-// have one panel, in rows of 2D bytes).
-template <int D>
+// S(64 q rows x the tile's keys) = Q K^T over D: q_a is this warpgroup's
+// 64 rows of the Q tile, k_b a K tile; a k-step of 16 columns is 32 bytes
+// along a swizzled row, and every 4 steps the next 64-column panel (tiles
+// of 32 and 16 columns have one panel, in rows of 2DT bytes). D = 80 and
+// 96 take 5 and 6 steps, the last in the second panel.
+template <int D, int DT>
 __device__ __forceinline__ void issue_qk(float* s, uint32_t q_a, uint32_t k_b) {
+  using L = Smem<DT>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < pv_width<D, DT>() / 16; ++kk) {
     const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    if constexpr (D < 64) {
+    const uint32_t k_off = (kk / 4) * L::kKVPanel + (kk % 4) * 32;
+    if constexpr (DT < 64) {
       if (kk == 0)
-        wgmma_ss_n128_first(s, k_major_desc_narrow<D>(q_a + off),
-                            k_major_desc_narrow<D>(k_b + off));
+        wgmma_ss_n128_first(s, k_major_desc_narrow<DT>(q_a + off),
+                            k_major_desc_narrow<DT>(k_b + off));
       else
-        wgmma_ss_n128(s, k_major_desc_narrow<D>(q_a + off),
-                      k_major_desc_narrow<D>(k_b + off));
+        wgmma_ss_n128(s, k_major_desc_narrow<DT>(q_a + off),
+                      k_major_desc_narrow<DT>(k_b + off));
+    } else if constexpr (keys<DT>() == 64) {
+      if (kk == 0)
+        wgmma_ss_n64_first<0, 0>(s, k_major_desc(q_a + off), k_major_desc(k_b + k_off));
+      else
+        wgmma_ss_n64<0, 0>(s, k_major_desc(q_a + off), k_major_desc(k_b + k_off));
     } else if (kk == 0)
-      wgmma_ss_n128_first(s, k_major_desc(q_a + off), k_major_desc(k_b + off));
+      wgmma_ss_n128_first(s, k_major_desc(q_a + off), k_major_desc(k_b + k_off));
     else
-      wgmma_ss_n128(s, k_major_desc(q_a + off), k_major_desc(k_b + off));
+      wgmma_ss_n128(s, k_major_desc(q_a + off), k_major_desc(k_b + k_off));
   }
 }
 
-// O(64 x D) += P(64 x 128 keys, registers) V(128 keys x D); a k-step of
-// 16 keys is 16 rows (2048 bytes) of every panel (16 rows of 2D bytes at
-// D = 32 and 16).
-template <int D>
+// O(64 x pv_width) += P(64 x the tile's keys, registers) V(keys x D); a
+// k-step of 16 keys is 16 rows (2048 bytes) of every panel (16 rows of 2DT
+// bytes at a tile of 32 or 16 columns). At D = 80 and 96 the first panel
+// is an m64n64k16 product and the second an m64n16k16 or m64n32k16 on its
+// first 16 or 32 columns; at a tile of 256 two m64n128k16, one for each
+// pair of panels.
+template <int D, int DT>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t* p, uint32_t v_b) {
+  constexpr int kN = pv_width<D, DT>();
+  constexpr uint32_t kP = Smem<DT>::kKVPanel;
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    if constexpr (D < 64)
-      wgmma_rs_narrow<D>(o, p + 4 * kk, mn_major_desc_narrow<D>(v_b + kk * 16 * 2 * D), 1);
-    else if constexpr (D == 64)
-      wgmma_rs_n64(o, p + 4 * kk, mn_major_desc(v_b + kk * 2048, kPanelBytes), 1);
-    else
-      wgmma_rs_n128(o, p + 4 * kk, mn_major_desc(v_b + kk * 2048, kPanelBytes), 1);
+  for (int kk = 0; kk < keys<DT>() / 16; ++kk) {
+    const uint32_t v0 = v_b + kk * 2048;
+    if constexpr (DT < 64)
+      wgmma_rs_narrow<DT>(o, p + 4 * kk, mn_major_desc_narrow<DT>(v_b + kk * 16 * 2 * DT), 1);
+    else if constexpr (kN == 64)
+      wgmma_rs_n64(o, p + 4 * kk, mn_major_desc(v0, kP), 1);
+    else if constexpr (kN == 128)
+      wgmma_rs_n128(o, p + 4 * kk, mn_major_desc(v0, kP), 1);
+    else if constexpr (kN == 256) {
+      wgmma_rs_n128(o, p + 4 * kk, mn_major_desc(v0, kP), 1);
+      wgmma_rs_n128(o + 64, p + 4 * kk, mn_major_desc(v0 + 2 * kP, kP), 1);
+    } else {
+      static_assert(kN == 80 || kN == 96, "P V widths: 16, 32, 64, 80, 96, 128, 256");
+      wgmma_rs_n64(o, p + 4 * kk, mn_major_desc(v0, kP), 1);
+      if constexpr (kN == 80)
+        wgmma_rs_n16(o + 32, p + 4 * kk, mn_major_desc(v0 + kP, kP), 1);
+      else
+        wgmma_rs_n32(o + 32, p + 4 * kk, mn_major_desc(v0 + kP, kP), 1);
+    }
   }
 }
 
+// The block's work at head dim D (0: runtime width d) and tile width DT.
 // Accumulator and A-fragment layouts of wgmma: hopper.cuh.
-template <int D>
-__global__ void __launch_bounds__(kWsThreads, 1)
-flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                             const __grid_constant__ CUtensorMap k_map,
-                             const __grid_constant__ CUtensorMap v_map,
-                             __nv_bfloat16* __restrict__ out,
-                             float* __restrict__ lse, int Sq, int Sk, int Hq,
-                             int Hkv, float scale_log2, int causal) {
-  using L = Smem<D>;
+template <int D, int DT>
+__device__ __forceinline__ void flash_wgmma_body(const CUtensorMap& q_map,
+                                                 const CUtensorMap& k_map,
+                                                 const CUtensorMap& v_map,
+                                                 __nv_bfloat16* __restrict__ out,
+                                                 float* __restrict__ lse, int Sq, int Sk,
+                                                 int Hq, int Hkv, float scale_log2, int causal,
+                                                 const int d) {
+  using L = Smem<DT>;
+  constexpr int kKeys = keys<DT>();
+  constexpr int kN = pv_width<D, DT>();
+  constexpr bool kRt = D == 0;
   extern __shared__ unsigned char ws_smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
 
@@ -391,7 +501,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int off = Sk - Sq;
   int k_end = Sk;  // keys this tile's last real row can see
   if (causal) k_end = max(0, min(Sk, min(q0 + kTile, Sq) + off));
-  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
     mbar_init(bar0 + 8 * kQFull, 1);
@@ -413,10 +523,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // ---- producer warpgroup: one thread issues every TMA load
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0 && n_tiles > 0) {
-      constexpr uint32_t kTx = L::kTileBytes;
-      mbar_expect_tx(bar0 + 8 * kQFull, kTx);
+      mbar_expect_tx(bar0 + 8 * kQFull, L::kTileBytes);
 #pragma unroll
-      for (int p = 0; p < panels<D>(); ++p)
+      for (int p = 0; p < panels<DT>(); ++p)
         tma_load_4d(q_s + p * kPanelBytes, &q_map, bar0 + 8 * kQFull, p * 64, h, q0, b);
       for (int n = 0; n < n_tiles; ++n) {
         const int st = n & 1;
@@ -424,17 +533,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const uint32_t k_full = bar0 + 8 * (kKFull + st);
         const uint32_t v_full = bar0 + 8 * (kVFull + st);
         mbar_wait(bar0 + 8 * (kKEmpty + st), ph ^ 1);
-        mbar_expect_tx(k_full, kTx);
+        mbar_expect_tx(k_full, L::kKVBytes);
 #pragma unroll
-        for (int p = 0; p < panels<D>(); ++p)
-          tma_load_4d(k_s + st * L::kTileBytes + p * kPanelBytes, &k_map, k_full, p * 64,
-                      hk, n * kTile, b);
+        for (int p = 0; p < panels<DT>(); ++p)
+          tma_load_4d(k_s + st * L::kKVBytes + p * L::kKVPanel, &k_map, k_full, p * 64, hk,
+                      n * kKeys, b);
         mbar_wait(bar0 + 8 * (kVEmpty + st), ph ^ 1);
-        mbar_expect_tx(v_full, kTx);
+        mbar_expect_tx(v_full, L::kKVBytes);
 #pragma unroll
-        for (int p = 0; p < panels<D>(); ++p)
-          tma_load_4d(v_s + st * L::kTileBytes + p * kPanelBytes, &v_map, v_full, p * 64,
-                      hk, n * kTile, b);
+        for (int p = 0; p < panels<DT>(); ++p)
+          tma_load_4d(v_s + st * L::kKVBytes + p * L::kKVPanel, &v_map, v_full, p * 64, hk,
+                      n * kKeys, b);
       }
     }
   } else {
@@ -450,32 +559,32 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int row0 = wg_row0 + warp * 16 + g;  // this thread's rows row0, row0 + 8
     const int row1 = row0 + 8;
 
-    float o[D / 2];
+    float o[kN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kN / 2; ++i) o[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY;  // running max, scaled log2 domain
     float l0 = 0.f, l1 = 0.f;              // this thread's part of the denominators
 
     if (n_tiles > 0) {
-      float s[64];
-      uint32_t p[32];
-      const uint32_t q_a = q_s + c * 64 * row_bytes<D>();
+      float s[kKeys / 2];
+      uint32_t p[kKeys / 4];
+      const uint32_t q_a = q_s + c * 64 * row_bytes<DT>();
       mbar_wait(bar0 + 8 * kQFull, 0);
       mbar_wait(bar0 + 8 * kKFull, 0);
       wgmma_fence();
-      issue_qk<D>(s, q_a, k_s);
+      issue_qk<D, DT>(s, q_a, k_s);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<64>(s);
+      fence_regs<kKeys / 2>(s);
       mbar_arrive_if(bar0 + 8 * kKEmpty, lane == 0);  // one arrival a warp
 
       for (int n = 0; n < n_tiles; ++n) {
         const int st = n & 1;
         const uint32_t ph = (n >> 1) & 1;
-        const int k0 = n * kTile;
-        if (k0 + kTile > Sk || (causal && k0 + kTile - 1 > wg_row0 + off)) {
+        const int k0 = n * kKeys;
+        if (k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > wg_row0 + off)) {
 #pragma unroll
-          for (int j = 0; j < kTile / 8; ++j) {
+          for (int j = 0; j < kKeys / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int col = k0 + j * 8 + 2 * t + e;
@@ -487,7 +596,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
         float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < kTile / 8; ++j) {
+        for (int j = 0; j < kKeys / 8; ++j) {
           mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
           mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
         }
@@ -507,7 +616,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         m1 = mn1;
         float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-        for (int j = 0; j < kTile / 8; ++j) {
+        for (int j = 0; j < kKeys / 8; ++j) {
           const float p00 = ex2(fmaf(s[4 * j], scale_log2, -base0));
           const float p01 = ex2(fmaf(s[4 * j + 1], scale_log2, -base0));
           const float p10 = ex2(fmaf(s[4 * j + 2], scale_log2, -base1));
@@ -520,7 +629,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         l0 = l0 * a0 + ls0;
         l1 = l1 * a1 + ls1;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < kN / 8; ++j) {
           o[4 * j] *= a0;
           o[4 * j + 1] *= a0;
           o[4 * j + 2] *= a1;
@@ -528,21 +637,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
 
         mbar_wait(bar0 + 8 * (kVFull + st), ph);
-        fence_regs<D / 2>(o);
-        fence_regs<32>(p);
+        fence_regs<kN / 2>(o);
+        fence_regs<kKeys / 4>(p);
         wgmma_fence();
-        issue_pv<D>(o, p, v_s + st * L::kTileBytes);
+        issue_pv<D, DT>(o, p, v_s + st * L::kKVBytes);
         wgmma_commit();
         const bool more = n + 1 < n_tiles;
         if (more) {  // the next tile's scores, behind this tile's P V
           const int st1 = st ^ 1;
           mbar_wait(bar0 + 8 * (kKFull + st1), ((n + 1) >> 1) & 1);
-          issue_qk<D>(s, q_a, k_s + st1 * L::kTileBytes);
+          issue_qk<D, DT>(s, q_a, k_s + st1 * L::kKVBytes);
           wgmma_commit();
         }
         wgmma_wait<0>();
-        fence_regs<D / 2>(o);
-        fence_regs<64>(s);
+        fence_regs<kN / 2>(o);
+        fence_regs<kKeys / 2>(s);
         mbar_arrive_if(bar0 + 8 * (kVEmpty + st), lane == 0);
         mbar_arrive_if(bar0 + 8 * (kKEmpty + (st ^ 1)), lane == 0 && more);
       }
@@ -565,14 +674,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // Stage O as bf16 in this warpgroup's own rows of the Q tile (same
     // swizzle, so the 4-byte stores of a warp hit 32 banks), then write
-    // whole 16-byte pieces of rows below Sq.
+    // whole 16-byte pieces of rows below Sq (and, at a runtime width, of
+    // columns below d).
     fence_proxy_async();
     const int lr = c * 64 + warp * 16 + g;  // tile rows lr and lr + 8
-    if constexpr (D < 64) {
-      // Rows of 2D bytes, 16-byte chunks where the swizzle of such rows
+    constexpr int kPieces = kN / 8;         // 16-byte pieces per row
+    if constexpr (DT < 64) {
+      // Rows of 2DT bytes, 16-byte chunks where the swizzle of such rows
       // puts them.
-      constexpr int RB = 2 * D;
-      constexpr int kPieces = D / 8;  // 16-byte pieces per row
+      constexpr int RB = 2 * DT;
 #pragma unroll
       for (int j = 0; j < kPieces; ++j) {
         *reinterpret_cast<uint32_t*>(smem + lr * RB + swizzled_chunk<RB>(lr, j) * 16 + t * 4) =
@@ -585,16 +695,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const int r = c * 64 + idx / kPieces;
         const int pc = idx % kPieces;
         const int qi = q0 + r;
-        if (qi < Sq) {
+        if (qi < Sq && (!kRt || pc * 8 < d)) {
           const uint4 val =
               *reinterpret_cast<const uint4*>(smem + r * RB + swizzled_chunk<RB>(r, pc) * 16);
-          *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * D + pc * 8) =
+          *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * d + pc * 8) =
               val;
         }
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < kPieces; ++j) {
         const int piece = (j / 8) * kPanelBytes + (((j % 8) ^ (lr & 7)) * 16) + t * 4;
         *reinterpret_cast<uint32_t*>(smem + piece + lr * 128) =
             pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
@@ -602,15 +712,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
       named_bar_sync(1 + c, kWgThreads);
-      constexpr int kPieces = D / 8;  // 16-byte pieces per row
       for (int idx = tid; idx < 64 * kPieces; idx += kWgThreads) {
         const int r = c * 64 + idx / kPieces;
         const int pc = idx % kPieces;
         const int qi = q0 + r;
-        if (qi < Sq) {
+        if (qi < Sq && (!kRt || pc * 8 < d)) {
           const uint4 val = *reinterpret_cast<const uint4*>(
               smem + (pc / 8) * kPanelBytes + r * 128 + (((pc % 8) ^ (r & 7)) * 16));
-          *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * D + pc * 8) =
+          *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * d + pc * 8) =
               val;
         }
       }
@@ -618,53 +727,119 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// The instances of head dims 16, 32, 64, 80, 96 and 128.
 template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int Sq, int Sk, int Hq,
+                             int Hkv, float scale_log2, int causal) {
+  flash_wgmma_body<D, wgmma_tile<D>()>(q_map, k_map, v_map, out, lse, Sq, Sk, Hq, Hkv,
+                                       scale_log2, causal, D);
+}
+
+// Runtime-width instances: head dim d (a multiple of 8, at most DT).
+template <int DT>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_attention_wgmma_rt_kernel(const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                int Sq, int Sk, int Hq, int Hkv, float scale_log2, int causal,
+                                int d) {
+  flash_wgmma_body<0, DT>(q_map, k_map, v_map, out, lse, Sq, Sk, Hq, Hkv, scale_log2, causal,
+                          d);
+}
+
+// The exact instance of head dim D (D > 0), or the runtime-width instance
+// of tile DT at head dim d (D == 0).
+template <int D, int DT>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
-                         int causal, cudaStream_t stream) {
+                         int causal, int d, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_bshd(&q_map, q, B, Sq, Hq, D, kTile) ||
-      !encode_bshd(&k_map, k, B, Sk, Hkv, D, kTile) ||
-      !encode_bshd(&v_map, v, B, Sk, Hkv, D, kTile))
+  if (!encode_bshd(&q_map, q, B, Sq, Hq, d, kTile, DT) ||
+      !encode_bshd(&k_map, k, B, Sk, Hkv, d, keys<DT>(), DT) ||
+      !encode_bshd(&v_map, v, B, Sk, Hkv, d, keys<DT>(), DT))
     return cudaErrorInvalidValue;
-  constexpr int bytes = Smem<D>::kBytes;
+  constexpr int bytes = Smem<DT>::kBytes;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+    cudaError_t e;
+    if constexpr (D == 0)
+      e = cudaFuncSetAttribute(flash_attention_wgmma_rt_kernel<DT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    else
+      e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid(Hq, B, (Sq + kTile - 1) / kTile);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  flash_attention_wgmma_kernel<D><<<grid, kWsThreads, bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq,
-      Hkv, scale_log2, causal);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
+  if constexpr (D == 0)
+    flash_attention_wgmma_rt_kernel<DT><<<grid, kWsThreads, bytes, stream>>>(
+        q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq, Hkv,
+        scale_log2, causal, d);
+  else
+    flash_attention_wgmma_kernel<D><<<grid, kWsThreads, bytes, stream>>>(
+        q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq, Hkv,
+        scale_log2, causal);
   return cudaGetLastError();
 }
 
+// The tile of a runtime head dim: the power of two at or above it, at
+// least 16 (ops/flash_attention.py, runtime_tile).
+inline int rt_tile(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. `lse` is nullptr or f32 [B, Hq, Sq].
-// Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. D: a multiple of 8 from 8 to 256.
+// `lse` is nullptr or f32 [B, Hq, Sq]. Returns the cudaError_t of the
+// launch.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int B, int Sq, int Sk,
                                   int Hq, int Hkv, int D, int causal, int dtype,
                                   void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D < 8 || D > 256 ||
+      D % 8 != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0 && D == 16) return (int)launch<float, 16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 0 && D == 32) return (int)launch<float, 32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 0 && D == 64) return (int)launch<float, 64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 0 && D == 128) return (int)launch<float, 128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 1 && D == 16) return (int)launch_wgmma<16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 1 && D == 32) return (int)launch_wgmma<32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 1 && D == 64) return (int)launch_wgmma<64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
-  if (dtype == 1 && D == 128) return (int)launch_wgmma<128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    switch (D) {  // the exact instances
+      case 16: return (int)launch<float, 16, false>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 32: return (int)launch<float, 32, false>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 64: return (int)launch<float, 64, false>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 128: return (int)launch<float, 128, false>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      default: break;
+    }
+    switch (rt_tile(D)) {
+      case 16: return (int)launch<float, 16, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 32: return (int)launch<float, 32, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 64: return (int)launch<float, 64, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 128: return (int)launch<float, 128, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      default: return (int)launch<float, 256, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    }
+  }
+  switch (D) {  // the exact instances
+    case 16: return (int)launch_wgmma<16, 16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    case 32: return (int)launch_wgmma<32, 32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    case 64: return (int)launch_wgmma<64, 64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    case 80: return (int)launch_wgmma<80, 128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    case 96: return (int)launch_wgmma<96, 128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    case 128: return (int)launch_wgmma<128, 128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    default: break;
+  }
+  switch (rt_tile(D)) {
+    case 16: return (int)launch_wgmma<0, 16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    case 32: return (int)launch_wgmma<0, 32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    case 64: return (int)launch_wgmma<0, 64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    case 128: return (int)launch_wgmma<0, 128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+    default: return (int)launch_wgmma<0, 256>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+  }
 }
 
 extern "C" const char* rt_flash_attention_error(int code) {

@@ -5,7 +5,7 @@
 // and f32 accumulators.
 //
 // Layout of every tile these kernels move with TMA: at D >= 64, [D / 64
-// panels][rows][64 columns] bf16, one 128-byte row per tile row, in TMA's
+// panels (rounded up)][rows][64 columns] bf16, one 128-byte row per tile row, in TMA's
 // 128-byte swizzle, from a 1024-byte aligned address; a panel holds
 // `rows * 128` bytes. At D = 32 and 16 a tile row is the whole head row,
 // 64 or 32 bytes, in the 64- or 32-byte swizzle (one panel). In every
@@ -159,10 +159,11 @@ __host__ __device__ constexpr int row_bytes() {
   return D >= 64 ? 128 : 2 * D;
 }
 
-// Panels of 64 columns in a row at head dim D (one below D = 64).
+// Panels of 64 columns in a row at head dim D (one below D = 64; at D = 80
+// and 96 two, the second filled with zeros past D by TMA).
 template <int D>
 __host__ __device__ constexpr int panels() {
-  return D >= 64 ? D / 64 : 1;
+  return D >= 64 ? (D + 63) / 64 : 1;
 }
 
 // Where the swizzle of `kRowBytes`-byte rows (128, 64 or 32) puts the
@@ -501,17 +502,19 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a contiguous bf16 [B, S, H, D] tensor, boxes of 64
-// columns x 1 head x `rows` rows x 1 batch in the 128-byte swizzle, or at
-// D = 32 and 16 of the whole row in the 64- or 32-byte swizzle (the
-// swizzle's span is the box's row); boxes reaching past S (or any edge) are
+// A 4-D map over a contiguous bf16 [B, S, H, D] tensor for tiles `tile`
+// columns wide in shared memory: boxes of 64 columns x 1 head x `rows` rows
+// x 1 batch in the 128-byte swizzle, or at a tile of 32 or 16 columns of
+// the whole tile row in the 64- or 32-byte swizzle (the swizzle's span is
+// the box's row); boxes reaching past S, or past D where the tile is wider
+// (D = 80 in a tile of 128: the second panel's columns 16 to 63), are
 // filled with zeros.
 inline bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-                        int rows) {
+                        int rows, int tile) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  if (D != 16 && D != 32 && D % 64 != 0) return false;
-  const cuuint32_t box_cols = D < 64 ? D : 64;
+  if (D % 8 != 0 || D > tile || (tile != 16 && tile != 32 && tile % 64 != 0)) return false;
+  const cuuint32_t box_cols = tile < 64 ? tile : 64;
   const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                       : CU_TENSOR_MAP_SWIZZLE_32B;

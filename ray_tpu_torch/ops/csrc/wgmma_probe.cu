@@ -5,16 +5,21 @@
 // plain product. Not a kernel of any model path; tests/test_torch_cuda.py
 // builds and runs it on the card.
 //
-// Cases (`which`), at D = 16 or 32 (and 64, through the same code):
+// Cases (`which`), at D = 16 or 32 (and 64, through the same code), and at
+// D = 80 and 96, whose rows are two 64-column panels of the 128-byte
+// swizzle, the second filled with zeros past D by TMA:
 //   0  out[64][128] = A[64][D] B[128][D]^T, both K-major, m64n128k16: the
 //      forward's S = Q K^T.
 //   1  out[64][64] = A[64][D] B[64][D]^T, both K-major, m64n64k16: the
 //      backward's S^T = K Q^T and dP^T = V dO^T.
 //   2  out[64][D] = P[64][128] B[128][D], P from registers, B MN-major,
 //      m64nDk16 register-sourced: the forward's O += P V and the
-//      backward's dV += P^T dO, dK += dS^T Q.
+//      backward's dV += P^T dO, dK += dS^T Q. At D = 80 and 96 an
+//      m64n64k16 on the first panel and an m64n16k16 or m64n32k16 on the
+//      first 16 or 32 columns of the second (part of a swizzle atom).
 //   3  out[64][D] = A^T B with A[128][64] (dS^T, 128-byte swizzle) and
-//      B[128][D], both MN-major, m64nDk16: the backward's dQ = dS K.
+//      B[128][D], both MN-major, m64nDk16: the backward's dQ = dS K (at
+//      D = 80 and 96 an m64n64k16 on each panel).
 
 #include "hopper.cuh"
 
@@ -23,9 +28,15 @@ namespace {
 using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kA = 0;        // A tile at the aligned base
-constexpr int kB = 16384;    // B tile: 128 rows of at most 128 bytes
-constexpr int kSmem = 32768 + 1024;
+constexpr int kA = 0;        // A tile at the aligned base: at most 16 KB
+constexpr int kB = 16384;    // B tile: 128 rows of at most two 128-byte panels
+constexpr int kSmem = 16384 + 32768 + 1024;
+
+// The columns of a tile row in shared memory: D, or two panels at 80, 96.
+template <int D>
+__host__ __device__ constexpr int probe_tile() {
+  return D <= 64 ? D : 128;
+}
 
 // Writes this thread's part of a 64 x N f32 accumulator to out [64][N].
 template <int N>
@@ -55,7 +66,10 @@ __global__ void __launch_bounds__(128)
 wgmma_probe_kernel(const __grid_constant__ CUtensorMap a_map,
                    const __grid_constant__ CUtensorMap b_map, const bf16* __restrict__ p,
                    float* __restrict__ out, uint32_t tx_bytes) {
-  static_assert(D == 16 || D == 32 || D == 64, "probe widths");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96, "probe widths");
+  // bytes between 64-column panels of A and of B (as the case loads them)
+  constexpr uint32_t a_panel = (kWhich == 0 || kWhich == 1 ? 64 : 128) * 128;
+  constexpr uint32_t b_panel = (kWhich == 1 ? 64 : 128) * 128;
   extern __shared__ unsigned char probe_smem_raw[];
   __shared__ __align__(8) uint64_t bar;
   const uint32_t raw = smem_u32(probe_smem_raw);
@@ -68,8 +82,14 @@ wgmma_probe_kernel(const __grid_constant__ CUtensorMap a_map,
   __syncthreads();
   if (threadIdx.x == 0) {
     mbar_expect_tx(b_bar, tx_bytes);
-    if constexpr (kWhich != 2) tma_load_4d(base + kA, &a_map, b_bar, 0, 0, 0, 0);
-    tma_load_4d(base + kB, &b_map, b_bar, 0, 0, 0, 0);
+    if constexpr (kWhich != 2) {
+#pragma unroll
+      for (int pn = 0; pn < (kWhich == 3 ? 1 : panels<D>()); ++pn)
+        tma_load_4d(base + kA + pn * a_panel, &a_map, b_bar, pn * 64, 0, 0, 0);
+    }
+#pragma unroll
+    for (int pn = 0; pn < panels<D>(); ++pn)
+      tma_load_4d(base + kB + pn * b_panel, &b_map, b_bar, pn * 64, 0, 0, 0);
   }
   mbar_wait(b_bar, 0);
 
@@ -80,7 +100,8 @@ wgmma_probe_kernel(const __grid_constant__ CUtensorMap a_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(d, k_desc<D>(base + kA + kk * 32), k_desc<D>(base + kB + kk * 32));
+      wgmma_ss_n128(d, k_desc<D>(base + kA + (kk / 4) * a_panel + (kk % 4) * 32),
+                    k_desc<D>(base + kB + (kk / 4) * b_panel + (kk % 4) * 32));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<64>(d);
@@ -92,7 +113,8 @@ wgmma_probe_kernel(const __grid_constant__ CUtensorMap a_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<0, 0>(d, k_desc<D>(base + kA + kk * 32), k_desc<D>(base + kB + kk * 32));
+      wgmma_ss_n64<0, 0>(d, k_desc<D>(base + kA + (kk / 4) * a_panel + (kk % 4) * 32),
+                         k_desc<D>(base + kB + (kk / 4) * b_panel + (kk % 4) * 32));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<32>(d);
@@ -119,32 +141,40 @@ wgmma_probe_kernel(const __grid_constant__ CUtensorMap a_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t b0 = base + kB + kk * 2048;
       if constexpr (D < 64)
         wgmma_rs_narrow<D>(d, a + 4 * kk, mn_major_desc_narrow<D>(base + kB + kk * 16 * 2 * D),
                            1);
       else
-        wgmma_rs_n64(d, a + 4 * kk, mn_major_desc(base + kB + kk * 2048, 128 * 128), 1);
+        wgmma_rs_n64(d, a + 4 * kk, mn_major_desc(b0, b_panel), 1);
+      if constexpr (D == 80)
+        wgmma_rs_n16(d + 32, a + 4 * kk, mn_major_desc(b0 + b_panel, b_panel), 1);
+      else if constexpr (D == 96)
+        wgmma_rs_n32(d + 32, a + 4 * kk, mn_major_desc(b0 + b_panel, b_panel), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<D / 2>(d);
     store_acc<D>(d, out);
   } else {
-    float d[D / 2];
+    constexpr int kRegs = probe_tile<D>() / 2;
+    float d[kRegs];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) d[i] = 0.f;
+    for (int i = 0; i < kRegs; ++i) d[i] = 0.f;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const uint64_t da = mn_major_desc(base + kA + kk * 2048, 128 * 128);
+      const uint32_t b0 = base + kB + kk * 2048;
       if constexpr (D < 64)
         wgmma_ss_narrow<D, 1, 1>(d, da, mn_major_desc_narrow<D>(base + kB + kk * 16 * 2 * D), 1);
       else
-        wgmma_ss_n64<1, 1>(d, da, mn_major_desc(base + kB + kk * 2048, 128 * 128));
+        wgmma_ss_n64<1, 1>(d, da, mn_major_desc(b0, b_panel));
+      if constexpr (D > 64) wgmma_ss_n64<1, 1>(d + 32, da, mn_major_desc(b0 + b_panel, b_panel));
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<D / 2>(d);
+    fence_regs<kRegs>(d);
     store_acc<D>(d, out);
   }
 }
@@ -155,12 +185,15 @@ cudaError_t launch(const void* a, const void* b, const void* p, void* out, cudaS
   constexpr int a_rows = kWhich == 3 ? 128 : 64;
   constexpr int a_cols = kWhich == 3 ? 64 : D;
   constexpr int b_rows = kWhich == 1 ? 64 : 128;
+  constexpr int tile = probe_tile<D>();
+  constexpr int a_tile = kWhich == 3 ? 64 : tile;
   CUtensorMap a_map, b_map;
-  if (!encode_bshd(&b_map, b, 1, b_rows, 1, D, b_rows)) return cudaErrorInvalidValue;
-  uint32_t tx = b_rows * D * 2;
+  if (!encode_bshd(&b_map, b, 1, b_rows, 1, D, b_rows, tile)) return cudaErrorInvalidValue;
+  uint32_t tx = b_rows * tile * 2;  // TMA counts the zeros it fills
   if (kWhich != 2) {
-    if (!encode_bshd(&a_map, a, 1, a_rows, 1, a_cols, a_rows)) return cudaErrorInvalidValue;
-    tx += a_rows * a_cols * 2;
+    if (!encode_bshd(&a_map, a, 1, a_rows, 1, a_cols, a_rows, a_tile))
+      return cudaErrorInvalidValue;
+    tx += a_rows * a_tile * 2;
   } else {
     a_map = b_map;  // unused
   }
@@ -199,6 +232,8 @@ extern "C" int rt_wgmma_probe(const void* a, const void* b, const void* p, void*
   if (D == 16) return (int)by_case<16>(a, b, p, out, which, s);
   if (D == 32) return (int)by_case<32>(a, b, p, out, which, s);
   if (D == 64) return (int)by_case<64>(a, b, p, out, which, s);
+  if (D == 80) return (int)by_case<80>(a, b, p, out, which, s);
+  if (D == 96) return (int)by_case<96>(a, b, p, out, which, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,6 +15,12 @@ and the wrapper hands the kernel a workspace for the partial results and a
 buffer of zeroed int counters, both kept per device and stream. The kernel
 merges the partials in the same launch and leaves the counters at zero.
 
+Head dims: every multiple of 8 from 8 to 256 (the JAX package's Pallas
+kernel takes any D). 16, 32, 64 and 128 have instances of their own; any
+other D runs on the instance of its tile (`decode_tile`), whose lanes past
+D load zeros and store nothing. Outside the rule the wrapper raises a
+ValueError that states it.
+
 Counterpart: ray_tpu/ops/decode_attention.py (`decode_attention_pallas`,
 `_xla_decode_attention`, `decode_attention`).
 """
@@ -28,8 +34,11 @@ from typing import NamedTuple
 import torch
 
 from ray_tpu_torch._private import kernels
+from ray_tpu_torch._private.kernels import HEAD_DIM_RULE, supported_head_dim
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# Head dims with instances of their own; any other D the rule takes runs on
+# the instance of its tile width (decode_tile) with D as an argument.
+EXACT_HEAD_DIMS = (16, 32, 64, 128)
 # Query heads one block serves (the kernel is built for these).
 GROUP_SIZES = (1, 2, 4, 8)
 # Blocks the grid should hold when every sequence fills the cache: about
@@ -39,16 +48,41 @@ TARGET_BLOCKS = 2048
 # A block reads at least this many rounds of loads: below that its fixed
 # costs (the length, q, the ticket, the merge) outweigh its rows.
 MIN_ROUNDS = 2
+# At most this many chunks of one sequence: the last block of an item
+# merges every chunk's partials alone. On an H100 (chip_width_probe.py)
+# one sequence of 32,768 rows at D 64, 8 heads on one KV head, took 0.139
+# ms in 256 chunks and 0.060 in 32; Gemma-2B's MQA decode at S8192 took
+# 1.15 ms in 256 chunks and 0.078 in 32. Few items then leave most SMs
+# idle, and still finish sooner.
+MAX_SPLITS = 32
+
+
+def decode_tile(d: int) -> int:
+    """The kernel's tile width for head dim d: d itself at 16, 32, 64 and
+    128, else the power of two at or above it (at least 8), whose instance
+    takes d at run time (decode_attention.cu, rt_tile)."""
+    if d in EXACT_HEAD_DIMS:
+        return d
+    return next(t for t in (8, 32, 64, 128, 256) if t >= d)
+
+
+def max_group(d: int) -> int:
+    """Query heads one block serves at most: 8, or 4 at the tile of 256
+    (decode_attention.cu has no 8-head instance there)."""
+    return 4 if decode_tile(d) == 256 else GROUP_SIZES[-1]
 
 
 def rows_per_round(group: int, d: int, elem_bytes: int) -> int:
-    """Cache rows a block of the kernel loads at once: its workers (D /
-    (16 / elem_bytes) lanes each) times the rows each keeps in flight. The
-    kernel runs 128 threads with 4 rows in flight per worker, or 256 threads
-    with 2 for groups of 4 or 8 query heads. At D = 16 in bf16 a worker is
-    2 lanes, so a round is 256 rows for every group."""
+    """Cache rows a block of the kernel loads at once: its workers times
+    the rows each keeps in flight. A worker is min(32, tile * elem_bytes /
+    16) lanes, one 16-byte slice of the row each, so at D = 80 and 96 in
+    bf16 (10 and 12 slices of data) it is 16 lanes of the tile of 128. The
+    kernel runs 128 threads with 4 rows in flight per worker, or 256
+    threads with 2 for groups of 4 or 8 query heads. At D = 16 in bf16 a
+    worker is 2 lanes, so a round is 256 rows for every group."""
     threads, unroll = (256, 2) if group >= 4 else (128, 4)
-    return threads * 16 // (d * elem_bytes) * unroll
+    lanes = min(32, decode_tile(d) * elem_bytes // 16)
+    return threads // lanes * unroll
 
 
 class SplitPlan(NamedTuple):
@@ -67,17 +101,18 @@ class SplitPlan(NamedTuple):
 
 def split_plan(b: int, hq: int, kv: int, s: int, d: int,
                elem_bytes: int) -> SplitPlan:
-    """Whole rounds of loads per chunk, at least MIN_ROUNDS of them, and
-    no more than about TARGET_BLOCKS blocks for a full cache. At the
-    serving width (B8, KV16, S1024, D64, bf16) that is 128-row chunks and
-    8 splits: 544 active blocks on the smoke run's ragged lengths, four for
-    each of the 132 SMs."""
+    """Whole rounds of loads per chunk, at least MIN_ROUNDS of them, no
+    more than about TARGET_BLOCKS blocks for a full cache, and at most
+    MAX_SPLITS chunks. At the serving width (B8, KV16, S1024, D64, bf16)
+    that is 128-row chunks and 8 splits: 544 active blocks on the smoke
+    run's ragged lengths, four for each of the 132 SMs."""
     rep = hq // kv
-    group = next(g for g in GROUP_SIZES if g >= min(rep, GROUP_SIZES[-1]))
+    group = next(g for g in GROUP_SIZES if g >= min(rep, max_group(d)))
     n_groups = -(-rep // group)
     items = b * kv * n_groups
     rows = rows_per_round(group, d, elem_bytes)
     rounds = max(MIN_ROUNDS, math.ceil(s * items / TARGET_BLOCKS / rows),
+                 math.ceil(s / MAX_SPLITS / rows),
                  math.ceil(s / 65535 / rows))  # the grid's y limit
     chunk = rows * rounds
     return SplitPlan(group, n_groups, items, chunk, max(1, -(-s // chunk)))
@@ -148,10 +183,10 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
         raise ValueError(
             f"decode attention shapes disagree: q {tuple(q.shape)}, caches "
             f"{tuple(k_cache.shape)} (need equal B and D, Hq % KV == 0)")
-    if d not in SUPPORTED_HEAD_DIMS:
+    if not supported_head_dim(d):
         raise ValueError(
-            f"decode attention kernel takes head dims {SUPPORTED_HEAD_DIMS}; "
-            f"got D={d} for q {tuple(q.shape)}")
+            f"decode attention kernel takes head dims that are "
+            f"{HEAD_DIM_RULE}; got D={d} for q {tuple(q.shape)}")
     if tuple(lengths.shape) != (b,) or lengths.dtype != torch.int32:
         raise ValueError(
             f"lengths must be int32 [{b}], got {lengths.dtype} "

@@ -14,7 +14,14 @@ the logsumexp of each row, its backward launches the backward kernel
 `_reference_flash_attention_backward` on CPU tensors. Under
 `torch.no_grad()` no logsumexp is computed. The bf16 backward adds dq
 through f32 atomics, so its last bit may differ between two calls on the
-same inputs; dk and dv do not.
+same inputs; dk and dv do not, except at a runtime width whose blocks
+share a KV head's query heads (`bwd_head_split`), where they are summed
+the same way.
+
+Head dims: every multiple of 8 from 8 to 256 (the JAX package's Pallas
+kernel takes any D); the kernels' instances and tiles are named by
+`kernel_tile`. Outside the rule the wrappers raise a ValueError that
+states it.
 
 Counterpart: ray_tpu/ops/flash_attention.py (`flash_attention`). The JAX
 package's Pallas kernel has no gradient rule; its gradient is XLA's, of
@@ -26,12 +33,46 @@ from __future__ import annotations
 import torch
 
 from ray_tpu_torch._private import kernels
+from ray_tpu_torch._private.kernels import HEAD_DIM_RULE, supported_head_dim
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# Head dims with instances of their own: these four in both kernels and
+# both dtypes, and Phi-2's and Phi-3-mini's 80 and 96 in the bf16 forward
+# (faster there than the tile of 128; the backward's were not). Any other D
+# the rule takes runs on the instance of its tile width (kernel_tile) with
+# D as an argument.
+EXACT_HEAD_DIMS = (16, 32, 64, 128)
+EXACT_BF16_FORWARD_HEAD_DIMS = EXACT_HEAD_DIMS + (80, 96)
+
+
+def kernel_tile(d: int) -> int:
+    """The bf16 kernels' tile width (columns of a row in shared memory) for
+    head dim d: the power of two at or above it, at least 16 (two 64-column
+    panels at D = 80 and 96; flash_attention_bwd.cu, tile_of)."""
+    return next(t for t in (16, 32, 64, 128, 256) if t >= d)
+
+
+def bwd_head_split(b: int, sk: int, hq: int, hkv: int, d: int,
+                   sms: int) -> int:
+    """Blocks that share one KV head's query heads in the bf16 backward's
+    runtime-width instances (head dims without an instance of their own):
+    the least divisor of Hq / Hkv that brings the grid (KV heads x B x key
+    tiles) to the card's `sms` multiprocessors, or all of them; 1 at the
+    exact head dims. With few KV heads (Gemma's one) a block per key tile
+    leaves most of the card idle."""
+    if d in EXACT_HEAD_DIMS:
+        return 1
+    rep = hq // hkv
+    blocks = hkv * b * -(-sk // BWD_TILES[d][0])
+    return next((h for h in range(1, rep + 1)
+                 if rep % h == 0 and blocks * h >= sms), rep)
+
+
 # The bf16 backward kernel's tiles by head dim: (keys, query rows). One
 # block owns a key tile and steps over query tiles; the scratch rows are
 # padded to a multiple of the query tile. The kernel refuses any other pair.
-BWD_TILES = {16: (128, 128), 32: (128, 128), 64: (128, 128), 128: (128, 64)}
+BWD_TILES = {d: ((64, 64) if kernel_tile(d) == 256 else
+                 (128, 64) if kernel_tile(d) == 128 else (128, 128))
+             for d in range(8, 257, 8)}
 
 
 def _compute_dtype(dtype):
@@ -129,9 +170,9 @@ def _check_inputs(what: str, q, k, v, *more):
         raise ValueError(f"{what}: o and dO must be shaped like q "
                          f"{tuple(q.shape)}, got "
                          f"{[tuple(t.shape) for t in more]}")
-    if d not in SUPPORTED_HEAD_DIMS:
+    if not supported_head_dim(d):
         raise ValueError(
-            f"{what} kernel takes head dims {SUPPORTED_HEAD_DIMS}; "
+            f"{what} kernel takes head dims that are {HEAD_DIM_RULE}; "
             f"got D={d} for q {tuple(q.shape)}")
     tensors = (q, k, v, *more)
     if any(t.device != q.device or t.device.type != "cuda" for t in tensors):
@@ -186,11 +227,16 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     block_k, block_q = BWD_TILES[d]
     f32 = dict(dtype=torch.float32, device=q.device)
+    hsplit, dkv_accum = 1, None
     if q.dtype == torch.bfloat16:  # Delta, lse in log2 and dQ's accumulator
         rows = -(-sq // block_q) * block_q
         delta = torch.empty(b, hq, rows, **f32)
         lse_log2 = torch.empty(b, hq, rows, **f32)
         dq_accum = torch.empty(b, hq, rows, d, **f32)
+        hsplit = bwd_head_split(b, sk, hq, hkv, d, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        if hsplit > 1:  # the shared KV heads' dK and dV sums
+            dkv_accum = torch.empty(2, b, sk, hkv, d, **f32)
     else:
         delta, lse_log2, dq_accum = torch.empty(b, hq, sq, **f32), None, None
     with torch.cuda.device(q.device):
@@ -201,7 +247,9 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
             None if lse_log2 is None else lse_log2.data_ptr(),
             None if dq_accum is None else dq_accum.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d, int(causal),
-            code, block_k, block_q, stream, head_dim=d)
+            code, block_k, block_q,
+            None if dkv_accum is None else dkv_accum.data_ptr(), hsplit,
+            stream, head_dim=d)
     return dq, dk, dv
 
 

@@ -22,7 +22,7 @@ from ray_tpu_torch.ops.decode_attention import (_reference_decode_attention,
                                                 split_plan)
 from ray_tpu_torch.ops.flash_attention import (
     _reference_flash_attention, _reference_flash_attention_backward,
-    _reference_flash_attention_lse, flash_attention,
+    _reference_flash_attention_lse, bwd_head_split, flash_attention,
     flash_attention_backward_cuda, flash_attention_cuda)
 
 pytestmark = pytest.mark.cuda
@@ -474,14 +474,16 @@ def test_pipelined_engine_on_the_card_gives_golden_tokens(gen):
 
 
 # ---- the reference's narrow heads: D = 16 and 32
-@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96])
 @pytest.mark.parametrize("which", [0, 1, 2, 3])
 def test_wgmma_descriptor_products_match_a_plain_product(gen, d, which):
     """One wgmma product through each descriptor the flash kernels use,
     on tiles loaded by TMA as the kernels load them (wgmma_probe.cu): 0 the
     forward's Q K^T (both K-major), 1 the backward's K Q^T, 2 P V with P
     from registers and V MN-major, 3 dQ = dS K with dS^T and K MN-major.
-    D = 64 runs the 128-byte swizzle's descriptors as a control. Both
+    D = 64 runs the 128-byte swizzle's descriptors as a control; D = 80 and
+    96 read a second panel that TMA filled past D with zeros, in case 2
+    through an m64n16k16 / m64n32k16 on part of its swizzle atom. Both
     sides sum bf16 products in f32: within 1e-3 * max(1, |ref|)."""
     dt = torch.bfloat16
     shapes = {0: ((64, d), (128, d)), 1: ((64, d), (64, d)),
@@ -631,3 +633,99 @@ def test_nccl_ranks_sharing_one_card_raise(gen):
 
     for msg in run_ranks(nccl_on_one_card, 2, backend="nccl"):
         assert "nccl needs one CUDA device per rank" in msg
+
+
+# ---- every head dim the JAX package's kernels take: multiples of 8 to 256
+WIDE_DECODE_CASES = [
+    (32, 32, 96, 600),    # Phi-3-mini's heads (D = 96: workers of 16 lanes)
+    (8, 1, 256, 600),     # Gemma-2B's query heads over one KV head, group 8
+    (8, 8, 256, 300),     # D = 256, one head a block
+    (32, 32, 80, 300),    # Phi-2's heads
+    (4, 4, 8, 300),       # D = 8: a worker of one bf16 lane
+    (16, 4, 8, 600),
+    (8, 2, 120, 300),     # a width no listed model uses (tile 128)
+    (4, 1, 24, 300),      # tile 32
+    (6, 2, 200, 300),     # tile 256, group 4 (rep 3)
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kv,d,s", WIDE_DECODE_CASES)
+def test_decode_kernel_matches_plain_at_every_width(gen, dtype, hq, kv, d,
+                                                    s):
+    """As test_decode_kernel_matches_plain, at the new head dims (the
+    runtime-width instances) and the split plan's edge lengths."""
+    b = len(_edge_lengths(6, hq, kv, d, s, dtype))
+    _decode_and_check(gen, dtype, b, hq, kv, d, s)
+
+
+WIDE_FLASH_CASES = [
+    (1, 300, 300, 4, 4, 96, True),
+    (1, 77, 300, 8, 2, 80, True),      # GQA, Sq < Sk, ragged tiles
+    (1, 130, 70, 2, 2, 96, True),      # Sq > Sk: rows without keys
+    (2, 64, 190, 8, 1, 256, False),    # MQA rep 8 at D = 256
+    (1, 200, 200, 8, 1, 256, True),
+    (1, 129, 127, 2, 2, 256, True),    # Sq > Sk by one
+    (2, 200, 200, 4, 4, 8, True),
+    (1, 1000, 1000, 4, 1, 8, True),    # ragged, rep 4
+    (1, 300, 300, 4, 2, 40, True),     # runtime widths: tiles 64, 128, 256
+    (1, 129, 300, 2, 2, 120, False),
+    (1, 200, 200, 2, 1, 136, True),
+    (1, 100, 130, 2, 2, 24, True),     # tile 32
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", WIDE_FLASH_CASES)
+def test_flash_kernels_match_plain_at_every_width(gen, dtype, b, sq, sk, hq,
+                                                  hkv, d, causal):
+    """The forward (with its logsumexp) and the backward at the new head
+    dims against their plain versions, as at 16 to 128."""
+    q = _randn(gen, b, sq, hq, d, dtype=dtype)
+    k, v = (_randn(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    dout = _randn(gen, b, sq, hq, d, dtype=dtype)
+    before = kernels.FLASH_ATTENTION.launches
+    _check(flash_attention_cuda(q, k, v, causal),
+           _reference_flash_attention(q, k, v, causal), dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    assert kernels.FLASH_ATTENTION.launches == before + 2
+    ref_out, ref_lse = _reference_flash_attention_lse(q, k, v, causal)
+    _check(out, ref_out, dtype)
+    dead = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), dead)
+    diff = (lse - ref_lse)[~dead].abs()
+    assert diff.numel() == 0 or float(diff.max()) <= 1e-4
+    before = kernels.FLASH_ATTENTION_BWD.launches
+    grads = flash_attention_backward_cuda(q, k, v, out, dout, lse, causal)
+    assert kernels.FLASH_ATTENTION_BWD.launches == before + 1
+    refs = _reference_flash_attention_backward(q, k, v, out, dout, lse,
+                                               causal)
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape
+        _check(g, r, dtype)
+    if causal and sq > sk:
+        assert torch.all(out[:, :sq - sk] == 0)
+        assert torch.all(grads[0][:, :sq - sk] == 0)
+
+
+def test_flash_backward_kernel_repeats_at_every_width(gen):
+    """D = 8, 80, 96 and 256 run runtime-width backward instances. At
+    B2 S300 Hq8 Hkv2 their few blocks share each KV head's query heads
+    (bwd_head_split > 1) and sum dk and dv with f32 atomics, so two calls
+    agree within the tolerance, as dq does everywhere; at B4 S1024 H8 the
+    grid is full without sharing, and dk and dv are bitwise repeatable."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in (8, 80, 96, 256):
+        for b, s, hq, hkv in ((2, 300, 8, 2), (4, 1024, 8, 8)):
+            args = _backward_case(gen, b, s, s, hq, hkv, d, True)
+            split = bwd_head_split(b, s, hq, hkv, d, sms)
+            assert (split > 1) == (hkv == 2)
+            first = flash_attention_backward_cuda(*args, True)
+            second = flash_attention_backward_cuda(*args, True)
+            refs = _reference_flash_attention_backward(*args, True)
+            for a, c, r in zip(first, second, refs):
+                _check(a, r, torch.bfloat16)
+                _check(a, c, torch.bfloat16)
+            if split == 1:
+                assert torch.equal(first[1], second[1])
+                assert torch.equal(first[2], second[2])

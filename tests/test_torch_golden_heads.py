@@ -1,16 +1,18 @@
-"""The golden file at the JAX package's own head widths (D = 16 and 32).
+"""The golden file at the JAX package's head widths: its own (D = 16 and
+32) and the others its kernels take (D = 8, 80, 96 and 256).
 
-`tests/data/torch_port_golden_heads.npz` carries, for the two models of
+`tests/data/torch_port_golden_heads.npz` carries, for the models of
 `chip_smoke.HEADS_MODELS` in float32 (the dryrun's training model, d_model
-128 in 8 heads, and entry()'s, d_model 256 in 8 heads, each as LLMConfig
-derives it): each model's full-forward logits on seeded tokens and its
-ContinuousEngine's greedy tokens for two prompts, and for the training
-model one step's `jax.value_and_grad(loss_fn)`: the loss and, per
+128 in 8 heads, entry()'s, d_model 256 in 8 heads, and four 2-layer
+models of heads of 8, 80, 96 and 256, each as LLMConfig derives it): each
+model's full-forward logits on seeded tokens and its ContinuousEngine's
+greedy tokens for two prompts, and for the training model and the four
+others one step's `jax.value_and_grad(loss_fn)`: the loss and, per
 parameter tensor, the gradient entries at seeded indices
 (`chip_smoke.heads_grad_index`). The weights are not stored: both sides
 draw them with numpy from a seed (`chip_smoke.heads_params`). The card
-cannot run JAX, so the file is the reference there (chip_smoke.py's
-reference-widths phase); these tests recompute it with the JAX package
+cannot run JAX, so the file is the reference there (chip_smoke.py's phases 15
+and 16); these tests recompute it with the JAX package
 and with the port on the CPU, so it cannot drift from either.
 
 Regenerate with: JAX_PLATFORMS=cpu PYTHONPATH=. python
@@ -32,9 +34,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke  # noqa: E402
 from chip_smoke import (GOLDEN_HEADS, HEADS_MAX_TOKENS,  # noqa: E402
-                        HEADS_MODELS, HEADS_PROMPTS, heads_flat,
-                        heads_grad_index, heads_params, heads_tokens,
-                        heads_train_tokens)
+                        HEADS_MODELS, HEADS_PROMPTS, HEADS_TRAINED,
+                        heads_flat, heads_grad_index, heads_params,
+                        heads_tokens, heads_train_tokens)
 from ray_tpu.llm import LLMConfig as JaxLLMConfig  # noqa: E402
 from ray_tpu.llm.engine import ContinuousEngine as JaxEngine  # noqa: E402
 from ray_tpu.llm.engine import SamplingParams as JaxSampling  # noqa: E402
@@ -77,14 +79,15 @@ def jax_golden_heads() -> dict:
             top2 = np.sort(lg[len(p) - 1:], axis=-1)[:, -2:]
             gaps.append(float(np.min(top2[:, 1] - top2[:, 0])))
         out[f"{name}/min_greedy_gap"] = np.float32(min(gaps))
-        if name != "train":
+        if name not in HEADS_TRAINED:
             continue
         loss, grads = jax.value_and_grad(lambda p: jax_loss_fn(
-            model, p, jnp.asarray(heads_train_tokens())))({"params": tree})
-        out["train/loss"] = np.float32(loss)
+            model, p, jnp.asarray(heads_train_tokens(name))))(
+                {"params": tree})
+        out[f"{name}/loss"] = np.float32(loss)
         for key, g in heads_flat(grads["params"]).items():
             g = np.asarray(g, np.float32).reshape(-1)
-            out[f"train/grad/{key}"] = g[heads_grad_index(key, g.size)]
+            out[f"{name}/grad/{key}"] = g[heads_grad_index(key, g.size)]
     return out
 
 
@@ -100,10 +103,11 @@ def golden():
 
 
 def test_golden_heads_file_is_small_and_names_both_widths(golden):
-    assert os.path.getsize(GOLDEN_HEADS) < 1 << 20
+    assert os.path.getsize(GOLDEN_HEADS) < 1.5 * (1 << 20)
     widths = {name: cfg["d_model"] // cfg["n_heads"]
               for name, cfg in HEADS_MODELS.items()}
-    assert widths == {"train": 16, "entry": 32}
+    assert widths == {"train": 16, "entry": 32, "d8": 8, "d80": 80,
+                      "d96": 96, "d256": 256}
     for name in HEADS_MODELS:
         assert golden[f"{name}/logits"].shape == (
             2, 32, HEADS_MODELS[name]["vocab_size"])
@@ -131,21 +135,24 @@ def test_golden_heads_match_port_on_cpu(golden):
     function (the one the card runs) and its check: logits within 1e-4,
     greedy tokens equal, loss within 1e-5, kept gradient entries within
     1e-4 * max(1, |ref|)."""
+    names = tuple(HEADS_MODELS)
     rec = chip_smoke.heads_check(golden,
-                                 chip_smoke.heads_port_outputs("cpu"))
-    assert rec["train_logit_err"] <= 1e-4 and rec["entry_logit_err"] <= 1e-4
+                                 chip_smoke.heads_port_outputs("cpu", names),
+                                 names)
+    assert all(rec[f"{name}_logit_err"] <= 1e-4 for name in names)
 
 
-def test_port_training_step_matches_jax_in_every_gradient_entry():
-    """One step of the training model (D = 16): the port's loss and every
-    entry of every parameter's gradient against jax.value_and_grad, f32,
-    within 1e-5 and 1e-4 * max(1, |ref|)."""
-    tree = heads_params("train")
-    _, jmodel = _jax_model("train", tree)
-    tokens = heads_train_tokens()
+@pytest.mark.parametrize("name", HEADS_TRAINED)
+def test_port_training_step_matches_jax_in_every_gradient_entry(name):
+    """One step of each trained model (D = 16, 8, 80, 96, 256): the port's
+    loss and every entry of every parameter's gradient against
+    jax.value_and_grad, f32, within 1e-5 and 1e-4 * max(1, |ref|)."""
+    tree = heads_params(name)
+    _, jmodel = _jax_model(name, tree)
+    tokens = heads_train_tokens(name)
     jloss, jgrads = jax.value_and_grad(lambda p: jax_loss_fn(
         jmodel, p, jnp.asarray(tokens)))({"params": tree})
-    lcfg = LLMConfig(**HEADS_MODELS["train"], dtype="float32")
+    lcfg = LLMConfig(**HEADS_MODELS[name], dtype="float32")
     model = Transformer(model_config(lcfg), device="cpu")
     model.load_state_dict(params_from_flax(tree))
     loss = loss_fn(model, torch.from_numpy(tokens).long())

@@ -1,14 +1,15 @@
-"""The port's attention at the JAX package's own narrow head widths, D = 16
-and 32, on the CPU.
+"""The port's attention at every head width the JAX package's kernels take,
+on the CPU: its own narrow widths D = 16 and 32, D = 8, and the widths of
+public models (80: Phi-2, 96: Phi-3-mini, 256: Gemma).
 
 The plain versions of the three kernels against the JAX package (its
 Pallas kernels in interpret mode, its XLA paths, `jax.vjp` of
 `_xla_attention` for the gradient) in float32 within 1e-5, at the TPU
 kernels' tile rules (Sq a multiple of 8, Sk and cache lengths multiples of
 128); the decode kernel's split plan at these widths; the wrappers'
-refusal of the widths no kernel takes; and the port's dryrun at the
-reference's own configurations (heads of 16). The kernels themselves run
-on the card: tests/test_torch_cuda.py.
+refusal of the widths no kernel takes (the rule: multiples of 8 from 8 to
+256); and the port's dryrun at the reference's own configurations (heads
+of 16). The kernels themselves run on the card: tests/test_torch_cuda.py.
 """
 
 import ast
@@ -51,7 +52,11 @@ def _close(a, b, tol=TOL):
     np.testing.assert_allclose(a, np.asarray(b), atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("d", [16, 32])
+# The head dims of the parity tests; D = 256 runs at small B and S.
+WIDTHS = [8, 16, 32, 80, 96, 256]
+
+
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("b,hq,kv,s,lengths", [
     (3, 4, 4, 256, [1, 100, 256]),   # MHA, ragged, a full cache row
     (2, 8, 2, 128, [1, 77]),         # GQA rep 4
@@ -69,7 +74,7 @@ def test_decode_attention_matches_jax_at_narrow_heads(d, b, hq, kv, s,
     _close(port, _xla_decode_attention(jq, jk, jv, jl))
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,sq,sk,hq,hkv", [
     (2, 128, 128, 4, 4),
@@ -87,7 +92,7 @@ def test_flash_attention_matches_jax_at_narrow_heads(d, causal, b, sq, sk,
     _close(port, _xla_attention(jq, jk, jv, causal=causal))
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,causal", [
     (2, 64, 128, 4, 4, True),
     (1, 32, 128, 8, 2, False),   # GQA, Sq < Sk
@@ -115,30 +120,38 @@ def test_flash_backward_matches_jax_grad_at_narrow_heads(d, b, sq, sk, hq,
 
 
 def _kernel_rows_per_round(group: int, d: int, elem: int) -> int:
-    """decode_attention.cu: threads<REP>() threads, D / (16 / elem) lanes
-    per row (TPR), so 32 / TPR rows per warp at once, kUnroll rows in
+    """decode_attention.cu: the instance's tile DP is D at 16, 32, 64 and
+    128, else the power of two at or above D (at least 8); threads<REP>()
+    threads (256 for groups of 4 or 8 heads); min(32, DP / (16 / elem))
+    lanes per row (TPR), so 32 / TPR rows per warp at once, kUnroll rows in
     flight per worker."""
+    dp = d if d in (16, 32, 64, 128) else 1 << max(3, (d - 1).bit_length())
     threads = 256 if group >= 4 else 128
     unroll = 2 if group >= 4 else 4
-    tpr = d // (16 // elem)
+    tpr = min(32, dp // (16 // elem))
     return threads // 32 * (32 // tpr) * unroll
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [8, 16, 32, 80, 96, 120, 256])
 @pytest.mark.parametrize("elem", [2, 4])
 @pytest.mark.parametrize("b,hq,kv,s,lengths", [
     (8, 16, 16, 1024, [1, 1024, 517, 64, 300, 900, 128, 777]),
     (8, 16, 4, 1024, [1, 1024, 517, 64, 300, 900, 128, 777]),
     (2, 4, 4, 64, [64, 1]),
+    (8, 8, 1, 2048, [1, 2048, 1000, 17, 512, 1999, 64, 700]),  # group 8
 ])
 def test_split_plan_at_narrow_heads(d, elem, b, hq, kv, s, lengths):
-    """rows_per_round is the kernel's rows per round at D = 16 and 32 (a
-    worker of 2 or 4 bf16 lanes, 4 or 8 f32 lanes), and the chunks of the
-    plan cover every row of every length once."""
+    """rows_per_round is the kernel's rows per round at every tile width
+    (D = 8: a worker of one bf16 lane; D = 80 and 96: 10 and 12 bf16 lanes
+    of data in a worker of 16; D = 256 in f32: 32 lanes of two slices each,
+    and at most 4 query heads a block), and the chunks of the plan, at most
+    MAX_SPLITS of them, cover every row of every length once."""
     plan = split_plan(b, hq, kv, s, d, elem)
     rows = rows_per_round(plan.group, d, elem)
     assert rows == _kernel_rows_per_round(plan.group, d, elem)
     assert plan.chunk % rows == 0 and plan.n_splits * plan.chunk >= s
+    assert plan.n_splits <= decode_mod.MAX_SPLITS
+    assert plan.group <= (4 if d == 256 else 8)
     for length in lengths:
         hits = np.zeros(length, np.int64)
         for split in range(plan.n_splits):
@@ -149,16 +162,45 @@ def test_split_plan_at_narrow_heads(d, elem, b, hq, kv, s, lengths):
         assert rows == 256  # so S = 1024 gives 2 splits
         if s == 1024:
             assert plan.n_splits == 2
+    if d in (80, 96) and elem == 2:
+        # 10 or 12 lanes of data: workers of 16 lanes, as at D = 128
+        assert rows == rows_per_round(plan.group, 128, elem)
 
 
-@pytest.mark.parametrize("d", [8, 96])
+@pytest.mark.parametrize("b,sk,hq,hkv,d,want", [
+    (2, 2048, 8, 1, 256, 4),    # Gemma's MQA: 64 key tiles x 4 = 256 blocks
+    (1, 200, 8, 1, 256, 8),     # every query head its own block
+    (2, 2048, 16, 16, 40, 1),   # enough KV heads already
+    (2, 2048, 8, 1, 64, 1),     # an instance of its own: never split
+    (2, 2048, 32, 8, 96, 1),    # Phi-3-mini's width, GQA: 256 blocks already
+    (4, 2048, 8, 1, 80, 4),     # Phi-2's width runs the tile of 128
+    (2, 300, 8, 2, 8, 4),
+])
+def test_backward_head_split_fills_the_card(b, sk, hq, hkv, d, want):
+    """bwd_head_split: the least divisor of Hq / Hkv that gives the bf16
+    backward at least a block per multiprocessor (an H100's 132), only at
+    runtime widths."""
+    sms = 132
+    split = flash_mod.bwd_head_split(b, sk, hq, hkv, d, sms)
+    assert split == want and (hq // hkv) % split == 0
+    blocks = hkv * b * -(-sk // flash_mod.BWD_TILES[d][0])
+    assert blocks * split >= sms or split == hq // hkv \
+        or d in flash_mod.EXACT_HEAD_DIMS
+
+
+@pytest.mark.parametrize("d", [12, 264])
 def test_wrappers_name_the_supported_head_dims(d):
-    """Each CUDA wrapper refuses a head dim no kernel takes with a
-    ValueError that names the ones they do (before looking at devices)."""
-    assert decode_mod.SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
-    assert flash_mod.SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
+    """Each CUDA wrapper refuses a head dim outside the rule (a multiple of
+    8 from 8 to 256) with a ValueError that states it (before looking at
+    devices)."""
+    assert decode_mod.HEAD_DIM_RULE == flash_mod.HEAD_DIM_RULE \
+        == "a multiple of 8 from 8 to 256"
+    assert all(decode_mod.supported_head_dim(w)
+               and flash_mod.supported_head_dim(w)
+               for w in range(8, 257, 8))
+    assert not decode_mod.supported_head_dim(d)
     z = torch.zeros
-    named = r"\(16, 32, 64, 128\)"
+    named = "a multiple of 8 from 8 to 256"
     with pytest.raises(ValueError, match=named):
         decode_attention_cuda(z(1, 2, d), z(1, 8, 2, d), z(1, 8, 2, d),
                               z(1, dtype=torch.int32))

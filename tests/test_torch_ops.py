@@ -359,19 +359,22 @@ def test_flash_backward_schedule_rows_without_keys():
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """The CUDA wrappers raise ValueError naming the shape for head dims
-    other than 16/32/64/128, and refuse CPU tensors rather than
-    computing."""
+    outside the rule (multiples of 8 from 8 to 256), and refuse CPU tensors
+    rather than computing, at D = 96 as at 64."""
     z = torch.zeros
-    with pytest.raises(ValueError, match="D=96"):
-        decode_attention_cuda(z(1, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96),
-                              z(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="D=96"):
-        flash_attention_cuda(z(1, 8, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96))
-    with pytest.raises(ValueError, match="CUDA"):
-        decode_attention_cuda(z(1, 2, 64), z(1, 8, 2, 64), z(1, 8, 2, 64),
-                              z(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_cuda(z(1, 8, 2, 64), z(1, 8, 2, 64), z(1, 8, 2, 64))
+    with pytest.raises(ValueError, match="D=100"):
+        decode_attention_cuda(z(1, 2, 100), z(1, 8, 2, 100),
+                              z(1, 8, 2, 100), z(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="D=100"):
+        flash_attention_cuda(z(1, 8, 2, 100), z(1, 8, 2, 100),
+                             z(1, 8, 2, 100))
+    for d in (64, 96):
+        with pytest.raises(ValueError, match="CUDA"):
+            decode_attention_cuda(z(1, 2, d), z(1, 8, 2, d), z(1, 8, 2, d),
+                                  z(1, dtype=torch.int32))
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_cuda(z(1, 8, 2, d), z(1, 8, 2, d),
+                                 z(1, 8, 2, d))
 
 
 def test_cuda_entry_points_raise_without_cuda():
@@ -494,10 +497,9 @@ def test_backward_and_decode_wrappers_refuse_what_the_kernels_do_not_take():
     z = torch.zeros
     q, k = z(1, 8, 2, 64), z(1, 8, 2, 64)
     lse = z(1, 2, 8)
-    with pytest.raises(ValueError, match="D=96"):
-        flash_attention_backward_cuda(z(1, 8, 2, 96), z(1, 8, 2, 96),
-                                      z(1, 8, 2, 96), z(1, 8, 2, 96),
-                                      z(1, 8, 2, 96), lse)
+    with pytest.raises(ValueError, match="D=100"):
+        flash_attention_backward_cuda(*(z(1, 8, 2, 100) for _ in range(5)),
+                                      lse)
     with pytest.raises(ValueError, match="shaped like q"):
         flash_attention_backward_cuda(q, k, k, q, z(1, 7, 2, 64), lse)
     with pytest.raises(ValueError, match="CUDA"):

@@ -309,3 +309,76 @@ def test_node_killer_cycle(cluster):
     assert len(cluster.nodes) == 1  # the replacement
     alive = {n["NodeID"] for n in rt.nodes() if n["Alive"]}
     assert cluster.nodes[0].node_id in alive
+
+
+# ---- the llm.tokens_per_s series (tests/test_telemetry.py's counterpart)
+@pytest.fixture
+def telemetry_cluster(monkeypatch, shutdown_only):
+    """A runtime with the sampling plane armed at a fast cadence (workers
+    inherit the env through the agent spawn path)."""
+    monkeypatch.setenv("RT_TELEMETRY_INTERVAL_S", "0.2")
+    rt.init(num_cpus=2)
+    yield
+
+
+def test_llm_tokens_per_s_series(telemetry_cluster):
+    """A worker that hosts the port's engine exports its decode throughput
+    as the dot-qualified `llm.tokens_per_s` series, and `ray-tpu-torch
+    top` shows it in the node's TOK/S column (not "-")."""
+    from ray_tpu_torch.scripts.cli import _top_lines
+    from ray_tpu_torch.util import state
+
+    @rt.remote
+    class EngineHost:
+        def tick(self):
+            # the engine counts in _deliver; the counter is the series'
+            # source either way (the module's presence gates sampling)
+            from ray_tpu_torch.llm import engine as eng
+
+            eng._count_tokens(1000)
+            return True
+
+    h = EngineHost.remote()
+    deadline = time.monotonic() + 25
+    rows = []
+    while time.monotonic() < deadline:
+        rt.get(h.tick.remote(), timeout=30)
+        rows = state.timeseries(series="llm.tokens_per_s")
+        if rows and any(p[1] > 0 for r in rows for p in r["points"]):
+            break
+        time.sleep(0.2)
+    assert rows, "llm.tokens_per_s series never appeared"
+    assert any(p[1] > 0 for r in rows for p in r["points"]), rows
+    assert not state.timeseries(series="worker.llm.tokens_per_s")
+    util = state.cluster_utilization()
+    workers = [w for n in util["nodes"].values()
+               for w in (n.get("workers") or {}).values()]
+    assert any("llm.tokens_per_s" in w for w in workers), util
+    frame = _top_lines(util)
+    assert "TOK/S" in frame[0]
+    # the node rows' TOK/S column (the 8th) holds a rate on the engine's node
+    assert any(line.split()[7] != "-" for line in frame[1:]
+               if len(line.split()) > 7 and line.split()[1] == "ALIVE"), frame
+
+
+def test_engine_delivery_moves_tokens_per_s():
+    """A CPU ContinuousEngine that hands N tokens to its streams adds N to
+    the counter, so the next snapshot reports a positive rate."""
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm import engine as eng
+    from ray_tpu_torch.llm.engine import ContinuousEngine, SamplingParams
+
+    cfg = LLMConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2,
+                    max_seq=64)
+    engine = ContinuousEngine(cfg, max_batch=2, decode_chunk=4, device="cpu")
+    try:
+        eng.tokens_per_s_snapshot()  # anchor the window
+        before = eng._tok_count
+        streams = [engine.submit([1, 2, 3], SamplingParams(
+            temperature=0.0, max_tokens=n)) for n in (5, 7)]
+        assert [len(s.tokens()) for s in streams] == [5, 7]
+    finally:
+        engine.shutdown()
+    assert eng._tok_count - before == 12
+    time.sleep(0.01)
+    assert eng.tokens_per_s_snapshot() > 0
