@@ -31,7 +31,10 @@ from the root of a checkout. Phases, each of which raises on failure
    f32 B8 S32 H8 D16, GQA Sq512 < Sk1024 D16 and ragged Sq=Sk=1000 D32.
    A bound is the largest of bytes, operations and exponentials (one per
    visible score at 16 per clock per SM on 132 SMs, at nvidia-smi's
-   maximum SM clock); at D = 16 and 32 the exponentials set it.
+   maximum SM clock); at D = 16 and 32 the exponentials set it. Every
+   decode row of PERF.md's kernel table (`DECODE_TABLE`) is among the
+   cases, each with the wrapper's host microseconds per call beside the
+   previous design's (`PARENT_HOST_US`).
 3. Golden parity: the tiny float32 model of tests/data/torch_port_golden.npz
    (weights, logits, greedy tokens and one step's loss and gradients of the
    JAX package) through the kernels, TF32 off: logits within 1e-4, greedy
@@ -471,6 +474,73 @@ def _max_err(out, ref, dtype_name: str) -> float:
 
 
 # ------------------------------------------------------------- phase 2
+# Phase 2's ragged cache lengths (the serving mix's), and the same stretched
+# over a longer cache.
+RAGGED = [1, 1024, 517, 64, 300, 900, 128, 777]
+
+
+def _spread(s: int) -> list:
+    return [max(1, n * s // 1024) for n in RAGGED]
+
+
+# The decode rows of PERF.md's kernel table, all timed in phase 2 (and by
+# chip_decode_probe.py --rows): name -> (b, hq, kv, d, s, dtype, lengths).
+DECODE_TABLE = {
+    "serving B8 Hq16 KV16 D64 S1024 bf16":
+        (8, 16, 16, 64, 1024, "bfloat16", RAGGED),
+    "tp=2 per rank B8 Hq8 KV8 D64 S1024 bf16":
+        (8, 8, 8, 64, 1024, "bfloat16", RAGGED),
+    "serving heads B8 Hq16 KV16 D32 S1024 bf16":
+        (8, 16, 16, 32, 1024, "bfloat16", RAGGED),
+    "GQA B8 Hq16 KV4 D16 S1024 bf16": (8, 16, 4, 16, 1024, "bfloat16", RAGGED),
+    "f32 B2 Hq4 KV4 D16 S64": (2, 4, 4, 16, 64, "float32", [64, 17]),
+    "Phi-3-mini B8 Hq32 KV32 D96 S4096 bf16":
+        (8, 32, 32, 96, 4096, "bfloat16", _spread(4096)),
+    "Gemma-2B MQA B8 Hq8 KV1 D256 S8192 bf16":
+        (8, 8, 1, 256, 8192, "bfloat16", _spread(8192)),
+    "Gemma-2B served B8 Hq8 KV8 D256 S8192 bf16":
+        (8, 8, 8, 256, 8192, "bfloat16", _spread(8192)),
+    "long context B1 Hq8 KV1 D64 S32768 bf16":
+        (1, 8, 1, 64, 32768, "bfloat16", [32768]),
+    "Phi-2 B8 Hq32 KV32 D80 S2048 bf16":
+        (8, 32, 32, 80, 2048, "bfloat16", _spread(2048)),
+    "GQA B8 Hq16 KV4 D8 S1024 bf16": (8, 16, 4, 8, 1024, "bfloat16", RAGGED),
+    "f32 B2 Hq8 KV1 D256 S512": (2, 8, 1, 256, 512, "float32", [512, 77]),
+    "runtime width B8 Hq16 KV4 D120 S1024 bf16":
+        (8, 16, 4, 120, 1024, "bfloat16", RAGGED),
+}
+# The decode wrapper's host microseconds per call under the previous
+# design (split-K on CUDA cores, rows staged in registers): the median over
+# DECODE_TABLE's rows of chip_decode_probe.py --rows on that design's
+# checkout, two runs on an NVIDIA H100 80GB HBM3 at 700 W in one call with
+# this design's two runs (whose median was 27.5).
+PARENT_HOST_US = 28.6
+_DECODE_RECORDS: list = []  # every decode case's record, in order
+
+
+def _host_us_per_call(fn, calls: int = 100, reps: int = 7) -> float:
+    """Microseconds of host time per call of fn, enqueued back to back (the
+    card keeps up at these sizes, so this is the wrapper's own cost): the
+    median over `reps` runs of `calls` calls, as the host's clock is shared
+    with other work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def _decode_row(name, flush, gen):
+    return _decode_case(name, *DECODE_TABLE[name], flush, gen)
+
+
 def _decode_case(name, b, hq, kv, d, s, dtype, lengths, flush, gen):
     import torch
     import torch.nn.functional as F
@@ -510,8 +580,11 @@ def _decode_case(name, b, hq, kv, d, s, dtype, lengths, flush, gen):
         "library_ms": library_ms, "library_backend": backend,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "gb_per_s": nbytes / ms / 1e6, "share_of_bound": bound_ms / ms,
+        "host_us_per_call": _host_us_per_call(
+            lambda: decode_attention_cuda(q, k, v, lens)),
     }
     log("decode " + json.dumps(rec))
+    _DECODE_RECORDS.append(rec)
     return rec
 
 
@@ -650,6 +723,11 @@ def phase_kernels():
     with _smi_sampler() as card:
         recs = _kernel_cases()
     log("card during phase 2 (min, median, max) " + json.dumps(card))
+    host = [r["host_us_per_call"] for r in _DECODE_RECORDS
+            if r["case"] in DECODE_TABLE]
+    log(f"decode wrapper host us per call, median over the table's "
+        f"{len(host)} rows: {statistics.median(host):.1f} (previous design "
+        f"{PARENT_HOST_US})")
     return recs
 
 
@@ -658,19 +736,18 @@ def _kernel_cases():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    ragged = [1, 1024, 517, 64, 300, 900, 128, 777]
-    decode_main = _decode_case("serving B8 Hq16 KV16 D64 S1024 bf16",
-                               8, 16, 16, 64, 1024, "bfloat16", ragged,
-                               flush, gen)
+    decode_main = _decode_row("serving B8 Hq16 KV16 D64 S1024 bf16", flush,
+                              gen)
+    _decode_row("tp=2 per rank B8 Hq8 KV8 D64 S1024 bf16", flush, gen)
     _decode_case("GQA B8 Hq16 KV4 D64 S1024 bf16", 8, 16, 4, 64, 1024,
-                 "bfloat16", ragged, flush, gen)
+                 "bfloat16", RAGGED, flush, gen)
     _decode_case("f32 B8 Hq16 KV16 D64 S1024", 8, 16, 16, 64, 1024,
-                 "float32", ragged, flush, gen)
+                 "float32", RAGGED, flush, gen)
     _decode_case("D128 GQA rep 16 B4 Hq32 KV2 S600 bf16", 4, 32, 2, 128,
                  600, "bfloat16", [1, 600, 333, 17], flush, gen)
-    # long context, few items: the split plan's most chunks per sequence
-    _decode_case("long context B1 Hq8 KV1 D64 S32768 bf16", 1, 8, 1, 64,
-                 32768, "bfloat16", [32768], flush, gen)
+    # long context, one item: the most chunks per sequence, both levels of
+    # the merge tree
+    _decode_row("long context B1 Hq8 KV1 D64 S32768 bf16", flush, gen)
     flash_main = _flash_case("forward B4 S1024 H16 D64 bf16 causal",
                              4, 1024, 1024, 16, 16, 64, "bfloat16", True,
                              flush, gen)
@@ -698,22 +775,18 @@ def _kernel_cases():
                     "float32", True, flush, gen)
     _flash_bwd_case("backward Sq1024 > Sk512 h8 d64 bf16 causal", 1, 1024,
                     512, 8, 8, 64, "bfloat16", True, flush, gen)
-    narrow = _narrow_cases(ragged, flush, gen)
-    wide = _wide_cases(ragged, flush, gen)
+    narrow = _narrow_cases(flush, gen)
+    wide = _wide_cases(flush, gen)
     del flush
     return decode_main, flash_main, bwd_main, narrow, wide
 
 
-def _narrow_cases(ragged, flush, gen) -> dict:
+def _narrow_cases(flush, gen) -> dict:
     """Phase 2 at the reference's own head widths, D = 16 and 32: each
     kernel's records by name."""
-    decode = [
-        _decode_case("serving heads B8 Hq16 KV16 D32 S1024 bf16", 8, 16, 16,
-                     32, 1024, "bfloat16", ragged, flush, gen),
-        _decode_case("GQA B8 Hq16 KV4 D16 S1024 bf16", 8, 16, 4, 16, 1024,
-                     "bfloat16", ragged, flush, gen),
-        _decode_case("f32 B2 Hq4 KV4 D16 S64", 2, 4, 4, 16, 64, "float32",
-                     [64, 17], flush, gen)]
+    decode = [_decode_row(name, flush, gen) for name in (
+        "serving heads B8 Hq16 KV16 D32 S1024 bf16",
+        "GQA B8 Hq16 KV4 D16 S1024 bf16", "f32 B2 Hq4 KV4 D16 S64")]
     shapes = [  # name, b, sq, sk, hq, hkv, d, dtype
         ("B4 S1024 H16 D32 bf16 causal", 4, 1024, 1024, 16, 16, 32,
          "bfloat16"),
@@ -733,7 +806,7 @@ def _narrow_cases(ragged, flush, gen) -> dict:
             "flash_attention_bwd": bwd}
 
 
-def _wide_cases(ragged, flush, gen) -> dict:
+def _wide_cases(flush, gen) -> dict:
     """Phase 2 at the other head widths the JAX package's kernels take:
     Phi-3-mini's D = 96 and Gemma-2B's D = 256 at phase 16's shapes (the
     serving caches ragged over S, Gemma's both as trained, multi-query, and
@@ -741,24 +814,13 @@ def _wide_cases(ragged, flush, gen) -> dict:
     D = 80, D = 8, D = 256 in f32, and widths no listed model uses (D = 120
     decode, D = 40 forward and backward: the runtime-width instances of
     tiles 128 and 64). Each kernel's records by name."""
-    def spread(s):  # phase 2's ragged lengths stretched over S
-        return [max(1, n * s // 1024) for n in ragged]
-
-    decode = [
-        _decode_case("Phi-3-mini B8 Hq32 KV32 D96 S4096 bf16", 8, 32, 32, 96,
-                     4096, "bfloat16", spread(4096), flush, gen),
-        _decode_case("Gemma-2B MQA B8 Hq8 KV1 D256 S8192 bf16", 8, 8, 1, 256,
-                     8192, "bfloat16", spread(8192), flush, gen),
-        _decode_case("Gemma-2B served B8 Hq8 KV8 D256 S8192 bf16", 8, 8, 8,
-                     256, 8192, "bfloat16", spread(8192), flush, gen),
-        _decode_case("Phi-2 B8 Hq32 KV32 D80 S2048 bf16", 8, 32, 32, 80,
-                     2048, "bfloat16", spread(2048), flush, gen),
-        _decode_case("GQA B8 Hq16 KV4 D8 S1024 bf16", 8, 16, 4, 8, 1024,
-                     "bfloat16", ragged, flush, gen),
-        _decode_case("f32 B2 Hq8 KV1 D256 S512", 2, 8, 1, 256, 512,
-                     "float32", [512, 77], flush, gen),
-        _decode_case("runtime width B8 Hq16 KV4 D120 S1024 bf16", 8, 16, 4,
-                     120, 1024, "bfloat16", ragged, flush, gen)]
+    decode = [_decode_row(name, flush, gen) for name in (
+        "Phi-3-mini B8 Hq32 KV32 D96 S4096 bf16",
+        "Gemma-2B MQA B8 Hq8 KV1 D256 S8192 bf16",
+        "Gemma-2B served B8 Hq8 KV8 D256 S8192 bf16",
+        "Phi-2 B8 Hq32 KV32 D80 S2048 bf16", "GQA B8 Hq16 KV4 D8 S1024 bf16",
+        "f32 B2 Hq8 KV1 D256 S512",
+        "runtime width B8 Hq16 KV4 D120 S1024 bf16")]
     shapes = [  # name, b, sq, sk, hq, hkv, d, dtype
         ("Phi-3-mini B2 S2048 H32 D96 bf16 causal", 2, 2048, 2048, 32, 32,
          96, "bfloat16"),
@@ -4357,6 +4419,28 @@ def _ptxas_summary(build_log: str) -> list[str]:
     return out
 
 
+def _decode_smem(kernels) -> None:
+    """Phase 1: the dynamic shared memory each decode row of the table
+    launches with (ptxas reports static shared memory only), from the
+    built library's rt_decode_attention_smem."""
+    import ctypes
+
+    import torch
+
+    from ray_tpu_torch.ops.decode_attention import split_plan
+
+    fn = ctypes.CDLL(str(kernels.DECODE_ATTENTION.library)) \
+        .rt_decode_attention_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (b, hq, kv, d, s, dtype, _) in DECODE_TABLE.items():
+        elem = 2 if dtype == "bfloat16" else 4
+        plan = split_plan(b, hq, kv, s, d, elem, sms)
+        smem = fn(d, 1 if elem == 2 else 0, plan.group, plan.chunk)
+        log(f"decode smem {name}: {smem} B dynamic (group {plan.group}, "
+            f"chunk {plan.chunk}, {plan.n_splits} splits)")
+
+
 def main() -> int:
     import torch
 
@@ -4384,6 +4468,7 @@ def main() -> int:
         if k.build_log.exists():
             for line in _ptxas_summary(k.build_log.read_text()):
                 log(f"ptxas {k.name}: {line}")
+    _decode_smem(kernels)
 
     decode_rec, flash_rec, bwd_rec, narrow_recs, wide_recs = phase_kernels()
     phase_golden()

@@ -11,14 +11,17 @@ calls it under `torch.no_grad()`).
 
 The kernel is split-K: `split_plan` (here, not in the kernel) chooses how
 many query heads a block serves and how many cache rows one block reads,
+from the shapes and the card's SM count alone (never from the lengths),
 and the wrapper hands the kernel a workspace for the partial results and a
 buffer of zeroed int counters, both kept per device and stream. The kernel
-merges the partials in the same launch and leaves the counters at zero.
+merges the partials in the same launch, through a tree of two levels
+(groups of MERGE_FANIN chunks, then the groups), and leaves the counters
+at zero, so a CUDA graph can capture the call.
 
 Head dims: every multiple of 8 from 8 to 256 (the JAX package's Pallas
-kernel takes any D). 16, 32, 64 and 128 have instances of their own; any
-other D runs on the instance of its tile (`decode_tile`), whose lanes past
-D load zeros and store nothing. Outside the rule the wrapper raises a
+kernel takes any D). 8, 16, 32, 64, 80, 96, 128 and 256 are tiles of
+their own; any other D runs on the tile above it (`decode_tile`), whose
+lanes past D read nothing. Outside the rule the wrapper raises a
 ValueError that states it.
 
 Counterpart: ray_tpu/ops/decode_attention.py (`decode_attention_pallas`,
@@ -27,7 +30,7 @@ Counterpart: ray_tpu/ops/decode_attention.py (`decode_attention_pallas`,
 
 from __future__ import annotations
 
-import math
+import functools
 import threading
 from typing import NamedTuple
 
@@ -36,86 +39,104 @@ import torch
 from ray_tpu_torch._private import kernels
 from ray_tpu_torch._private.kernels import HEAD_DIM_RULE, supported_head_dim
 
-# Head dims with instances of their own; any other D the rule takes runs on
-# the instance of its tile width (decode_tile) with D as an argument.
-EXACT_HEAD_DIMS = (16, 32, 64, 128)
-# Query heads one block serves (the kernel is built for these).
-GROUP_SIZES = (1, 2, 4, 8)
-# Blocks the grid should hold when every sequence fills the cache: about
-# sixteen for each of the H100's 132 SMs. Longer caches get longer chunks
-# rather than more blocks.
-TARGET_BLOCKS = 2048
-# A block reads at least this many rounds of loads: below that its fixed
-# costs (the length, q, the ticket, the merge) outweigh its rows.
-MIN_ROUNDS = 2
-# At most this many chunks of one sequence: the last block of an item
-# merges every chunk's partials alone. On an H100 (chip_width_probe.py)
-# one sequence of 32,768 rows at D 64, 8 heads on one KV head, took 0.139
-# ms in 256 chunks and 0.060 in 32; Gemma-2B's MQA decode at S8192 took
-# 1.15 ms in 256 chunks and 0.078 in 32. Few items then leave most SMs
-# idle, and still finish sooner.
-MAX_SPLITS = 32
+# Tiles the kernel is built for (decode_attention.cu, by_width).
+TILES = (8, 16, 32, 64, 80, 96, 128, 256)
+# Query heads one block serves at most (a KV head with more takes several
+# blocks): the tensor cores' N in bf16, the CUDA cores' largest instance in
+# f32.
+MAX_GROUP = 8
+# Chunks whose partials one block merges at the first level of the merge
+# tree (decode_attention.cu, kMergeFanIn).
+MERGE_FANIN = 16
+# Blocks the grid should hold when every sequence fills the cache, per SM
+# of the card (on an H100, chip_decode_probe.py --plans: 4 beat 8 to 32 at
+# the serving widths). Longer caches get longer chunks rather than more
+# blocks.
+BLOCKS_PER_SM = 4
+# A chunk holds at least this many stages, and, while the grid keeps a
+# block per SM, at least MIN_CHUNK_ROWS rows: below that a block's fixed
+# costs (its first copy's latency, the partial it writes and the merge
+# reads) outweigh its rows.
+MIN_STAGES = 2
+MIN_CHUNK_ROWS = 128
 
 
 def decode_tile(d: int) -> int:
-    """The kernel's tile width for head dim d: d itself at 16, 32, 64 and
-    128, else the power of two at or above it (at least 8), whose instance
-    takes d at run time (decode_attention.cu, rt_tile)."""
-    if d in EXACT_HEAD_DIMS:
-        return d
-    return next(t for t in (8, 32, 64, 128, 256) if t >= d)
+    """The kernel's tile width for head dim d: d itself at 8, 16, 32, 64,
+    80, 96, 128 and 256, else the power of two above it
+    (decode_attention.cu, by_width)."""
+    return next(t for t in TILES if t >= d and (t not in (80, 96) or t == d))
 
 
-def max_group(d: int) -> int:
-    """Query heads one block serves at most: 8, or 4 at the tile of 256
-    (decode_attention.cu has no 8-head instance there)."""
-    return 4 if decode_tile(d) == 256 else GROUP_SIZES[-1]
-
-
-def rows_per_round(group: int, d: int, elem_bytes: int) -> int:
-    """Cache rows a block of the kernel loads at once: its workers times
-    the rows each keeps in flight. A worker is min(32, tile * elem_bytes /
-    16) lanes, one 16-byte slice of the row each, so at D = 80 and 96 in
-    bf16 (10 and 12 slices of data) it is 16 lanes of the tile of 128. The
-    kernel runs 128 threads with 4 rows in flight per worker, or 256
-    threads with 2 for groups of 4 or 8 query heads. At D = 16 in bf16 a
-    worker is 2 lanes, so a round is 256 rows for every group."""
-    threads, unroll = (256, 2) if group >= 4 else (128, 4)
-    lanes = min(32, decode_tile(d) * elem_bytes // 16)
-    return threads // lanes * unroll
+def stage_rows(d: int, elem_bytes: int, group: int) -> int:
+    """Cache rows of one stage of the kernel's ring at the tile width, 16
+    to 64: about 2 KB of K on CUDA cores up to the tile of 64 and 8 KB
+    above it, 16 KB on tensor cores (bf16 groups of 2 to 8 query heads)
+    below the tile of 256 and 8 KB at it (decode_attention.cu,
+    stage_budget and stage_rows)."""
+    tile = decode_tile(d)
+    if elem_bytes == 2 and group > 1:
+        budget = 16384 if tile < 256 else 8192
+    else:
+        budget = 2048 if tile <= 64 else 8192
+    per = budget // (tile * elem_bytes)
+    return 64 if per >= 64 else 32 if per >= 32 else 16
 
 
 class SplitPlan(NamedTuple):
     """How the kernel cuts one call: `group` query heads per block,
     `n_groups` blocks across a KV head's heads, `items` = B * KV * n_groups
     merge targets, cache chunks of `chunk` rows and `n_splits` of them
-    (n_splits * chunk >= S). A block (item, split) reads rows
-    [split * chunk, min((split + 1) * chunk, len)) and is active when that
-    range is not empty, so ceil(len / chunk) blocks of an item are."""
+    (n_splits * chunk >= S), merged in `merge_groups` groups of
+    MERGE_FANIN. A block (item, split) reads rows [split * chunk,
+    min((split + 1) * chunk, len)) and is active when that range is not
+    empty, so ceil(len / chunk) blocks of an item are."""
     group: int
     n_groups: int
     items: int
     chunk: int
     n_splits: int
+    merge_groups: int
 
 
-def split_plan(b: int, hq: int, kv: int, s: int, d: int,
-               elem_bytes: int) -> SplitPlan:
-    """Whole rounds of loads per chunk, at least MIN_ROUNDS of them, no
-    more than about TARGET_BLOCKS blocks for a full cache, and at most
-    MAX_SPLITS chunks. At the serving width (B8, KV16, S1024, D64, bf16)
-    that is 128-row chunks and 8 splits: 544 active blocks on the smoke
-    run's ragged lengths, four for each of the 132 SMs."""
+@functools.lru_cache(maxsize=256)
+def split_plan(b: int, hq: int, kv: int, s: int, d: int, elem_bytes: int,
+               sms: int = 132) -> SplitPlan:
+    """Whole stages per chunk: at least MIN_STAGES of them, at least
+    MIN_CHUNK_ROWS rows while the grid keeps a block per SM, and about
+    BLOCKS_PER_SM blocks per SM for a full cache, in chunks of equal
+    length. At the serving width (B8, KV16, S1024, D64, bf16) on 132 SMs
+    that is 256-row chunks and 4 splits: 320 active blocks on the smoke
+    run's ragged lengths. One sequence of 32,768 rows, 8 query heads on one
+    KV head, gets 256 chunks of 128 rows, merged in 16 groups of 16. The
+    plan depends on the shapes alone, so a CUDA graph of the call stays
+    valid for any lengths."""
     rep = hq // kv
-    group = next(g for g in GROUP_SIZES if g >= min(rep, max_group(d)))
-    n_groups = -(-rep // group)
+    n_groups = -(-rep // MAX_GROUP)
+    group = -(-rep // n_groups)
     items = b * kv * n_groups
-    rows = rows_per_round(group, d, elem_bytes)
-    rounds = max(MIN_ROUNDS, math.ceil(s * items / TARGET_BLOCKS / rows),
-                 math.ceil(s / MAX_SPLITS / rows),
-                 math.ceil(s / 65535 / rows))  # the grid's y limit
-    chunk = rows * rounds
-    return SplitPlan(group, n_groups, items, chunk, max(1, -(-s // chunk)))
+    tile = stage_rows(d, elem_bytes, group)
+    least = min(-(-MIN_CHUNK_ROWS // tile), max(1, s * items // (sms * tile)))
+    stages = max(MIN_STAGES, least,
+                 -(-s * items // (BLOCKS_PER_SM * sms * tile)),
+                 -(-s // (65535 * tile)))  # the grid's y limit
+    n_splits = max(1, -(-s // (tile * stages)))
+    chunk = tile * max(1, -(-s // (n_splits * tile)))  # the same, equal
+    n_splits = max(1, -(-s // chunk))
+    return SplitPlan(group, n_groups, items, chunk, n_splits,
+                     -(-n_splits // MERGE_FANIN))
+
+
+_sms: dict = {}
+
+
+def _sm_count(device) -> int:
+    """The card's SM count, read once per device."""
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 _scratch: dict = {}
@@ -203,13 +224,14 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
                for t in tensors):
         raise ValueError("decode attention inputs must be contiguous and "
                          "16-byte aligned")
-    plan = split_plan(b, hq, kv, s, d, q.element_size())
+    plan = split_plan(b, hq, kv, s, d, q.element_size(), _sm_count(q.device))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ws, counters = _workspace(
             q.device, stream,
-            plan.items * plan.n_splits * plan.group * (d + 2), plan.items)
+            plan.items * (plan.n_splits + plan.merge_groups) * plan.group
+            * (d + 2), plan.items * (plan.merge_groups + 1))
         kernels.DECODE_ATTENTION.launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),

@@ -19,7 +19,7 @@ from ray_tpu_torch._private import kernels
 from ray_tpu_torch.ops.decode_attention import (_reference_decode_attention,
                                                 decode_attention,
                                                 decode_attention_cuda,
-                                                split_plan)
+                                                split_plan, stage_rows)
 from ray_tpu_torch.ops.flash_attention import (
     _reference_flash_attention, _reference_flash_attention_backward,
     _reference_flash_attention_lse, bwd_head_split, flash_attention,
@@ -47,9 +47,11 @@ def _randn(gen, *shape, dtype):
 
 
 def _edge_lengths(b, hq, kv, d, s, dtype):
-    """0, 1, chunk - 1, chunk, chunk + 1 and S for the split plan's chunk."""
+    """0, 1, chunk - 1, chunk, chunk + 1 and S for the split plan's chunk
+    on this card."""
     elem = torch.finfo(dtype).bits // 8
-    chunk = split_plan(b, hq, kv, s, d, elem).chunk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = split_plan(b, hq, kv, s, d, elem, sms).chunk
     return sorted({n for n in (0, 1, chunk - 1, chunk, chunk + 1, s)
                    if 0 <= n <= s})
 
@@ -85,9 +87,15 @@ def test_decode_kernel_counters_reset_between_calls(gen):
     plain version: every launch leaves its ticket counters at zero."""
     shapes = [(8, 16, 16, 64, 1024), (8, 16, 16, 64, 1024),
               (4, 32, 2, 128, 600), (8, 16, 16, 64, 1024),
+              (3, 8, 8, 64, 300),
+              # a sequence of 32,768 rows: two levels of the merge tree
+              (6, 8, 1, 64, 32768), (8, 16, 16, 64, 1024),
+              (6, 8, 1, 64, 32768), (6, 8, 1, 256, 8192),
               (3, 8, 8, 64, 300)]
     for b, hq, kv, d, s in shapes:
         _decode_and_check(gen, torch.bfloat16, b, hq, kv, d, s)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert split_plan(1, 8, 1, 32768, 64, 2, sms).merge_groups > 1
 
 
 def test_decode_kernel_zero_length_gives_zeros(gen):
@@ -96,6 +104,102 @@ def test_decode_kernel_zero_length_gives_zeros(gen):
     lens = torch.tensor([0, 16], dtype=torch.int32, device="cuda")
     out = decode_attention_cuda(q, k, k, lens)
     assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kv,d,s", [
+    (8, 1, 64, 32768),     # the long-context row: 8 heads on one KV head
+    (1, 1, 64, 32768),     # one head: a contiguous copy per stage
+    (8, 1, 64, 100000),
+    (8, 2, 128, 100000),   # two KV heads: a copy per row
+])
+def test_decode_kernel_one_long_sequence(gen, dtype, hq, kv, d, s):
+    """A single sequence of 32,768 or 100,000 rows, full and one row short
+    of full: more chunks than the merge tree's first level takes in one
+    block, so both levels run."""
+    q = _randn(gen, 1, hq, d, dtype=dtype)
+    k, v = (_randn(gen, 1, s, kv, d, dtype=dtype) for _ in range(2))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    elem = torch.finfo(dtype).bits // 8
+    assert split_plan(1, hq, kv, s, d, elem, sms).merge_groups > 1
+    for n in (s, s - 1):
+        lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+        _check(decode_attention_cuda(q, k, v, lens),
+               _reference_decode_attention(q, k, v, lens), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(2, 600), (8, 8192)])
+def test_decode_kernel_8_heads_on_one_kv_head_at_d256(gen, dtype, b, s):
+    """Gemma-2B's multi-query heads: one block serves all 8 query heads of
+    the KV head at D = 256 (tensor cores in bf16), at the plan's edge
+    lengths."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = split_plan(b, 8, 1, s, 256, torch.finfo(dtype).bits // 8, sms)
+    assert (plan.group, plan.n_groups) == (8, 1)
+    _decode_and_check(gen, dtype, b, 8, 1, 256, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kv,d", [
+    (8, 8, 80), (8, 8, 96),      # one head a block: CUDA cores, real width
+    (16, 4, 80), (16, 4, 96),    # groups of 4: tensor cores in bf16
+    (8, 1, 96),
+])
+def test_decode_kernel_real_width_rows_at_edge_lengths(gen, dtype, hq, kv,
+                                                       d):
+    """D = 80 and 96 (rows of 160 and 192 bf16 bytes, copied at their real
+    width) at lengths 0, 1, a stage and a chunk each +- 1, and S."""
+    s = 600
+    elem = torch.finfo(dtype).bits // 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = split_plan(6, hq, kv, s, d, elem, sms)
+    chunk, tile = plan.chunk, stage_rows(d, elem, plan.group)
+    lens = sorted({n for n in (0, 1, tile - 1, tile, tile + 1, chunk - 1,
+                               chunk, chunk + 1, s) if 0 <= n <= s})
+    q = _randn(gen, len(lens), hq, d, dtype=dtype)
+    k, v = (_randn(gen, len(lens), s, kv, d, dtype=dtype) for _ in range(2))
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = decode_attention_cuda(q, k, v, lens)
+    live = lens > 0
+    assert torch.all(out[~live] == 0)
+    _check(out[live], _reference_decode_attention(q, k, v, lens)[live], dtype)
+
+
+def test_decode_kernel_under_cuda_graph_capture(gen):
+    """A CUDA graph captures one decode call (one kernel, no memset); after
+    new lengths are copied into the captured tensor, a replay equals the
+    eager call on them, for a shape with one merge level and one with
+    two."""
+    for b, hq, kv, d, s, first, then in (
+            (8, 16, 16, 64, 1024, [1, 1024, 517, 64, 300, 900, 128, 777],
+             [1024, 3, 700, 129, 1, 1000, 256, 5]),
+            (1, 8, 1, 64, 32768, [32768], [20001])):
+        q = _randn(gen, b, hq, d, dtype=torch.bfloat16)
+        k, v = (_randn(gen, b, s, kv, d, dtype=torch.bfloat16)
+                for _ in range(2))
+        lens = torch.tensor(first, dtype=torch.int32, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # the workspace of the capture stream
+            decode_attention_cuda(q, k, v, lens)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.DECODE_ATTENTION.launches
+        with torch.cuda.graph(graph, stream=side):
+            out = decode_attention_cuda(q, k, v, lens)
+        assert kernels.DECODE_ATTENTION.launches == before + 1
+        graph.replay()
+        torch.cuda.synchronize()
+        _check(out, _reference_decode_attention(q, k, v, lens),
+               torch.bfloat16)
+        lens.copy_(torch.tensor(then, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = decode_attention_cuda(q, k, v, lens)
+        assert torch.equal(out, eager)
+        _check(out, _reference_decode_attention(q, k, v, lens),
+               torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

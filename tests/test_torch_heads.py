@@ -29,7 +29,7 @@ from ray_tpu.ops.decode_attention import (_xla_decode_attention,
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu_torch.ops import decode_attention, flash_attention
 from ray_tpu_torch.ops.decode_attention import (decode_attention_cuda,
-                                                rows_per_round, split_plan)
+                                                split_plan, stage_rows)
 from ray_tpu_torch.ops.flash_attention import (
     _reference_flash_attention_backward, _reference_flash_attention_lse,
     flash_attention_backward_cuda, flash_attention_cuda)
@@ -119,17 +119,32 @@ def test_flash_backward_matches_jax_grad_at_narrow_heads(d, b, sq, sk, hq,
         _close(leaf.grad, r)
 
 
-def _kernel_rows_per_round(group: int, d: int, elem: int) -> int:
-    """decode_attention.cu: the instance's tile DP is D at 16, 32, 64 and
-    128, else the power of two at or above D (at least 8); threads<REP>()
-    threads (256 for groups of 4 or 8 heads); min(32, DP / (16 / elem))
-    lanes per row (TPR), so 32 / TPR rows per warp at once, kUnroll rows in
-    flight per worker."""
-    dp = d if d in (16, 32, 64, 128) else 1 << max(3, (d - 1).bit_length())
-    threads = 256 if group >= 4 else 128
-    unroll = 2 if group >= 4 else 4
-    tpr = min(32, dp // (16 // elem))
-    return threads // 32 * (32 // tpr) * unroll
+def _kernel_stage_rows(d: int, elem: int, group: int) -> int:
+    """decode_attention.cu: the instance's tile DT is D at 8, 16, 32, 64,
+    80, 96, 128 and 256, else the power of two above D (16 at least on
+    tensor cores, which take bf16 groups of 2 to 8); a stage holds about
+    2 KB of K at the tile width on CUDA cores up to the tile of 64 and 8 KB
+    above it, 16 KB on tensor cores below the tile of 256 and 8 KB at it
+    (stage_budget, stage_rows), 16 to 64 rows."""
+    mma = elem == 2 and group > 1
+    dt = d if d in (8, 16, 32, 64, 80, 96, 128, 256) \
+        else 1 << (d - 1).bit_length()
+    dt = max(dt, 16) if mma else dt
+    budget = (16384 if dt < 256 else 8192) if mma else \
+        (2048 if dt <= 64 else 8192)
+    per = budget // (dt * elem)
+    return 64 if per >= 64 else 32 if per >= 32 else 16
+
+
+def _kernel_lanes(d: int, elem: int) -> tuple:
+    """decode_attention.cu, Lanes<T, DT>: 16-byte slices of a tile row, the
+    lanes one row takes (the largest power of two, at most 32, dividing the
+    slices) and the slices each lane holds."""
+    dt = d if d in (8, 16, 32, 64, 80, 96, 128, 256) \
+        else 1 << (d - 1).bit_length()
+    nsl = dt * elem // 16
+    tpr = min(32, nsl & -nsl)
+    return nsl, tpr, nsl // tpr
 
 
 @pytest.mark.parametrize("d", [8, 16, 32, 80, 96, 120, 256])
@@ -141,30 +156,35 @@ def _kernel_rows_per_round(group: int, d: int, elem: int) -> int:
     (8, 8, 1, 2048, [1, 2048, 1000, 17, 512, 1999, 64, 700]),  # group 8
 ])
 def test_split_plan_at_narrow_heads(d, elem, b, hq, kv, s, lengths):
-    """rows_per_round is the kernel's rows per round at every tile width
-    (D = 8: a worker of one bf16 lane; D = 80 and 96: 10 and 12 bf16 lanes
-    of data in a worker of 16; D = 256 in f32: 32 lanes of two slices each,
-    and at most 4 query heads a block), and the chunks of the plan, at most
-    MAX_SPLITS of them, cover every row of every length once."""
+    """stage_rows is the kernel's rows per stage at every tile width (D = 8:
+    64 rows of 16 bytes; D = 80 and 96: tiles of their own, whose rows take
+    2 and 4 bf16 lanes with no lane past D; D = 256: 16 rows), a block
+    serves up to 8 query heads at every width (D = 256 too), and the
+    plan's chunks cover every row of every length once, in whole stages."""
     plan = split_plan(b, hq, kv, s, d, elem)
-    rows = rows_per_round(plan.group, d, elem)
-    assert rows == _kernel_rows_per_round(plan.group, d, elem)
+    rows = stage_rows(d, elem, plan.group)
+    assert rows == _kernel_stage_rows(d, elem, plan.group)
     assert plan.chunk % rows == 0 and plan.n_splits * plan.chunk >= s
-    assert plan.n_splits <= decode_mod.MAX_SPLITS
-    assert plan.group <= (4 if d == 256 else 8)
+    assert plan.group == min(hq // kv, 8)
+    # MIN_CHUNK_ROWS (128), while the grid keeps a block per SM of 132
+    assert plan.chunk >= min(128, s) \
+        or plan.items * -(-s // (plan.chunk + rows)) < 132
     for length in lengths:
         hits = np.zeros(length, np.int64)
         for split in range(plan.n_splits):
             hits[split * plan.chunk:min((split + 1) * plan.chunk,
                                         length)] += 1
         assert np.all(hits == 1)
-    if d == 16 and elem == 2:
-        assert rows == 256  # so S = 1024 gives 2 splits
-        if s == 1024:
-            assert plan.n_splits == 2
-    if d in (80, 96) and elem == 2:
-        # 10 or 12 lanes of data: workers of 16 lanes, as at D = 128
-        assert rows == rows_per_round(plan.group, 128, elem)
+    nsl, tpr, nv = _kernel_lanes(d, elem)
+    if d in (80, 96):
+        assert decode_mod.decode_tile(d) == d
+        assert tpr * nv == nsl == d * elem // 16  # real width, no idle lane
+        if elem == 2:
+            assert (tpr, nv) == ((2, 5) if d == 80 else (4, 3))
+    if d == 8 and elem == 2:
+        assert rows == 64 and tpr == 1  # 1 KB of K a stage: 16 rows at least
+    if d == 256:
+        assert rows == 16
 
 
 @pytest.mark.parametrize("b,sk,hq,hkv,d,want", [

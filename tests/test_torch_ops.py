@@ -35,8 +35,9 @@ from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops import (decode_attention, dot_product_attention,
                                flash_attention)
 from ray_tpu_torch.ops.attention import _reference_attention
-from ray_tpu_torch.ops.decode_attention import (decode_attention_cuda,
-                                                rows_per_round, split_plan)
+from ray_tpu_torch.ops.decode_attention import (MERGE_FANIN, TILES,
+                                                decode_attention_cuda,
+                                                split_plan, stage_rows)
 from ray_tpu_torch.ops.flash_attention import (
     BWD_TILES, _FlashAttention, _reference_flash_attention_backward,
     _reference_flash_attention_lse, flash_attention_backward_cuda,
@@ -147,40 +148,81 @@ def test_split_plan_covers_every_row_once(b, hq, kv, s, d, elem, lengths):
     """The kernel's block (item, split) reads rows [split * chunk,
     min((split + 1) * chunk, len)) and is active when that is not empty:
     every row below the length lies in exactly one active chunk, the
-    active count is the ticket count ceil(len / chunk), and the grid
-    reaches every row of the cache."""
+    active count is ceil(len / chunk), the merge tree's first level takes
+    every active chunk once in groups of MERGE_FANIN (each group's ticket
+    count its members) and its second level one partial per active group,
+    and the grid reaches every row of the cache."""
     plan = split_plan(b, hq, kv, s, d, elem)
-    assert plan.group in (1, 2, 4, 8) and plan.group * plan.n_groups >= hq // kv
+    rep = hq // kv
+    assert 1 <= plan.group <= 8 and plan.group * plan.n_groups >= rep
+    assert plan.group * (plan.n_groups - 1) < rep  # no empty head group
     assert plan.items == b * kv * plan.n_groups
-    rows = rows_per_round(plan.group, d, elem)
+    rows = stage_rows(d, elem, plan.group)
     assert plan.chunk % rows == 0 and plan.chunk >= 2 * rows
     assert plan.n_splits * plan.chunk >= s and plan.n_splits <= 65535
     assert (plan.n_splits - 1) * plan.chunk < s
+    assert plan.merge_groups == -(-plan.n_splits // MERGE_FANIN)
     for length in lengths:
         hits = np.zeros(length, np.int64)
-        active = 0
+        active = []
         for split in range(plan.n_splits):
             lo, hi = split * plan.chunk, min((split + 1) * plan.chunk, length)
             if lo < length:
-                active += 1
+                active.append(split)
                 hits[lo:hi] += 1
         assert np.all(hits == 1)
-        assert active == -(-length // plan.chunk)
+        n_active = -(-length // plan.chunk)
+        assert len(active) == n_active
+        groups = {}
+        for split in active:
+            groups.setdefault(split // MERGE_FANIN, []).append(split)
+        assert len(groups) == -(-n_active // MERGE_FANIN)
+        for grp, members in groups.items():
+            assert len(members) == min(MERGE_FANIN,
+                                       n_active - grp * MERGE_FANIN)
+
+
+def _active_blocks(plan, lengths, b):
+    """Blocks of the grid that have rows, at these lengths."""
+    return plan.items // b * sum(-(-n // plan.chunk) for n in lengths)
 
 
 def test_split_plan_fills_the_card_at_the_serving_shape():
-    """At B8 KV16 S1024 D64 bf16 the smoke run's ragged lengths give at
-    least twice 132 active blocks (132 SMs on the H100)."""
-    plan = split_plan(8, 16, 16, 1024, 64, 2)
-    active = plan.items // 8 * sum(-(-n // plan.chunk) for n in SMOKE_RAGGED)
-    assert (plan.chunk, plan.n_splits) == (128, 8)
-    assert active >= 2 * 132
+    """At B8 KV16 S1024 D64 bf16 on 132 SMs the smoke run's ragged lengths
+    give at least twice 132 active blocks (132 SMs on the H100)."""
+    plan = split_plan(8, 16, 16, 1024, 64, 2, 132)
+    assert (plan.chunk, plan.n_splits) == (256, 4)
+    assert _active_blocks(plan, SMOKE_RAGGED, 8) >= 2 * 132
+
+
+def test_split_plan_fills_the_card_at_long_context():
+    """One sequence of 32,768 rows, 8 query heads on one KV head (one item):
+    the chunks alone give at least one block per SM of 132, which a
+    one-block merge of every split could not take, and the merge tree's
+    first level reads at most MERGE_FANIN partials a block."""
+    plan = split_plan(1, 8, 1, 32768, 64, 2, 132)
+    assert plan.items == 1 and plan.group == 8
+    assert _active_blocks(plan, [32768], 1) >= 132
+    assert plan.merge_groups > 1 and plan.merge_groups <= MERGE_FANIN
+
+
+def _merge(parts):
+    """Partials (max, denominator, accumulator) per query head, merged as
+    the kernel's mergers do: M = max m_i, l = sum l_i e^(m_i - M), acc =
+    sum acc_i e^(m_i - M)."""
+    big = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+    w = [torch.exp(m - big) for m, _, _ in parts]
+    den = sum(l * c for (_, l, _), c in zip(parts, w))
+    num = sum(a * c[:, None] for (_, _, a), c in zip(parts, w))
+    return big, den, num
 
 
 def _split_k_mirror(q, k, v, lens, plan):
     """The kernel's arithmetic in plain torch: per active chunk of each
-    sequence an f32 (max, denominator, accumulator) per query head, then
-    the merge out = sum(acc_i e^(m_i - M)) / sum(l_i e^(m_i - M))."""
+    sequence an f32 (max, denominator, accumulator) per query head; a
+    sequence of one chunk is that chunk's; else the first level merges
+    each group of MERGE_FANIN chunks into a partial (the output when there
+    is one group), the second level the groups' partials."""
     b, hq, d = q.shape
     rep = hq // k.shape[2]
     k = k.repeat_interleave(rep, dim=2)
@@ -198,10 +240,9 @@ def _split_k_mirror(q, k, v, lens, plan):
                                                     v[i, lo:hi])))
         if not parts:
             continue  # length 0: zeros
-        big = torch.stack([m for m, _, _ in parts]).max(dim=0).values
-        w = [torch.exp(m - big) for m, _, _ in parts]
-        den = sum(l * c for (_, l, _), c in zip(parts, w))
-        num = sum(a * c[:, None] for (_, _, a), c in zip(parts, w))
+        groups = [_merge(parts[g:g + MERGE_FANIN])
+                  for g in range(0, len(parts), MERGE_FANIN)]
+        _, den, num = groups[0] if len(groups) == 1 else _merge(groups)
         out[i] = num / den[:, None]
     return out
 
@@ -210,21 +251,48 @@ def _split_k_mirror(q, k, v, lens, plan):
     (3, 4, 4, 64, 256, [1, 100, 256]),
     (2, 16, 1, 128, 384, [129, 384]),    # rep 16: two head groups
     (8, 16, 16, 64, 1024, SMOKE_RAGGED),  # serving shape, 8 splits
+    (2, 8, 1, 64, 2304, [2300, 1000]),   # 18 chunks: two merge groups
+    (2, 8, 1, 256, 256, [256, 130]),     # MQA, 8 query heads a block, D 256
 ])
 def test_split_k_merge_matches_jax(b, hq, kv, d, s, lengths):
-    """Partials and merge over the plan's chunks equal the Pallas kernel
-    (interpret mode) and the dense XLA path in f32 within 1e-5."""
+    """Partials and the merge tree over the plan's chunks equal the Pallas
+    kernel (interpret mode) and the dense XLA path in f32 within 1e-5."""
     rng = np.random.RandomState(5)
     q, k, v = _randn(rng, b, hq, d), _randn(rng, b, s, kv, d), \
         _randn(rng, b, s, kv, d)
     lens = np.asarray(lengths, np.int32)
     plan = split_plan(b, hq, kv, s, d, 4)
     assert plan.n_splits > 1
+    if s == 2304:
+        assert -(-max(lengths) // plan.chunk) > MERGE_FANIN
+    if d == 256:
+        assert plan.group == 8 and plan.n_groups == 1
     mirror = _split_k_mirror(*map(torch.from_numpy, (q, k, v, lens)), plan)
     jq, jk, jv, jl = map(jnp.asarray, (q, k, v, lens))
     _close(mirror, decode_attention_pallas(jq, jk, jv, jl, block_k=128,
                                            interpret=True), tol=1e-5)
     _close(mirror, _xla_decode_attention(jq, jk, jv, jl), tol=1e-5)
+
+
+def test_decode_plan_constants_match_the_kernel_source():
+    """The wrapper's merge fan-in, tiles and stage rows are the kernel's
+    (decode_attention.cu): the plan's chunks and the workspace it sizes
+    follow them."""
+    src = (kernels.CSRC / "decode_attention.cu").read_text()
+    fanin = re.search(r"constexpr int kMergeFanIn = (\d+);", src)
+    assert fanin and int(fanin.group(1)) == MERGE_FANIN
+    tiles = {int(t) for t in re.findall(r"by_group<T, (\d+)>", src)}
+    assert tuple(sorted(tiles)) == TILES
+    assert "return GAP ? (DT < 256 ? 16384 : 8192) : (DT <= 64 ? 2048 : " \
+        "8192);" in src
+    assert "stage_budget<DT, GAP>() / (DT * ELEM) >= 64   ? 64" in src
+    widths = (8, 16, 32, 64, 80, 96, 128, 256)
+    assert [stage_rows(d, 2, 1) for d in widths] \
+        == [64, 64, 32, 16, 32, 32, 32, 16]
+    assert [stage_rows(d, 2, 8) for d in widths] \
+        == [64, 64, 64, 64, 64, 64, 64, 16]
+    assert [stage_rows(d, 4, 8) for d in widths] \
+        == [64, 32, 16, 16, 16, 16, 16, 16]
 
 
 def _c_entry_points():
