@@ -760,25 +760,65 @@ def _kernel_cases():
                 64, "bfloat16", True, flush, gen)
     _flash_case("f32 s256 h4 d64 causal", 1, 256, 256, 4, 4, 64, "float32",
                 True, flush, gen)
-    bwd_main = _flash_bwd_case("backward B4 S1024 H16 D64 bf16 causal",
-                               4, 1024, 1024, 16, 16, 64, "bfloat16", True,
-                               flush, gen)
-    for causal in (True, False):
-        _flash_bwd_case(f"backward bench b4 s2048 h8 d128 bf16 causal="
-                        f"{causal}", 4, 2048, 2048, 8, 8, 128, "bfloat16",
-                        causal, flush, gen)
-    _flash_bwd_case("backward GQA Hq16 Hkv4 Sq512 < Sk1024 d64 bf16 causal",
-                    2, 512, 1024, 16, 4, 64, "bfloat16", True, flush, gen)
-    _flash_bwd_case("backward ragged Sq=Sk=1000 h8 d64 bf16 causal", 2, 1000,
-                    1000, 8, 8, 64, "bfloat16", True, flush, gen)
-    _flash_bwd_case("backward f32 s256 h4 d64 causal", 1, 256, 256, 4, 4, 64,
-                    "float32", True, flush, gen)
-    _flash_bwd_case("backward Sq1024 > Sk512 h8 d64 bf16 causal", 1, 1024,
-                    512, 8, 8, 64, "bfloat16", True, flush, gen)
+    bwd_main = _flash_bwd_row(BWD_MAIN, flush, gen)
+    for name in BWD_PHASE2:
+        _flash_bwd_row(name, flush, gen)
     narrow = _narrow_cases(flush, gen)
     wide = _wide_cases(flush, gen)
     del flush
     return decode_main, flash_main, bwd_main, narrow, wide
+
+
+# Phase 2's flash forward and backward cases at the reference's own head
+# widths, D = 16 and 32: name, b, sq, sk, hq, hkv, d, dtype (causal).
+NARROW_SHAPES = [
+    ("B4 S1024 H16 D32 bf16 causal", 4, 1024, 1024, 16, 16, 32, "bfloat16"),
+    ("entry() B2 S128 H8 D32 bf16 causal", 2, 128, 128, 8, 8, 32,
+     "bfloat16"),
+    ("dryrun training f32 B8 S32 H8 D16 causal", 8, 32, 32, 8, 8, 16,
+     "float32"),
+    ("GQA Hq8 Hkv2 Sq512 < Sk1024 D16 bf16 causal", 2, 512, 1024, 8, 2, 16,
+     "bfloat16"),
+    ("ragged Sq=Sk=1000 H8 D32 bf16 causal", 2, 1000, 1000, 8, 8, 32,
+     "bfloat16")]
+# ... and at the other head widths the JAX package's kernels take.
+WIDE_SHAPES = [
+    ("Phi-3-mini B2 S2048 H32 D96 bf16 causal", 2, 2048, 2048, 32, 32, 96,
+     "bfloat16"),
+    ("Gemma-2B MQA B2 S2048 Hq8 Hkv1 D256 bf16 causal", 2, 2048, 2048, 8, 1,
+     256, "bfloat16"),
+    ("Phi-2 B2 S2048 H32 D80 bf16 causal", 2, 2048, 2048, 32, 32, 80,
+     "bfloat16"),
+    ("f32 B2 S256 H4 D8 causal", 2, 256, 256, 4, 4, 8, "float32"),
+    ("runtime width B2 S2048 H16 D40 bf16 causal", 2, 2048, 2048, 16, 16, 40,
+     "bfloat16")]
+# The backward rows of PERF.md's kernel table, all timed in phase 2 but
+# the tp=2 per-rank one (phase 12 (f)), and by chip_bwd_probe.py --rows:
+# name -> (b, sq, sk, hq, hkv, d, dtype, causal).
+BWD_MAIN = "backward B4 S1024 H16 D64 bf16 causal"
+BWD_PHASE2 = {
+    "backward bench b4 s2048 h8 d128 bf16 causal=True":
+        (4, 2048, 2048, 8, 8, 128, "bfloat16", True),
+    "backward bench b4 s2048 h8 d128 bf16 causal=False":
+        (4, 2048, 2048, 8, 8, 128, "bfloat16", False),
+    "backward GQA Hq16 Hkv4 Sq512 < Sk1024 d64 bf16 causal":
+        (2, 512, 1024, 16, 4, 64, "bfloat16", True),
+    "backward ragged Sq=Sk=1000 h8 d64 bf16 causal":
+        (2, 1000, 1000, 8, 8, 64, "bfloat16", True),
+    "backward f32 s256 h4 d64 causal": (1, 256, 256, 4, 4, 64, "float32",
+                                        True),
+    "backward Sq1024 > Sk512 h8 d64 bf16 causal":
+        (1, 1024, 512, 8, 8, 64, "bfloat16", True)}
+BWD_TABLE = {
+    BWD_MAIN: (4, 1024, 1024, 16, 16, 64, "bfloat16", True),
+    "tp=2 per rank backward B4 S1024 H8 D64 bf16 causal":
+        (4, 1024, 1024, 8, 8, 64, "bfloat16", True),
+    **BWD_PHASE2,
+    **{f"backward {n}": (*a, True) for n, *a in NARROW_SHAPES + WIDE_SHAPES}}
+
+
+def _flash_bwd_row(name, flush, gen):
+    return _flash_bwd_case(name, *BWD_TABLE[name], flush, gen)
 
 
 def _narrow_cases(flush, gen) -> dict:
@@ -787,21 +827,10 @@ def _narrow_cases(flush, gen) -> dict:
     decode = [_decode_row(name, flush, gen) for name in (
         "serving heads B8 Hq16 KV16 D32 S1024 bf16",
         "GQA B8 Hq16 KV4 D16 S1024 bf16", "f32 B2 Hq4 KV4 D16 S64")]
-    shapes = [  # name, b, sq, sk, hq, hkv, d, dtype
-        ("B4 S1024 H16 D32 bf16 causal", 4, 1024, 1024, 16, 16, 32,
-         "bfloat16"),
-        ("entry() B2 S128 H8 D32 bf16 causal", 2, 128, 128, 8, 8, 32,
-         "bfloat16"),
-        ("dryrun training f32 B8 S32 H8 D16 causal", 8, 32, 32, 8, 8, 16,
-         "float32"),
-        ("GQA Hq8 Hkv2 Sq512 < Sk1024 D16 bf16 causal", 2, 512, 1024, 8, 2,
-         16, "bfloat16"),
-        ("ragged Sq=Sk=1000 H8 D32 bf16 causal", 2, 1000, 1000, 8, 8, 32,
-         "bfloat16")]
     flash = [_flash_case(f"forward {n}", *a, True, flush, gen)
-             for n, *a in shapes]
-    bwd = [_flash_bwd_case(f"backward {n}", *a, True, flush, gen)
-           for n, *a in shapes]
+             for n, *a in NARROW_SHAPES]
+    bwd = [_flash_bwd_row(f"backward {n}", flush, gen)
+           for n, *_ in NARROW_SHAPES]
     return {"decode_attention": decode, "flash_attention": flash,
             "flash_attention_bwd": bwd}
 
@@ -821,20 +850,10 @@ def _wide_cases(flush, gen) -> dict:
         "Phi-2 B8 Hq32 KV32 D80 S2048 bf16", "GQA B8 Hq16 KV4 D8 S1024 bf16",
         "f32 B2 Hq8 KV1 D256 S512",
         "runtime width B8 Hq16 KV4 D120 S1024 bf16")]
-    shapes = [  # name, b, sq, sk, hq, hkv, d, dtype
-        ("Phi-3-mini B2 S2048 H32 D96 bf16 causal", 2, 2048, 2048, 32, 32,
-         96, "bfloat16"),
-        ("Gemma-2B MQA B2 S2048 Hq8 Hkv1 D256 bf16 causal", 2, 2048, 2048, 8,
-         1, 256, "bfloat16"),
-        ("Phi-2 B2 S2048 H32 D80 bf16 causal", 2, 2048, 2048, 32, 32, 80,
-         "bfloat16"),
-        ("f32 B2 S256 H4 D8 causal", 2, 256, 256, 4, 4, 8, "float32"),
-        ("runtime width B2 S2048 H16 D40 bf16 causal", 2, 2048, 2048, 16, 16,
-         40, "bfloat16")]
     flash = [_flash_case(f"forward {n}", *a, True, flush, gen)
-             for n, *a in shapes]
-    bwd = [_flash_bwd_case(f"backward {n}", *a, True, flush, gen)
-           for n, *a in shapes]
+             for n, *a in WIDE_SHAPES]
+    bwd = [_flash_bwd_row(f"backward {n}", flush, gen)
+           for n, *_ in WIDE_SHAPES]
     return {"decode_attention": decode, "flash_attention": flash,
             "flash_attention_bwd": bwd}
 
@@ -3423,9 +3442,8 @@ def phase_tensor_parallel(lone) -> dict:
         "flash": _flash_case(f"tp={TP} and Ulysses sp={TP} per rank B4 S1024 "
                              f"H8 D64 bf16 causal", 4, 1024, 1024, 8, 8, 64,
                              "bfloat16", True, flush, gen),
-        "flash_bwd": _flash_bwd_case(f"tp={TP} per rank backward B4 S1024 H8 "
-                                     f"D64 bf16 causal", 4, 1024, 1024, 8, 8,
-                                     64, "bfloat16", True, flush, gen)}
+        "flash_bwd": _flash_bwd_row(f"tp={TP} per rank backward B4 S1024 H8 "
+                                    f"D64 bf16 causal", flush, gen)}
     del flush
     return rec
 

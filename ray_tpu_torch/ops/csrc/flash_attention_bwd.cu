@@ -19,24 +19,31 @@
 // dv once. At the training shape (B4 S1024 H16 D64 causal) that is 21.5
 // GFLOP against 67 MB, so the bf16 tensor-core peak allows 0.0217 ms and the
 // bytes 0.0201 ms: operations bound it, by a little, so the design keeps
-// the five products on wgmma and computes each of them once.
+// the five products on wgmma and computes each of them once. The small f32
+// shapes the port runs are bound by operations too, but at a microsecond or
+// so (B1 S256 H4 D64: 0.08 GFLOP of f32 FMAs, 0.0013 ms at the 67 TFLOP/s
+// peak; 2.1 MB, 0.0006 ms), far below a launch's latency, so there the
+// design is about latency: enough blocks, a short chain per block.
 //
-// bfloat16 (FlashAttention-3's backward), three launches per call:
+// bfloat16 (FlashAttention-3's backward), three launches per call (four
+// when blocks share a KV head):
 // 1. prep: Delta (from the returned O, already rounded to its dtype) and
 //    the logsumexp in the scaled log2 domain, both f32 [B, Hq, Sq_pad] with
 //    Sq_pad = Sq rounded up to the query tile; a row past Sq or without a
 //    visible key gets lse +inf, so its P is exp2(-inf) = 0 and never NaN. It
-//    also zeroes the f32 dQ accumulator [B, Hq, Sq_pad, D].
-// 2. main: one block per (128-key tile, KV head, batch), key tile 0 (the
-//    one every causal query row sees) issued first, three warpgroups.
+//    also zeroes the f32 dQ accumulator.
+// 2. main: one block per (128-key tile, KV head [x hsplit], batch), key
+//    tile 0 (the one every causal query row sees) issued first, three
+//    warpgroups.
 //    - A producer warpgroup gives its registers away (setmaxnreg 40); one
 //      thread loads K and V once by TMA, then streams the Q and dO tiles of
-//      the KV head's query heads, from the first query tile that sees the
-//      key tile, into a two-stage ring (full and empty mbarriers), with
-//      their lse and Delta by bulk copy. The tensor maps are 4-D over
-//      [B, S, H, D] as they lie in memory, 64 columns per box in the
-//      128-byte swizzle (at D = 32 and 16 the whole row per box, in the
-//      64- or 32-byte swizzle); rows past Sq or Sk come back as zeros.
+//      its query heads, from the first query tile that sees the key tile,
+//      into a ring of stages<DT>() stages (three; two at the tile of 256),
+//      with full and empty mbarriers, their lse and Delta by bulk copy. The
+//      tensor maps are 4-D over [B, S, H, D] as they lie in memory, 64
+//      columns per box in the 128-byte swizzle (at D = 32 and 16 the whole
+//      row per box, in the 64- or 32-byte swizzle); rows past Sq or Sk come
+//      back as zeros.
 //    - Two consumer warpgroups (setmaxnreg 232) own 64 keys each. Per
 //      query tile: S^T = K Q^T and dP^T = V dO^T as SS wgmma with Q and dO
 //      read K-major; P^T = exp2(S^T scale log2 e - lse) and
@@ -44,22 +51,44 @@
 //      on tiles that cross the causal diagonal or the Sk edge); dV += P^T dO
 //      and dK += dS^T Q as register-sourced wgmma that read dO and Q
 //      MN-major through the transpose bit, so nothing is transposed; dS^T
-//      goes to shared memory (double-buffered, one named barrier per tile
-//      between the two warpgroups) and dQ = dS K is an SS wgmma reading dS
-//      and K MN-major, each warpgroup one 64 x 64 block of it, added into
-//      the f32 accumulator with vector atomics (at D = 32 and 16 each
-//      warpgroup's block is 64 x D, m64n32k16 / m64n16k16 reading K's
-//      narrow rows MN-major). Five products per visible
-//      tile pair, each once. dK and dV stay in registers across the KV
-//      head's query heads (the GQA sum inside the block) and are written
-//      once.
-// 3. convert: dq = bf16(scale * accumulator).
-// dq is a sum of f32 atomics whose order changes from run to run, so its
+//      goes to shared memory (double-buffered) and, after a named barrier
+//      between the two warpgroups (dQ = dS K needs both halves of dS^T),
+//      which each reaches with its dV and dK products done, dQ = dS K is
+//      an SS wgmma reading dS and K MN-major, each warpgroup one 64 x 64
+//      block of it (64 x D at D = 32 and 16, m64n32k16 / m64n16k16 reading
+//      K's narrow rows MN-major). Five products per visible tile pair,
+//      each once.
+//    - dQ leaves the registers through shared memory: past that barrier
+//      neither warpgroup reads the stage's Q or dO tile again, so
+//      warpgroup 0 stores its f32 dQ block into the Q tile and warpgroup 1
+//      into the dO tile (each tile's bytes are exactly one warpgroup's dQ
+//      blocks), in the order the accumulator holds it, with conflict-free
+//      8-byte stores; one thread of each adds the block to the f32
+//      accumulator with one bulk reduce-add (cp.reduce.async.bulk .add.f32,
+//      the adds done in the L2); the stage is released once the copy
+//      engine has read it, which with three stages is checked a tile
+//      later, so no thread waits. The
+//      accumulator is tile-major (dq_block_offset): each 64-row block is
+//      one contiguous span, so a reduce-add is one copy. This replaces 16
+//      float2 atomics per thread per tile, which held both warpgroups while
+//      the tensor cores waited, and frees the shared memory of a third
+//      stage. No thread waits on a reduce-add: the next tile's S^T and
+//      dP^T are issued once the dQ registers are stored. (Issuing them
+//      right behind the dQ product instead, with dQ's registers live, made
+//      ptxas serialise the wgmma (C7515) and the training shape 10%
+//      slower: PERF.md.)
+//    - dK and dV stay in registers across the block's query heads (the GQA
+//      sum inside the block) and are written once. Where a grid of one
+//      block per key tile leaves SMs idle (GQA, MQA), hsplit blocks share a
+//      KV head's query heads (ops/flash_attention.py, bwd_head_split, at
+//      every width): each writes its f32 dK and dV partial to a slot of its
+//      own, [hsplit][2][B, Sk, Hkv, d], and flash_bwd_convert_dkv_kernel
+//      adds the slots in slot order and rounds to bf16. With hsplit = 1
+//      nothing is written to slots and there is no fourth launch.
+// 3. convert: dq = bf16(scale * accumulator), undoing the tile-major layout.
+// dq is a sum of reduce-adds whose order changes from run to run, so its
 // last bf16 bit may differ between two calls on the same inputs; dk and dv
-// are deterministic, but at a runtime width whose few blocks share a KV
-// head's query heads (hsplit > 1), where they are summed the same way. float32 runs on the CUDA cores (scores in shared
-// memory, dK/dV and dQ in two kernels, no atomics) so the golden gradient
-// check keeps full f32 precision.
+// are bitwise repeatable at every width and split.
 //
 // At D = 32 and 16 the products shrink with D but the exponentials (one per
 // visible score) do not, so they, not the products, bound those instances;
@@ -70,26 +99,22 @@
 // runtime-width instance, flash_bwd_wgmma_rt_kernel<DT>, at the tile DT
 // that is the power of two at or above it (16 to 256; TMA fills the
 // columns past D with zeros), with the prep and convert kernels taking D at
-// run time. Phi-2's and Phi-3-mini's D = 80 and 96 run the tile of 128:
-// instances of their own (S^T and dP^T in D / 16 k-steps) were no faster
-// on an H100 (PERF.md, chip_smoke.py phase 2's rows). At the tile of 256 (Gemma's D = 256) a block owns 64 keys,
-// which both consumer warpgroups share: each computes their S^T and dP^T
-// over all 256 columns (those two products run twice) and owns half of the
-// columns of dK and dV (64 registers each), the first writes dS^T, and each
-// computes dQ's two 64-column blocks of its half one after the other;
-// shared memory holds K, V, two stages of 64-row Q and dO tiles and dS^T in
-// 215 KB. Where a runtime width leaves few blocks (Gemma's one KV head:
-// B2 x 32 key tiles is 64 blocks for 132 SMs), hsplit blocks share each
-// KV head's query heads (ops/flash_attention.py, bwd_head_split) and sum
-// their dK and dV into an f32 scratch with atomics (zeroed by a memset,
-// rounded to bf16 by flash_bwd_convert_dkv_kernel). The f32 kernels take
-// the same runtime widths.
+// run time; the reduce-adds of their dQ blocks stop at D.
+// Phi-2's and Phi-3-mini's D = 80 and 96 run the tile of 128: instances of
+// their own (S^T and dP^T in D / 16 k-steps) were no faster on an H100
+// (PERF.md, chip_smoke.py phase 2's rows). At the tile of 256 (Gemma's
+// D = 256) a block owns 64 keys, which both consumer warpgroups share:
+// each computes their S^T and dP^T over all 256 columns (those two products
+// run twice) and owns half of the columns of dK and dV (64 registers each),
+// the first writes dS^T, and each computes dQ's two 64-column blocks of its
+// half one after the other; shared memory holds K, V, two stages of 64-row
+// Q and dO tiles and dS^T in 215 KB.
+//
+// float32: the f32 path below (its own header), two launches: the prep
+// (Delta), then flash_bwd_f32_kernel<DT> at the tile DT of D.
 //
 // Resources (nvcc -Xptxas -v, sm_90a): see PERF.md (the ptxas lines that
-// chip_smoke.py prints for every instance). The D = 16, 32, 64 and 128
-// instances compile from the same source as before the other widths were
-// added: each difference is an `if constexpr` on D or a constant equal to
-// the old one, and their ptxas lines are unchanged.
+// chip_smoke.py prints for every instance).
 
 #include <math.h>
 
@@ -112,7 +137,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // tile width, d the head dim, the slices at or past d read as zeros):
 // delta = sum_d dO[b, i, h, d] O[b, i, h, d] in f32 (0 past Sq). Where
 // given, lse_log2 = lse log2(e) (+inf past Sq and for a row without a
-// visible key) and the row of dq_accum (d floats) is zeroed.
+// visible key), and dq_accum (rows x d floats, tile-major: see
+// dq_block_offset) is zeroed, 8 floats a thread.
 template <typename T, int D, bool kRt>
 __device__ __forceinline__ void flash_bwd_prep_body(const T* __restrict__ o,
                                                     const T* __restrict__ dout,
@@ -152,15 +178,9 @@ __device__ __forceinline__ void flash_bwd_prep_body(const T* __restrict__ o,
       lse_log2[r] = l == -INFINITY ? INFINITY : l * kLog2e;
     }
   }
-  if (dq_accum != nullptr) {
-#pragma unroll
-    for (int sl = 0; sl < NV; ++sl) {
-      const int cs = c + sl * VPR * VEC;
-      if (kRt && cs >= d) continue;
-#pragma unroll
-      for (int e = 0; e < VEC; e += 4)
-        *reinterpret_cast<float4*>(dq_accum + r * d + cs + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+  if (dq_accum != nullptr && gid * 8 < rows * d) {  // bf16: D / 8 threads a row
+    float4* z = reinterpret_cast<float4*>(dq_accum + gid * 8);
+    z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -187,10 +207,8 @@ flash_bwd_prep_rt_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // ------------------------------------------------------------ bf16 path
 
-constexpr int kStages = 2;                  // depth of the Q / dO ring
 constexpr int kWgThreads = 128;             // one warpgroup
 constexpr int kWsThreads = 3 * kWgThreads;  // producer + two consumers
-constexpr int kConsumerWarps = 8;
 
 // An instance is named by its head dim D (0 for a runtime-width instance,
 // which takes D as an argument) and its tile width DT, the columns of a
@@ -222,14 +240,22 @@ __host__ __device__ constexpr int grad_width() {
   return DT == 256 ? DT / 2 : DT;
 }
 
+// Depth of the Q / dO ring: three stages where shared memory holds them,
+// since a stage is released only once its dQ staging has been read.
+template <int DT>
+__host__ __device__ constexpr int stages() {
+  return DT == 256 ? 2 : 3;
+}
+
 // Shared memory of one block, from a 1024-byte aligned base: K and V,
-// kStages Q and dO tiles (each [panels][rows][64 columns] bf16 in the
+// stages<DT>() Q and dO tiles (each [panels][rows][64 columns] bf16 in the
 // 128-byte swizzle; at a tile of 32 and 16 columns [rows][DT columns] in
 // the 64- or 32-byte swizzle), two dS^T buffers ([rows / 64 panels][keys]
-// [64 query rows], 128-byte swizzle), then kStages rows of lse and of
-// Delta (f32).
+// [64 query rows], 128-byte swizzle), then a stage's rows of lse and of
+// Delta (f32) for each stage.
 template <int DT>
 struct BwdSmem {
+  static constexpr int kStages = stages<DT>();
   static constexpr int kRows = q_rows<DT>();
   static constexpr int kKeys = keys<DT>();
   static constexpr int kRowBytes = row_bytes<DT>() * panels<DT>();
@@ -243,12 +269,37 @@ struct BwdSmem {
   static constexpr int kDO = kQ + kStages * kQBytes;
   static constexpr int kDS = kDO + kStages * kQBytes;
   static constexpr int kLse = kDS + 2 * kDSBytes;
+  static_assert(kQBytes >= 64 * (DT < 64 ? DT : 64) * 4 * (DT == 256 ? 2 : 1),
+                "a Q or dO tile holds its warpgroup's dQ blocks in f32");
   static constexpr int kDelta = kLse + kStages * kRows * 4;
   static constexpr int kBytes = kDelta + kStages * kRows * 4 + 1024;  // + alignment
 };
 
 // mbarriers: K and V full; Q/dO/lse/Delta full and empty for each stage.
-enum { kKVFull = 0, kFull = 1, kEmpty = 1 + kStages, kNumBars = 1 + 2 * kStages };
+enum { kKVFull = 0, kFull = 1 };
+template <int DT>
+__host__ __device__ constexpr int empty_bar() {
+  return 1 + stages<DT>();
+}
+template <int DT>
+__host__ __device__ constexpr int num_bars() {
+  return 1 + 2 * stages<DT>();
+}
+
+// dQ's f32 accumulator is tile-major: for each (b, h) and 64 query rows,
+// 64 d floats, in blocks of 64 rows x 64 columns (the last min(64, d -
+// 64 cb) wide), each block one contiguous span in the order a warpgroup's
+// wgmma accumulator holds it (float pair p of thread tid at p * 256 +
+// 2 tid), so that a consumer warpgroup stores its block to shared memory
+// with conflict-free 8-byte stores and adds it with one bulk reduce-add.
+// Its first w columns are its first 64 w floats, so a block narrower than
+// 64 (D = 16, 32, or the columns up to a runtime width) is a prefix. The
+// float offset of row r, column c of a block (hopper.cuh: row r is
+// 16 w + g + 8 hh, column c is 8 j + 2 t + e):
+__host__ __device__ constexpr int dq_block_offset(int r, int c) {
+  return (2 * (c / 8) + (r / 8) % 2) * 256 + (32 * (r / 16) + 4 * (r % 8) + (c % 8) / 2) * 2 +
+         c % 2;
+}
 
 // S^T (64 keys x 64 query rows) = K_wg Q^T over D, or dP^T = V_wg dO^T:
 // a is this warpgroup's 64 rows of the K (V) tile, b 64 rows of a Q (dO)
@@ -346,8 +397,10 @@ __device__ __forceinline__ void flash_bwd_wgmma_body(
   constexpr bool kSplitD = DT == 256;
   constexpr int kGradN = grad_width<DT>();
   constexpr bool kMaskCols = D != DT;  // columns past d exist in the tile
+  constexpr int kStages = L::kStages;
+  constexpr int kEmpty = empty_bar<DT>();
   extern __shared__ unsigned char bwd_smem_raw[];
-  __shared__ __align__(8) uint64_t bars[kNumBars];
+  __shared__ __align__(8) uint64_t bars[num_bars<DT>()];
 
   const uint32_t raw = smem_u32(bwd_smem_raw);
   const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
@@ -362,8 +415,8 @@ __device__ __forceinline__ void flash_bwd_wgmma_body(
   const uint32_t bar0 = smem_u32(bars);
 
   // A block owns a key tile of one KV head and walks rep_blk of its query
-  // heads: all of them, or with hsplit > 1 (runtime widths, few blocks) one
-  // hsplit-th, its dK and dV then summed into dkv_accum.
+  // heads: all of them, or with hsplit > 1 (few blocks) one hsplit-th, its
+  // dK and dV then written to its slot of dkv_accum.
   const int hk = blockIdx.x / hsplit;
   const int b = blockIdx.y;
   const int k0 = blockIdx.z * kKeys;  // key tile 0, the heaviest when causal, first
@@ -381,7 +434,7 @@ __device__ __forceinline__ void flash_bwd_wgmma_body(
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
       mbar_init(bar0 + 8 * (kFull + st), 1);
-      mbar_init(bar0 + 8 * (kEmpty + st), kConsumerWarps);
+      mbar_init(bar0 + 8 * (kEmpty + st), 2);  // one thread of each consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -450,12 +503,19 @@ __device__ __forceinline__ void flash_bwd_wgmma_body(
       // this warpgroup's block of each dQ tile: query rows [dq_r0, dq_r0 +
       // 64) of the tile and columns [dq_c0, dq_c0 + 64 kDqBlocks), one
       // 64-column block at a time (two at the tile of 256, where both at
-      // once serialised the products, C7512)
+      // once serialised the products, C7512); a block of the tile-major
+      // accumulator takes kDqFloats floats in shared memory and its
+      // columns below d in global memory
       constexpr int kDqRegs = DT < 64 ? DT / 2 : 32;
       constexpr int kDqBlocks = DT == 256 ? 2 : 1;
+      constexpr int kDqFloats = 64 * (DT < 64 ? DT : 64);
       const int dq_r0 = R == 128 ? c * 64 : 0;
       const int dq_c0 = R == 128 ? 0 : c * 64 * kDqBlocks;
       mbar_wait(bar0 + 8 * kKVFull, 0);
+      // With three stages a stage is released one tile later, after the
+      // next tile's products, when its reduce-adds have long read it: so no
+      // thread waits on the copy engine. With two, at once.
+      int pending = -1;  // the stage to release at the next tile
       int n = 0;
       for (int hh = 0; hh < rep_blk; ++hh) {
         const int h = h_first + hh;
@@ -549,9 +609,22 @@ __device__ __forceinline__ void flash_bwd_wgmma_body(
               }
             }
           }
+          // This warpgroup's products of the tile done, then one barrier:
+          // after it both halves of dS^T are in place for dQ = dS K, and
+          // neither warpgroup reads the stage's Q or dO tile again, so each
+          // stages its dQ blocks in one of them (warpgroup 0 in Q, 1 in
+          // dO; each tile holds exactly its warpgroup's f32 blocks).
+          wgmma_wait<0>();
+          fence_regs<kGradN / 2>(dv_acc);
+          fence_regs<kGradN / 2>(dk_acc);
           fence_proxy_async();
-          named_bar_sync(1, 2 * kWgThreads);  // both halves of dS^T are in place
-#pragma unroll
+          named_bar_sync(1, 2 * kWgThreads);
+          if constexpr (kStages > 2) {  // the previous tile's stage, long read
+            bulk_wait_read<0>();
+            mbar_arrive_if(bar0 + 8 * (kEmpty + pending), tid == 0 && pending >= 0);
+          }
+          const uint32_t stage_off = (c == 0 ? L::kQ : L::kDO) + st * L::kQBytes;
+#pragma unroll 1  // two blocks at the tile of 256: unrolled, their wgmma serialised (C7512)
           for (int blk = 0; blk < kDqBlocks; ++blk) {
             const int col = dq_c0 + blk * 64;
             float dq[kDqRegs];
@@ -565,29 +638,36 @@ __device__ __forceinline__ void flash_bwd_wgmma_body(
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs<kDqRegs>(dq);
-            fence_regs<kGradN / 2>(dv_acc);
-            fence_regs<kGradN / 2>(dk_acc);
-            if (blk == 0) mbar_arrive_if(bar0 + 8 * (kEmpty + st), lane == 0);  // one a warp
-
-            // The block into the f32 accumulator (padded to Sq_pad rows, so
-            // no row needs a bound check; d columns).
-            float* dst = dq_h + (size_t)(q0 + dq_r0 + warp * 16 + g) * d + col + 2 * t;
+            // the block in float pairs in the accumulator's order, then one
+            // thread adds it to the tile-major accumulator with a bulk
+            // reduce-add; dQ's registers are free once stored
+            float2* stage = reinterpret_cast<float2*>(smem + stage_off) + blk * kDqFloats / 2;
 #pragma unroll
-            for (int j = 0; j < kDqRegs / 4; ++j) {
-              if (kMaskCols && col + j * 8 >= d) continue;
-              atomicAdd(reinterpret_cast<float2*>(dst + j * 8),
-                        make_float2(dq[4 * j], dq[4 * j + 1]));
-              atomicAdd(reinterpret_cast<float2*>(dst + 8 * d + j * 8),
-                        make_float2(dq[4 * j + 2], dq[4 * j + 3]));
-            }
+            for (int p = 0; p < kDqRegs / 2; ++p)
+              stage[p * kWgThreads + tid] = make_float2(dq[2 * p], dq[2 * p + 1]);
+            fence_proxy_async();
+            named_bar_sync(3 + c, kWgThreads);
+            const int cols = min(d - col, DT < 64 ? DT : 64);  // of this block below d
+            float* dst = dq_h + (size_t)(q0 + dq_r0) * d + (size_t)col * 64;
+            bulk_reduce_add_f32_if(dst, k_s + stage_off + blk * kDqFloats * 4, 256 * cols,
+                                   tid == 0 && cols > 0);
+            bulk_commit();
+          }
+          // the stage is free once the reduce-adds have read it
+          if constexpr (kStages > 2) {
+            pending = st;
+          } else {
+            bulk_wait_read<0>();
+            mbar_arrive_if(bar0 + 8 * (kEmpty + st), tid == 0);
           }
         }
       }
     }
 
-    if (dkv_accum != nullptr) {  // a share of the KV head's query heads: sum
-      float* dk_sum = dkv_accum;
-      float* dv_sum = dkv_accum + (size_t)gridDim.y * Sk * Hkv * d;
+    if (dkv_accum != nullptr) {  // a share of the KV head's query heads: its slot
+      const size_t n_kv = (size_t)gridDim.y * Sk * Hkv * d;
+      float* dk_slot = dkv_accum + (blockIdx.x % hsplit) * 2 * n_kv;
+      float* dv_slot = dk_slot + n_kv;
 #pragma unroll
       for (int j = 0; j < kGradN / 8; ++j) {
         const int col = col0 + j * 8 + 2 * t;
@@ -597,12 +677,13 @@ __device__ __forceinline__ void flash_bwd_wgmma_body(
           const int key = hr ? key1 : key0;
           if (key >= Sk) continue;
           const size_t o = (((size_t)b * Sk + key) * Hkv + hk) * d + col;
-          atomicAdd(reinterpret_cast<float2*>(dk_sum + o),
-                    make_float2(dk_acc[4 * j + 2 * hr] * scale, dk_acc[4 * j + 2 * hr + 1] * scale));
-          atomicAdd(reinterpret_cast<float2*>(dv_sum + o),
-                    make_float2(dv_acc[4 * j + 2 * hr], dv_acc[4 * j + 2 * hr + 1]));
+          *reinterpret_cast<float2*>(dk_slot + o) =
+              make_float2(dk_acc[4 * j + 2 * hr] * scale, dk_acc[4 * j + 2 * hr + 1] * scale);
+          *reinterpret_cast<float2*>(dv_slot + o) =
+              make_float2(dv_acc[4 * j + 2 * hr], dv_acc[4 * j + 2 * hr + 1]);
         }
       }
+      bulk_wait_read<0>();  // the last reduce-add has read shared memory: exit
       return;
     }
 #pragma unroll
@@ -622,10 +703,14 @@ __device__ __forceinline__ void flash_bwd_wgmma_body(
         *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
       }
     }
+    bulk_wait_read<0>();  // the last reduce-add has read shared memory: exit
   }
 }
 
-// The instances of head dims 16, 32, 64 and 128.
+// The instances of head dims 16, 32, 64 and 128, and the runtime-width
+// instances (head dim d, a multiple of 8, at most DT). With hsplit > 1 a KV
+// head's query heads are shared among hsplit blocks, each writing its dK
+// and dV to its slot of dkv_accum (f32 [hsplit][2][B, Sk, Hkv, d]).
 template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -635,15 +720,13 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const float* __restrict__ lse_log2, const float* __restrict__ delta,
                        float* __restrict__ dq_accum, bf16* __restrict__ dk,
                        bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int Sq_pad,
-                       float scale, float scale_log2, int causal) {
+                       float scale, float scale_log2, int causal,
+                       float* __restrict__ dkv_accum, int hsplit) {
   flash_bwd_wgmma_body<D, D>(q_map, k_map, v_map, do_map, lse_log2, delta, dq_accum, dk, dv,
-                             Sq, Sk, Hq, Hkv, Sq_pad, scale, scale_log2, causal, D, nullptr,
-                             1);
+                             Sq, Sk, Hq, Hkv, Sq_pad, scale, scale_log2, causal, D,
+                             hsplit > 1 ? dkv_accum : nullptr, hsplit);
 }
 
-// Runtime-width instances: head dim d (a multiple of 8, at most DT); with
-// hsplit > 1 a KV head's query heads are shared among hsplit blocks, which
-// sum dK and dV into dkv_accum (f32 [2][B, Sk, Hkv, d], zeroed).
 template <int DT>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_wgmma_rt_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -660,17 +743,24 @@ flash_bwd_wgmma_rt_kernel(const __grid_constant__ CUtensorMap q_map,
                               hsplit > 1 ? dkv_accum : nullptr, hsplit);
 }
 
-// dk, dv [B, Sk, Hkv, d] = bf16 of the f32 sums dkv_accum [2][B, Sk, Hkv,
-// d] (dk already scaled), 8 values a thread.
+// dk, dv [B, Sk, Hkv, d] = bf16 of the sums of the hsplit slots of
+// dkv_accum [hsplit][2][B, Sk, Hkv, d] (dk already scaled), taken in slot
+// order, 8 values a thread.
 __global__ void __launch_bounds__(256)
 flash_bwd_convert_dkv_kernel(const float* __restrict__ dkv_accum, bf16* __restrict__ dk,
-                             bf16* __restrict__ dv, long n8) {
+                             bf16* __restrict__ dv, long n8, int hsplit) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= 2 * n8) return;
   const long e = (idx % n8) * 8;
   const float* src = dkv_accum + (idx >= n8 ? n8 * 8 : 0) + e;
-  const float4 lo = *reinterpret_cast<const float4*>(src);
-  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+  float4 lo = *reinterpret_cast<const float4*>(src);
+  float4 hi = *reinterpret_cast<const float4*>(src + 4);
+  for (int sl = 1; sl < hsplit; ++sl) {
+    const float4 a = *reinterpret_cast<const float4*>(src + sl * 2 * n8 * 8);
+    const float4 c = *reinterpret_cast<const float4*>(src + sl * 2 * n8 * 8 + 4);
+    lo.x += a.x; lo.y += a.y; lo.z += a.z; lo.w += a.w;
+    hi.x += c.x; hi.y += c.y; hi.z += c.z; hi.w += c.w;
+  }
   uint4 out;
   out.x = pack_bf16(lo.x, lo.y);
   out.y = pack_bf16(lo.z, lo.w);
@@ -679,22 +769,24 @@ flash_bwd_convert_dkv_kernel(const float* __restrict__ dkv_accum, bf16* __restri
   *reinterpret_cast<uint4*>((idx >= n8 ? dv : dk) + e) = out;
 }
 
-// dq [B, Sq, Hq, D] = bf16(scale * dq_accum [B, Hq, Sq_pad, D]), 8 columns
-// a thread.
+// dq [B, Sq, Hq, d] = bf16(scale * dq_accum), the accumulator tile-major
+// (dq_block_offset); 8 columns a thread, which lie in 8 consecutive floats
+// of a block.
 __device__ __forceinline__ void flash_bwd_convert_body(const float* __restrict__ dq_accum,
                                                        bf16* __restrict__ dq, long n8, int Sq,
                                                        int Sq_pad, int Hq, float scale,
-                                                       const int D) {
+                                                       const int d) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n8) return;
   const long e = idx * 8;
-  const int d = (int)(e % D);
-  const long row = e / D;  // (b, i, h) of dq
+  const int c = (int)(e % d);
+  const long row = e / d;  // (b, i, h) of dq
   const int h = (int)(row % Hq);
   const long bi = row / Hq;
   const int i = (int)(bi % Sq);
   const long b = bi / Sq;
-  const float* src = dq_accum + ((b * Hq + h) * Sq_pad + i) * D + d;
+  const float* src = dq_accum + ((b * Hq + h) * Sq_pad + (i - i % 64)) * d + (c / 64) * 4096 +
+                     dq_block_offset(i % 64, c % 64);
   const float4 lo = *reinterpret_cast<const float4*>(src);
   const float4 hi = *reinterpret_cast<const float4*>(src + 4);
   uint4 out;
@@ -720,240 +812,402 @@ flash_bwd_convert_rt_kernel(const float* __restrict__ dq_accum, bf16* __restrict
 }
 
 // ------------------------------------------------------------ f32 path
+//
+// Full f32 FMAs on the CUDA cores, one launch after the prep (which writes
+// Delta). Its grid has two kinds of block:
+// - a KV block owns a key tile (f32_keys<DT> keys) of one KV head and sums its
+//   dK and dV over every query tile of the head's query heads that sees it;
+// - a Q block owns a 32-row query tile of one query head and sums its dQ
+//   over every key tile it sees.
+// Each recomputes S = Q K^T and dP = dO V^T for its tile pairs, so a pair
+// takes seven products, not five: the dQ of one query tile then needs no sum
+// across blocks (no scratch partials, no second pass, no atomics), and at
+// the f32 shapes the port runs the products are not what bounds the call
+// (B1 S256 H4 D64: 0.08 GFLOP, about 1.3 us of the f32 peak) while each
+// block's chain of tiles and its loads are. A block is kF32Groups<DT> groups
+// of 64 threads that take its tiles in turn (group g the tiles g, g + G, ...)
+// with their own two-stage cp.async ring, so a block's chain is 1/G of its
+// tiles; the groups' sums are added in group order at the end. Every sum is
+// in a fixed order, so dq, dk and dv are bitwise repeatable.
+//
+// Register tiles: in a group, S and dP (32 rows x f32_keys<DT> keys) are 4 x 4
+// (4 x 2 at the tile of 256) a thread, read as float4 along D from rows of
+// [rows][DT + 4] tiles (the 4 floats of padding put 8 rows on 32 banks);
+// dK and dV (keys x DT) and dQ (32 x DT) are TR x TC a thread (f32_out),
+// each float4 of P, dS, dO, Q or K read from shared memory feeding 4 to 32
+// FMAs. P and dS go through shared memory between the two products.
 
-constexpr int kF32Threads = 256;
-constexpr int kF32Keys = 64;  // keys of a dK/dV block, rows of a dQ block
-constexpr int kF32Step = 32;  // query rows (dK/dV) or keys (dQ) per step
+constexpr int kF32Rows = 32;        // query rows of a tile
+constexpr int kF32GroupThreads = 64;
 
-template <int D>
-constexpr size_t f32_smem_bytes() {
-  // two [64][D+1] and two [32][D+1] tiles, two [64][33] score tiles, 2 x 32
-  return sizeof(float) * (2 * (size_t)kF32Keys * (D + 1) + 2 * (size_t)kF32Step * (D + 1) +
-                          2 * (size_t)kF32Keys * (kF32Step + 1) + 2 * kF32Step);
+template <int DT>
+__host__ __device__ constexpr int f32_keys() {
+  return DT == 256 ? 16 : 32;  // keys of a tile (dK and dV: 64 registers each)
+}
+
+template <int DT>
+__host__ __device__ constexpr int f32_groups() {
+  return DT <= 64 ? 4 : DT == 128 ? 2 : 1;  // shared memory bounds the groups
+}
+
+// Floats of a tile row in shared memory, and of a P / dS row.
+template <int DT>
+__host__ __device__ constexpr int f32_ld() {
+  return DT + 4;
+}
+template <int DT>
+__host__ __device__ constexpr int f32_sld() {
+  return f32_keys<DT>() + 8;
+}
+
+// Shared memory (floats): the block's fixed tiles (K and V of a KV block;
+// Q, dO, lse and Delta of a Q block), then for each group two stages of
+// streamed tiles (Q, dO, lse, Delta; or K and V) and its P and dS.
+template <int DT>
+struct F32Smem {
+  static constexpr int kTile = kF32Rows * f32_ld<DT>();
+  static constexpr int kPair = 2 * kTile + 2 * kF32Rows;  // two tiles and two rows
+  static constexpr int kScratch = 2 * kF32Rows * f32_sld<DT>();
+  static constexpr int kGroup = 2 * kPair + kScratch;
+  static constexpr int kFloats = kPair + f32_groups<DT>() * kGroup;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Rows [s0, s0 + rows) of head h of batch b of a [B, S, H, d] f32 tensor
-// into a [rows][D + 1] tile; rows past S (and with kRt columns past d) are
-// zeros.
-template <int D, bool kRt>
-__device__ __forceinline__ void load_f32_tile(const float* __restrict__ src, int b, int s0,
-                                              int S, int H, int h, int rows, float* dst,
-                                              const int d) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += kF32Threads) {
-    const int r = idx / D;
-    const int c = idx % D;
-    dst[r * (D + 1) + c] = s0 + r < S && (!kRt || c < d)
-                               ? src[(((size_t)b * S + s0 + r) * H + h) * d + c]
-                               : 0.f;
+// into a [rows][DT + 4] tile by `nt` threads (this one `t`), 16 bytes at a
+// time; rows past S and columns past d are zeros.
+template <int DT>
+__device__ __forceinline__ void f32_load_tile(float* dst, const float* __restrict__ src, int b,
+                                              int s0, int rows, int S, int H, int h, int d,
+                                              int t, int nt) {
+  constexpr int kChunks = DT / 4;
+  for (int idx = t; idx < rows * kChunks; idx += nt) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 4;
+    const bool valid = s0 + r < S && c < d;
+    cp_async16(dst + r * f32_ld<DT>() + c,
+               valid ? src + (((size_t)b * S + s0 + r) * H + h) * d + c : src, valid);
   }
 }
 
-// dK/dV of a 64-key tile on the CUDA cores: thread (j = tid / 4, tid % 4)
-// owns key j's columns tid % 4 + 4m of dK and dV, and the score entries
-// (j, tid % 4 + 4m) of each 32-row query step.
-// (D the tile width, d the head dim: d == D unless kRt.)
-template <int D, bool kRt>
-__device__ __forceinline__ void flash_bwd_dkdv_f32_body(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Sq,
-    int Sk, int Hq, int Hkv, float scale, int causal, const int d) {
-  constexpr int DP = D + 1;
-  constexpr int SP = kF32Step + 1;
-  constexpr int NC = D / 4;  // output columns per thread
-  extern __shared__ float f32_smem[];
-  float* Ks = f32_smem;
-  float* Vs = Ks + kF32Keys * DP;
-  float* Qs = Vs + kF32Keys * DP;
-  float* dOs = Qs + kF32Step * DP;
-  float* Ps = dOs + kF32Step * DP;
-  float* dSs = Ps + kF32Keys * SP;
-  float* lse_s = dSs + kF32Keys * SP;
-  float* delta_s = lse_s + kF32Step;
+// 32 values of a [B, Hq, Sq] row (lse or Delta) from row i0 (zeros past Sq).
+__device__ __forceinline__ void f32_load_row(float* dst, const float* __restrict__ src,
+                                             size_t base, int i0, int Sq, int t) {
+  if (t >= 0 && t < kF32Rows) {
+    const bool valid = i0 + t < Sq;
+    cp_async4(dst + t, valid ? src + base + i0 + t : src, valid);
+  }
+}
 
-  const int k0 = blockIdx.x * kF32Keys;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+// S = Q K^T and dP = dO V^T of one tile pair (32 rows x KK keys) by a group
+// thread t: rows t / 8 + 8x, keys t % 8 + 8y; then P = exp(scale S - lse)
+// (0 where the key is not visible) and dS = P (dP - Delta), stored as
+// P[row][key] and dS[row][key] (KV blocks) or dS^T[key][row] (Q blocks,
+// kTransposed). q0 and k0 are the tile pair's first row and key.
+template <int DT, bool kTransposed>
+__device__ __forceinline__ void f32_scores(const float* Qs, const float* dOs, const float* Ks,
+                                           const float* Vs, const float* lse_s,
+                                           const float* delta_s, float* Ps, float* dSs, int q0,
+                                           int k0, int Sq, int Sk, int off, int causal,
+                                           float scale, int t) {
+  constexpr int LD = f32_ld<DT>();
+  constexpr int KK = f32_keys<DT>();
+  constexpr int NY = KK / 8;
+  const int tr = t / 8, tc = t % 8;
+  float s[4][NY], dp[4][NY];
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < NY; ++y) s[x][y] = dp[x][y] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < DT; k += 4) {
+    float4 kb[NY], vb[NY];
+#pragma unroll
+    for (int y = 0; y < NY; ++y) {
+      kb[y] = *reinterpret_cast<const float4*>(Ks + (tc + 8 * y) * LD + k);
+      vb[y] = *reinterpret_cast<const float4*>(Vs + (tc + 8 * y) * LD + k);
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float4 qa = *reinterpret_cast<const float4*>(Qs + (tr + 8 * x) * LD + k);
+      const float4 da = *reinterpret_cast<const float4*>(dOs + (tr + 8 * x) * LD + k);
+#pragma unroll
+      for (int y = 0; y < NY; ++y) {
+        s[x][y] = fmaf(qa.x, kb[y].x, s[x][y]);
+        s[x][y] = fmaf(qa.y, kb[y].y, s[x][y]);
+        s[x][y] = fmaf(qa.z, kb[y].z, s[x][y]);
+        s[x][y] = fmaf(qa.w, kb[y].w, s[x][y]);
+        dp[x][y] = fmaf(da.x, vb[y].x, dp[x][y]);
+        dp[x][y] = fmaf(da.y, vb[y].y, dp[x][y]);
+        dp[x][y] = fmaf(da.z, vb[y].z, dp[x][y]);
+        dp[x][y] = fmaf(da.w, vb[y].w, dp[x][y]);
+      }
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int r = tr + 8 * x;
+    const int i = q0 + r;
+    const float l = lse_s[r];
+    const float dl = delta_s[r];
+#pragma unroll
+    for (int y = 0; y < NY; ++y) {
+      const int c = tc + 8 * y;
+      const int j = k0 + c;
+      const bool vis = i < Sq && j < Sk && l != -INFINITY && (!causal || j <= i + off);
+      const float p = vis ? expf(s[x][y] * scale - l) : 0.f;
+      const float ds = p * (dp[x][y] - dl);
+      if constexpr (kTransposed) {
+        dSs[c * (kF32Rows + 4) + r] = ds;
+      } else {
+        Ps[r * f32_sld<DT>() + c] = p;
+        dSs[r * f32_sld<DT>() + c] = ds;
+      }
+    }
+  }
+}
+
+// A group thread's tile of an R x DT output (dK, dV: R = keys; dQ: R = 32):
+// CT threads across the columns, TC columns each (float4 chunks CT * 4
+// apart), 64 / CT threads down the rows, TR consecutive rows each.
+template <int DT, int R>
+struct f32_out {
+  static constexpr int CT = DT / 4 < 8 ? DT / 4 : 8;
+  static constexpr int TC = DT / CT;
+  static constexpr int TR = R / (kF32GroupThreads / CT);
+};
+
+// TR consecutive floats from shared memory (TR = 1, 2 or 4).
+template <int TR>
+__device__ __forceinline__ void f32_load_col(float* a, const float* p) {
+  if constexpr (TR == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+  } else if constexpr (TR == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a[0] = v.x; a[1] = v.y;
+  } else {
+    a[0] = *p;
+  }
+}
+
+// acc[x][4q + e] += sum over k < K of A[k][row0 + x] B[k][col(q) + e]: A
+// rows of `lda` floats (P, dS or dS^T), B tile rows of DT + 4 (dO, Q or K).
+template <int DT, int R, int K>
+__device__ __forceinline__ void f32_outer(float (*acc)[f32_out<DT, R>::TC], const float* A,
+                                          int lda, const float* B, int t) {
+  using O = f32_out<DT, R>;
+  const int row0 = (t / O::CT) * O::TR;
+  const int col0 = (t % O::CT) * 4;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float a[O::TR];
+    f32_load_col<O::TR>(a, A + k * lda + row0);
+#pragma unroll
+    for (int q = 0; q < O::TC / 4; ++q) {
+      const float4 bv = *reinterpret_cast<const float4*>(B + k * f32_ld<DT>() + col0 + q * 4 * O::CT);
+#pragma unroll
+      for (int x = 0; x < O::TR; ++x) {
+        acc[x][4 * q] = fmaf(a[x], bv.x, acc[x][4 * q]);
+        acc[x][4 * q + 1] = fmaf(a[x], bv.y, acc[x][4 * q + 1]);
+        acc[x][4 * q + 2] = fmaf(a[x], bv.z, acc[x][4 * q + 2]);
+        acc[x][4 * q + 3] = fmaf(a[x], bv.w, acc[x][4 * q + 3]);
+      }
+    }
+  }
+}
+
+// A thread's output tile into a dense [R][DT] block of shared memory.
+template <int DT, int R>
+__device__ __forceinline__ void f32_store_out(float* dst, float (*acc)[f32_out<DT, R>::TC],
+                                              int t) {
+  using O = f32_out<DT, R>;
+  const int row0 = (t / O::CT) * O::TR;
+  const int col0 = (t % O::CT) * 4;
+#pragma unroll
+  for (int x = 0; x < O::TR; ++x)
+#pragma unroll
+    for (int q = 0; q < O::TC / 4; ++q)
+      *reinterpret_cast<float4*>(dst + (row0 + x) * DT + col0 + q * 4 * O::CT) =
+          make_float4(acc[x][4 * q], acc[x][4 * q + 1], acc[x][4 * q + 2], acc[x][4 * q + 3]);
+}
+
+// rows x DT of f32 output [B, S, H, d] from the groups' dense [rows][DT]
+// blocks (`n` of them, `stride` floats apart), summed in group order,
+// times `mul`; rows past S and columns past d are not written.
+template <int DT>
+__device__ __forceinline__ void f32_write_sum(float* __restrict__ out, const float* parts,
+                                              int n, int stride, int rows, float mul, int b,
+                                              int s0, int S, int H, int h, int d) {
+  constexpr int kChunks = DT / 4;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 4;
+    if (s0 + r >= S || c >= d) continue;
+    float4 sum = *reinterpret_cast<const float4*>(parts + r * DT + c);
+    for (int g = 1; g < n; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(parts + g * stride + r * DT + c);
+      sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+    }
+    *reinterpret_cast<float4*>(out + (((size_t)b * S + s0 + r) * H + h) * d + c) =
+        make_float4(sum.x * mul, sum.y * mul, sum.z * mul, sum.w * mul);
+  }
+}
+
+// The f32 kernel at tile width DT (the power of two at or above the head
+// dim d, at least 16; columns past d are zeros in shared memory). Blocks
+// [0, n_kv) are KV blocks, key tile major (key tile 0, which every causal
+// query row sees, first); the rest Q blocks, last query tile first.
+template <int DT>
+__global__ void __launch_bounds__(kF32GroupThreads * f32_groups<DT>())
+flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                     int B, int Sq, int Sk, int Hq, int Hkv, float scale, int causal, int d,
+                     int n_kv) {
+  using L = F32Smem<DT>;
+  constexpr int G = f32_groups<DT>();
+  constexpr int KK = f32_keys<DT>();
+  extern __shared__ __align__(16) float f32_smem[];
+  const int g = threadIdx.x / kF32GroupThreads;
+  const int t = threadIdx.x % kF32GroupThreads;
+  const int nt = blockDim.x;
+  float* fixed = f32_smem;
+  float* group = f32_smem + L::kPair + g * L::kGroup;
+  float* scratch = group + 2 * L::kPair;
   const int rep = Hq / Hkv;
   const int off = Sk - Sq;
-  const int jr = threadIdx.x / 4;  // key row within the tile
-  const int part = threadIdx.x % 4;
-  const int j = k0 + jr;
+  const int nq = (Sq + kF32Rows - 1) / kF32Rows;
 
-  load_f32_tile<D, kRt>(k, b, k0, Sk, Hkv, hk, kF32Keys, Ks, d);
-  load_f32_tile<D, kRt>(v, b, k0, Sk, Hkv, hk, kF32Keys, Vs, d);
-  float dka[NC], dva[NC];
-#pragma unroll
-  for (int m = 0; m < NC; ++m) dka[m] = dva[m] = 0.f;
-
-  const int q_begin = causal ? max(0, k0 - off) / kF32Step * kF32Step : 0;
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = hk * rep + hh;
-    for (int q0 = q_begin; q0 < Sq; q0 += kF32Step) {
-      __syncthreads();
-      load_f32_tile<D, kRt>(q, b, q0, Sq, Hq, h, kF32Step, Qs, d);
-      load_f32_tile<D, kRt>(dout, b, q0, Sq, Hq, h, kF32Step, dOs, d);
-      if (threadIdx.x < kF32Step) {
-        const int i = q0 + threadIdx.x;
-        const size_t o = ((size_t)b * Hq + h) * Sq + i;
-        lse_s[threadIdx.x] = i < Sq ? lse[o] : -INFINITY;
-        delta_s[threadIdx.x] = i < Sq ? delta[o] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < kF32Step / 4; ++m) {
-        const int ir = part + 4 * m;
-        const int i = q0 + ir;
-        float s = 0.f, dpv = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          s += Ks[jr * DP + d] * Qs[ir * DP + d];
-          dpv += Vs[jr * DP + d] * dOs[ir * DP + d];
-        }
-        const float l = lse_s[ir];
-        const bool vis = i < Sq && j < Sk && l != -INFINITY && (!causal || j <= i + off);
-        const float p = vis ? expf(s * scale - l) : 0.f;
-        Ps[jr * SP + ir] = p;
-        dSs[jr * SP + ir] = p * (dpv - delta_s[ir]);
-      }
-      __syncthreads();
-      for (int ir = 0; ir < kF32Step; ++ir) {
-        const float p = Ps[jr * SP + ir];
-        const float ds = dSs[jr * SP + ir];
-#pragma unroll
-        for (int m = 0; m < NC; ++m) {
-          dva[m] += p * dOs[ir * DP + part + 4 * m];
-          dka[m] += ds * Qs[ir * DP + part + 4 * m];
-        }
-      }
-    }
-  }
-  if (j < Sk) {
-    const size_t o = (((size_t)b * Sk + j) * Hkv + hk) * d;
-#pragma unroll
-    for (int m = 0; m < NC; ++m) {
-      if (kRt && part + 4 * m >= d) continue;
-      dk[o + part + 4 * m] = dka[m] * scale;
-      dv[o + part + 4 * m] = dva[m];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
-                          int Hq, int Hkv, float scale, int causal) {
-  flash_bwd_dkdv_f32_body<D, false>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk, Hq, Hkv, scale,
-                                    causal, D);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dkdv_f32_rt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
-                             int Hq, int Hkv, float scale, int causal, int d) {
-  flash_bwd_dkdv_f32_body<D, true>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk, Hq, Hkv, scale,
-                                   causal, d);
-}
-
-// dQ of a 64-row query tile on the CUDA cores: thread (i = tid / 4,
-// tid % 4) owns row i's columns tid % 4 + 4m of dQ and the score entries
-// (i, tid % 4 + 4m) of each 32-key step.
-template <int D, bool kRt>
-__device__ __forceinline__ void flash_bwd_dq_f32_body(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv,
-    float scale, int causal, const int d) {
-  constexpr int DP = D + 1;
-  constexpr int SP = kF32Step + 1;
-  constexpr int NC = D / 4;
-  extern __shared__ float f32_smem[];
-  float* Qs = f32_smem;
-  float* dOs = Qs + kF32Keys * DP;
-  float* Ks = dOs + kF32Keys * DP;
-  float* Vs = Ks + kF32Step * DP;
-  float* dSs = Vs + kF32Step * DP;
-
-  const int q0 = blockIdx.x * kF32Keys;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int off = Sk - Sq;
-  const int ir = threadIdx.x / 4;
-  const int part = threadIdx.x % 4;
-  const int i = q0 + ir;
-
-  load_f32_tile<D, kRt>(q, b, q0, Sq, Hq, h, kF32Keys, Qs, d);
-  load_f32_tile<D, kRt>(dout, b, q0, Sq, Hq, h, kF32Keys, dOs, d);
-  const size_t ro = ((size_t)b * Hq + h) * Sq + i;
-  const float l = i < Sq ? lse[ro] : -INFINITY;
-  const float dl = i < Sq ? delta[ro] : 0.f;
-  int k_end = Sk;
-  if (causal) k_end = max(0, min(Sk, min(q0 + kF32Keys, Sq) + off));
-
-  float dqa[NC];
-#pragma unroll
-  for (int m = 0; m < NC; ++m) dqa[m] = 0.f;
-  for (int k0 = 0; k0 < k_end; k0 += kF32Step) {
+  if ((int)blockIdx.x < n_kv) {
+    // ---- KV block: fixed K, V; streamed Q, dO, lse, Delta
+    const int kt = blockIdx.x / (B * Hkv);
+    const int hk = blockIdx.x % Hkv;
+    const int b = blockIdx.x / Hkv % B;
+    const int k0 = kt * KK;
+    const float* Ks = fixed;
+    const float* Vs = fixed + L::kTile;
+    const int m_first = causal ? max(0, k0 - off) / kF32Rows : 0;
+    const int per_head = nq - m_first;
+    const int items = rep * per_head;
+    // item n: query head hk * rep + n / per_head, query tile m_first + n % per_head
+    auto load = [&](int n, float* st) {
+      const int h = hk * rep + n / per_head;
+      const int q0 = (m_first + n % per_head) * kF32Rows;
+      f32_load_tile<DT>(st, q, b, q0, kF32Rows, Sq, Hq, h, d, t, kF32GroupThreads);
+      f32_load_tile<DT>(st + L::kTile, dout, b, q0, kF32Rows, Sq, Hq, h, d, t,
+                        kF32GroupThreads);
+      const size_t row = ((size_t)b * Hq + h) * Sq;
+      f32_load_row(st + 2 * L::kTile, lse, row, q0, Sq, t);
+      f32_load_row(st + 2 * L::kTile + kF32Rows, delta, row, q0, Sq, t - kF32Rows);
+    };
+    f32_load_tile<DT>(fixed, k, b, k0, KK, Sk, Hkv, hk, d, threadIdx.x, nt);
+    f32_load_tile<DT>(fixed + L::kTile, v, b, k0, KK, Sk, Hkv, hk, d, threadIdx.x, nt);
+    if (g < items) load(g, group);
+    cp_async_commit();
+    cp_async_wait_all();
     __syncthreads();
-    load_f32_tile<D, kRt>(k, b, k0, Sk, Hkv, hk, kF32Step, Ks, d);
-    load_f32_tile<D, kRt>(v, b, k0, Sk, Hkv, hk, kF32Step, Vs, d);
-    __syncthreads();
+
+    using O = f32_out<DT, KK>;
+    float dk_acc[O::TR][O::TC], dv_acc[O::TR][O::TC];
 #pragma unroll
-    for (int m = 0; m < kF32Step / 4; ++m) {
-      const int jr = part + 4 * m;
-      const int j = k0 + jr;
-      float s = 0.f, dpv = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        s += Qs[ir * DP + d] * Ks[jr * DP + d];
-        dpv += dOs[ir * DP + d] * Vs[jr * DP + d];
-      }
-      const bool vis = i < Sq && j < Sk && l != -INFINITY && (!causal || j <= i + off);
-      const float p = vis ? expf(s * scale - l) : 0.f;
-      dSs[ir * SP + jr] = p * (dpv - dl);
+    for (int x = 0; x < O::TR; ++x)
+#pragma unroll
+      for (int c = 0; c < O::TC; ++c) dk_acc[x][c] = dv_acc[x][c] = 0.f;
+    int it = 0;
+    for (int n = g; n < items; n += G, ++it) {
+      float* st = group + (it & 1) * L::kPair;
+      cp_async_wait_all();
+      named_bar_sync(1 + g, kF32GroupThreads);  // this tile in; the last one's products done
+      if (n + G < items) load(n + G, group + ((it + 1) & 1) * L::kPair);
+      cp_async_commit();
+      const int q0 = (m_first + n % per_head) * kF32Rows;
+      f32_scores<DT, false>(st, st + L::kTile, Ks, Vs, st + 2 * L::kTile,
+                            st + 2 * L::kTile + kF32Rows, scratch,
+                            scratch + kF32Rows * f32_sld<DT>(), q0, k0, Sq, Sk, off, causal,
+                            scale, t);
+      named_bar_sync(1 + g, kF32GroupThreads);
+      f32_outer<DT, KK, kF32Rows>(dv_acc, scratch, f32_sld<DT>(), st + L::kTile, t);
+      f32_outer<DT, KK, kF32Rows>(dk_acc, scratch + kF32Rows * f32_sld<DT>(), f32_sld<DT>(), st,
+                                  t);
+    }
+    __syncthreads();  // every group's last products done: its stages hold its sums
+    f32_store_out<DT, KK>(group, dk_acc, t);
+    f32_store_out<DT, KK>(group + KK * DT, dv_acc, t);
+    __syncthreads();
+    float* parts = f32_smem + L::kPair;
+    f32_write_sum<DT>(dk, parts, G, L::kGroup, KK, scale, b, k0, Sk, Hkv, hk, d);
+    f32_write_sum<DT>(dv, parts + KK * DT, G, L::kGroup, KK, 1.f, b, k0, Sk, Hkv, hk, d);
+  } else {
+    // ---- Q block: fixed Q, dO, lse, Delta; streamed K, V
+    const int y = blockIdx.x - n_kv;
+    const int qt = nq - 1 - y / (B * Hq);
+    const int h = y % Hq;
+    const int b = y / Hq % B;
+    const int hk = h / rep;
+    const int q0 = qt * kF32Rows;
+    const int k_end = causal ? max(0, min(Sk, min(q0 + kF32Rows, Sq) + off)) : Sk;
+    const int items = (k_end + KK - 1) / KK;
+    const float* Qs = fixed;
+    const float* dOs = fixed + L::kTile;
+    auto load = [&](int n, float* st) {
+      f32_load_tile<DT>(st, k, b, n * KK, KK, Sk, Hkv, hk, d, t, kF32GroupThreads);
+      f32_load_tile<DT>(st + L::kTile, v, b, n * KK, KK, Sk, Hkv, hk, d, t, kF32GroupThreads);
+    };
+    f32_load_tile<DT>(fixed, q, b, q0, kF32Rows, Sq, Hq, h, d, threadIdx.x, nt);
+    f32_load_tile<DT>(fixed + L::kTile, dout, b, q0, kF32Rows, Sq, Hq, h, d, threadIdx.x, nt);
+    const size_t row = ((size_t)b * Hq + h) * Sq;
+    f32_load_row(fixed + 2 * L::kTile, lse, row, q0, Sq, threadIdx.x);
+    f32_load_row(fixed + 2 * L::kTile + kF32Rows, delta, row, q0, Sq,
+                 (int)threadIdx.x - kF32Rows);
+    if (g < items) load(g, group);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    using O = f32_out<DT, kF32Rows>;
+    float dq_acc[O::TR][O::TC];
+#pragma unroll
+    for (int x = 0; x < O::TR; ++x)
+#pragma unroll
+      for (int c = 0; c < O::TC; ++c) dq_acc[x][c] = 0.f;
+    int it = 0;
+    for (int n = g; n < items; n += G, ++it) {
+      float* st = group + (it & 1) * L::kPair;
+      cp_async_wait_all();
+      named_bar_sync(1 + g, kF32GroupThreads);
+      if (n + G < items) load(n + G, group + ((it + 1) & 1) * L::kPair);
+      cp_async_commit();
+      f32_scores<DT, true>(Qs, dOs, st, st + L::kTile, fixed + 2 * L::kTile,
+                           fixed + 2 * L::kTile + kF32Rows, nullptr, scratch, q0, n * KK, Sq, Sk,
+                           off, causal, scale, t);
+      named_bar_sync(1 + g, kF32GroupThreads);
+      f32_outer<DT, kF32Rows, KK>(dq_acc, scratch, kF32Rows + 4, st, t);
     }
     __syncthreads();
-    for (int jr = 0; jr < kF32Step; ++jr) {
-      const float ds = dSs[ir * SP + jr];
-#pragma unroll
-      for (int m = 0; m < NC; ++m) dqa[m] += ds * Ks[jr * DP + part + 4 * m];
-    }
+    f32_store_out<DT, kF32Rows>(group, dq_acc, t);
+    __syncthreads();
+    f32_write_sum<DT>(dq, f32_smem + L::kPair, G, L::kGroup, kF32Rows, scale, b, q0, Sq, Hq, h,
+                      d);
   }
-  if (i < Sq) {
-    const size_t o = (((size_t)b * Sq + i) * Hq + h) * d;
-#pragma unroll
-    for (int m = 0; m < NC; ++m)
-      if (!kRt || part + 4 * m < d) dq[o + part + 4 * m] = dqa[m] * scale;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, float scale,
-                        int causal) {
-  flash_bwd_dq_f32_body<D, false>(q, k, v, dout, lse, delta, dq, Sq, Sk, Hq, Hkv, scale,
-                                  causal, D);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dq_f32_rt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           float* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv,
-                           float scale, int causal, int d) {
-  flash_bwd_dq_f32_body<D, true>(q, k, v, dout, lse, delta, dq, Sq, Sk, Hq, Hkv, scale,
-                                 causal, d);
 }
 
 // ------------------------------------------------------------ launches
@@ -1017,10 +1271,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
                                      Hq, d, stream);
   if (e != cudaSuccess) return e;
   const long dkv_n8 = (long)B * Sk * Hkv * d / 8;
-  if (hsplit > 1) {
-    e = cudaMemsetAsync(dkv_accum, 0, 2 * dkv_n8 * 8 * sizeof(float), stream);
-    if (e != cudaSuccess) return e;
-  }
   const float scale = 1.0f / sqrtf((float)d);
   const dim3 grid(Hkv * hsplit, B, (Sk + kK - 1) / kK);
   if constexpr (D == 0)
@@ -1031,12 +1281,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   else
     flash_bwd_wgmma_kernel<D><<<grid, kWsThreads, BwdSmem<DT>::kBytes, stream>>>(
         q_map, k_map, v_map, do_map, lse_log2, delta, dq_accum, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), Sq, Sk, Hq, Hkv, Sq_pad, scale, scale * kLog2e, causal);
+        static_cast<bf16*>(dv), Sq, Sk, Hq, Hkv, Sq_pad, scale, scale * kLog2e, causal,
+        dkv_accum, hsplit);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (hsplit > 1) {
     flash_bwd_convert_dkv_kernel<<<(unsigned)((2 * dkv_n8 + 255) / 256), 256, 0, stream>>>(
-        dkv_accum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dkv_n8);
+        dkv_accum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dkv_n8, hsplit);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -1051,52 +1302,27 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-// The exact instance of head dim D (kRt false, d == D), or the
-// runtime-width instance of tile D at head dim d.
-template <int D, bool kRt>
+// The f32 kernel of tile DT at head dim d: the prep (Delta), then one
+// launch of its KV and Q blocks.
+template <int DT>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int causal, int d,
                        cudaStream_t stream) {
-  static bool dkdv_ok = false, dq_ok = false;
-  cudaError_t e;
-  if constexpr (kRt) {
-    e = allow_smem(flash_bwd_dkdv_f32_rt_kernel<D>, f32_smem_bytes<D>(), &dkdv_ok);
-    if (e == cudaSuccess)
-      e = allow_smem(flash_bwd_dq_f32_rt_kernel<D>, f32_smem_bytes<D>(), &dq_ok);
-  } else {
-    e = allow_smem(flash_bwd_dkdv_f32_kernel<D>, f32_smem_bytes<D>(), &dkdv_ok);
-    if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_f32_kernel<D>, f32_smem_bytes<D>(), &dq_ok);
-  }
+  static bool configured = false;
+  cudaError_t e = allow_smem(flash_bwd_f32_kernel<DT>, F32Smem<DT>::kBytes, &configured);
   if (e != cudaSuccess) return e;
-  e = launch_prep<float, D, kRt>(o, dout, lse, delta, nullptr, nullptr, B, Sq, Sq, Hq, d,
-                                 stream);
+  e = launch_prep<float, DT, true>(o, dout, lse, delta, nullptr, nullptr, B, Sq, Sq, Hq, d,
+                                   stream);
   if (e != cudaSuccess) return e;
-  const float scale = 1.0f / sqrtf((float)d);
-  const float* q_ = static_cast<const float*>(q);
-  const float* k_ = static_cast<const float*>(k);
-  const float* v_ = static_cast<const float*>(v);
-  const float* do_ = static_cast<const float*>(dout);
-  float* dq_ = static_cast<float*>(dq);
-  float* dk_ = static_cast<float*>(dk);
-  float* dv_ = static_cast<float*>(dv);
-  const dim3 kv_grid((Sk + kF32Keys - 1) / kF32Keys, Hkv, B);
-  const dim3 q_grid((Sq + kF32Keys - 1) / kF32Keys, Hq, B);
-  constexpr size_t bytes = f32_smem_bytes<D>();
-  if constexpr (kRt)
-    flash_bwd_dkdv_f32_rt_kernel<D><<<kv_grid, kF32Threads, bytes, stream>>>(
-        q_, k_, v_, do_, lse, delta, dk_, dv_, Sq, Sk, Hq, Hkv, scale, causal, d);
-  else
-    flash_bwd_dkdv_f32_kernel<D><<<kv_grid, kF32Threads, bytes, stream>>>(
-        q_, k_, v_, do_, lse, delta, dk_, dv_, Sq, Sk, Hq, Hkv, scale, causal);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  if constexpr (kRt)
-    flash_bwd_dq_f32_rt_kernel<D><<<q_grid, kF32Threads, bytes, stream>>>(
-        q_, k_, v_, do_, lse, delta, dq_, Sq, Sk, Hq, Hkv, scale, causal, d);
-  else
-    flash_bwd_dq_f32_kernel<D><<<q_grid, kF32Threads, bytes, stream>>>(
-        q_, k_, v_, do_, lse, delta, dq_, Sq, Sk, Hq, Hkv, scale, causal);
+  const int n_kv = B * Hkv * ((Sk + f32_keys<DT>() - 1) / f32_keys<DT>());
+  const int n_q = B * Hq * ((Sq + kF32Rows - 1) / kF32Rows);
+  flash_bwd_f32_kernel<DT><<<n_kv + n_q, kF32GroupThreads * f32_groups<DT>(),
+                             F32Smem<DT>::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), B, Sq, Sk, Hq, Hkv,
+      1.0f / sqrtf((float)d), causal, d, n_kv);
   return cudaGetLastError();
 }
 
@@ -1114,13 +1340,12 @@ inline int q_rows_of(int DT) { return DT >= 128 ? q_rows<128>() : q_rows<64>(); 
 // f32 [B, Hq, Sq] from the forward. block_k and block_q are the bf16
 // kernel's tiles (keys, query rows) as the caller sized its scratch; a pair
 // this library does not use at D is refused. Scratch, all f32: bf16 takes
-// delta and lse_log2 [B, Hq, Sq_pad] and dq_accum [B, Hq, Sq_pad, D] with
-// Sq_pad = Sq rounded up to block_q; float32 takes delta [B, Hq, Sq] and
-// null for the other two. hsplit: blocks that share a KV head's query
-// heads, a divisor of Hq / Hkv; above 1 only for a bf16 head dim without
-// an instance of its own (not 16, 32, 64, 128), with dkv_accum f32
-// [2, B, Sk, Hkv, D] (else null). Returns the cudaError_t of the first
-// launch that failed, else of the last.
+// delta and lse_log2 [B, Hq, Sq_pad] and dq_accum of B Hq Sq_pad D floats
+// (tile-major, dq_block_offset) with Sq_pad = Sq rounded up to block_q; float32 takes delta [B, Hq, Sq] and null for the other
+// two. hsplit: blocks that share a KV head's query heads, a divisor of
+// Hq / Hkv; above 1 only in bf16, with dkv_accum f32 [hsplit, 2, B, Sk,
+// Hkv, D] (else null). Returns the cudaError_t of the first launch that
+// failed, else of the last.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* o, const void* dout, const void* lse,
                                       void* delta, void* lse_log2, void* dq_accum, void* dq,
@@ -1128,11 +1353,10 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
                                       int Hkv, int D, int causal, int dtype, int block_k,
                                       int block_q, void* dkv_accum, int hsplit,
                                       void* stream) {
-  const bool exact = D == 16 || D == 32 || D == 64 || D == 128;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D < 8 || D > 256 ||
       D % 8 != 0 || (dtype != 0 && dtype != 1) || block_k != keys_of(tile_of(D)) ||
       block_q != q_rows_of(tile_of(D)) || hsplit < 1 || (Hq / Hkv) % hsplit != 0 ||
-      (hsplit > 1 && (dtype != 1 || exact || dkv_accum == nullptr)))
+      (hsplit > 1 && (dtype != 1 || dkv_accum == nullptr)))
     return (int)cudaErrorInvalidValue;
   float* dkv = static_cast<float*>(dkv_accum);
   if (dtype == 1 && (lse_log2 == nullptr || dq_accum == nullptr))
@@ -1143,19 +1367,12 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   float* l2 = static_cast<float*>(lse_log2);
   float* acc = static_cast<float*>(dq_accum);
   if (dtype == 0) {
-    switch (D) {  // the exact instances
-      case 16: return (int)launch_f32<16, false>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 32: return (int)launch_f32<32, false>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 64: return (int)launch_f32<64, false>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 128: return (int)launch_f32<128, false>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      default: break;
-    }
     switch (tile_of(D)) {
-      case 16: return (int)launch_f32<16, true>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 32: return (int)launch_f32<32, true>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 64: return (int)launch_f32<64, true>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 128: return (int)launch_f32<128, true>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      default: return (int)launch_f32<256, true>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 16: return (int)launch_f32<16>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 32: return (int)launch_f32<32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 64: return (int)launch_f32<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 128: return (int)launch_f32<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      default: return (int)launch_f32<256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, D, s);
     }
   }
   switch (D) {  // the exact instances

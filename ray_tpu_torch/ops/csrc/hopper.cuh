@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads and
-// the tensor-map encoder, register reallocation, named barriers, the
+// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads, bulk
+// reduce-adds and the tensor-map encoder, register reallocation, named barriers, the
 // swizzled wgmma descriptors and the wgmma instructions with bf16 operands
 // and f32 accumulators.
 //
@@ -93,6 +93,33 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       " [%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// Where `pred` holds, adds `bytes` (a multiple of 16) of f32 in shared
+// memory into contiguous global memory, element by element, in the async
+// proxy (the L2 does the adds); both addresses 16-byte aligned. Predicated
+// inside the asm, as mbar_arrive_if is. Tracked by the issuing thread's
+// bulk groups: bulk_commit closes a group, bulk_wait_read<N> returns once
+// at most N groups still read their shared memory (at once for a thread
+// that issued none). The adds are visible to the next kernel on the
+// stream.
+__device__ __forceinline__ void bulk_reduce_add_f32_if(float* dst, uint32_t src, uint32_t bytes,
+                                                       bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n}\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(src), "r"(bytes), "r"((int)pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 template <int N>

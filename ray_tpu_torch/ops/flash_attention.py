@@ -13,10 +13,12 @@ the logsumexp of each row, its backward launches the backward kernel
 (`csrc/flash_attention_bwd.cu`) on CUDA tensors and runs the plain
 `_reference_flash_attention_backward` on CPU tensors. Under
 `torch.no_grad()` no logsumexp is computed. The bf16 backward adds dq
-through f32 atomics, so its last bit may differ between two calls on the
-same inputs; dk and dv do not, except at a runtime width whose blocks
-share a KV head's query heads (`bwd_head_split`), where they are summed
-the same way.
+through f32 bulk reduce-adds in the L2, in an order that changes from run
+to run, so its last bit may differ between two calls on the same inputs;
+dk and dv do not (where blocks share a KV head's query heads,
+`bwd_head_split`, their partial sums are added in a fixed order). The
+f32 backward sums everything in a fixed order: dq, dk and dv are bitwise
+repeatable.
 
 Head dims: every multiple of 8 from 8 to 256 (the JAX package's Pallas
 kernel takes any D); the kernels' instances and tiles are named by
@@ -53,14 +55,13 @@ def kernel_tile(d: int) -> int:
 
 def bwd_head_split(b: int, sk: int, hq: int, hkv: int, d: int,
                    sms: int) -> int:
-    """Blocks that share one KV head's query heads in the bf16 backward's
-    runtime-width instances (head dims without an instance of their own):
-    the least divisor of Hq / Hkv that brings the grid (KV heads x B x key
-    tiles) to the card's `sms` multiprocessors, or all of them; 1 at the
-    exact head dims. With few KV heads (Gemma's one) a block per key tile
-    leaves most of the card idle."""
-    if d in EXACT_HEAD_DIMS:
-        return 1
+    """Blocks that share one KV head's query heads in the bf16 backward: the
+    least divisor of Hq / Hkv that brings the grid (KV heads x B x key
+    tiles) to the card's `sms` multiprocessors, or all of them. With few KV
+    heads (GQA, Gemma's one) a block per key tile leaves most of the card
+    idle. Each block of a split writes its dK and dV partial to a slot of
+    an f32 scratch, and the slots are added in order, so dk and dv stay
+    bitwise repeatable."""
     rep = hq // hkv
     blocks = hkv * b * -(-sk // BWD_TILES[d][0])
     return next((h for h in range(1, rep + 1)
@@ -232,11 +233,12 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse,
         rows = -(-sq // block_q) * block_q
         delta = torch.empty(b, hq, rows, **f32)
         lse_log2 = torch.empty(b, hq, rows, **f32)
-        dq_accum = torch.empty(b, hq, rows, d, **f32)
+        # tile-major (flash_attention_bwd.cu, dq_block_offset)
+        dq_accum = torch.empty(b * hq * rows * d, **f32)
         hsplit = bwd_head_split(b, sk, hq, hkv, d, torch.cuda.get_device_properties(
             q.device).multi_processor_count)
-        if hsplit > 1:  # the shared KV heads' dK and dV sums
-            dkv_accum = torch.empty(2, b, sk, hkv, d, **f32)
+        if hsplit > 1:  # a slot of dK and dV partials per share
+            dkv_accum = torch.empty(hsplit, 2, b, sk, hkv, d, **f32)
     else:
         delta, lse_log2, dq_accum = torch.empty(b, hq, sq, **f32), None, None
     with torch.cuda.device(q.device):

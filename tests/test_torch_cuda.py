@@ -329,9 +329,11 @@ def _backward_case(gen, b, sq, sk, hq, hkv, d, causal, dtype=torch.bfloat16):
 
 
 def test_flash_backward_kernel_repeats(gen):
-    """Two calls on the same inputs: dq is a sum of f32 atomics in an order
-    that changes from run to run, so the two agree within the tolerance and
-    each matches the plain backward; dk and dv are bitwise equal."""
+    """Two calls on the same inputs: dq is a sum of f32 bulk reduce-adds in
+    an order that changes from run to run, so the two agree within the
+    tolerance and each matches the plain backward; dk and dv are bitwise
+    equal (four blocks share each KV head here, their slots summed in
+    order)."""
     args = _backward_case(gen, 2, 300, 300, 8, 2, 64, True)
     first = flash_attention_backward_cuda(*args, True)
     second = flash_attention_backward_cuda(*args, True)
@@ -340,6 +342,42 @@ def test_flash_backward_kernel_repeats(gen):
         _check(a, r, torch.bfloat16)
         _check(c, r, torch.bfloat16)
         _check(a, c, torch.bfloat16)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.parametrize("b,s,h,d", [
+    (1, 256, 4, 64),   # phase 2's f32 row
+    (2, 256, 4, 8),    # the tile of 16 at D8
+    (8, 32, 8, 16),    # the dryrun's training shape
+])
+def test_flash_backward_f32_is_bitwise_repeatable(gen, b, s, h, d):
+    """The f32 backward sums in a fixed order (no atomics): two calls on
+    the same inputs give bitwise equal dq, dk and dv, each within 1e-4 of
+    the plain backward."""
+    args = _backward_case(gen, b, s, s, h, h, d, True, dtype=torch.float32)
+    first = flash_attention_backward_cuda(*args, True)
+    second = flash_attention_backward_cuda(*args, True)
+    refs = _reference_flash_attention_backward(*args, True)
+    for a, c, r in zip(first, second, refs):
+        _check(a, r, torch.float32)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_backward_gqa_head_split_at_exact_widths(gen, d):
+    """Phase 2's GQA row (B2 Hq16 Hkv4 Sq512 < Sk1024, causal) at each
+    exact width: the blocks share each KV head's query heads
+    (bwd_head_split > 1), the result matches the plain backward and dk and
+    dv are bitwise repeatable."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert bwd_head_split(2, 1024, 16, 4, d, sms) > 1
+    args = _backward_case(gen, 2, 512, 1024, 16, 4, d, True)
+    first = flash_attention_backward_cuda(*args, True)
+    second = flash_attention_backward_cuda(*args, True)
+    refs = _reference_flash_attention_backward(*args, True)
+    for a, c, r in zip(first, second, refs):
+        _check(a, r, torch.bfloat16)
+        _check(c, r, torch.bfloat16)
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
 
 
@@ -672,7 +710,7 @@ def test_flash_kernels_match_plain_at_narrow_heads(gen, dtype, b, sq, sk, hq,
 
 def test_flash_backward_kernel_repeats_at_narrow_heads(gen):
     """dk and dv stay bitwise repeatable at D = 16 and 32; dq (f32
-    atomics) within the tolerance."""
+    reduce-adds) within the tolerance."""
     for d in (16, 32):
         args = _backward_case(gen, 2, 300, 300, 8, 2, d, True)
         first = flash_attention_backward_cuda(*args, True)
@@ -815,9 +853,9 @@ def test_flash_kernels_match_plain_at_every_width(gen, dtype, b, sq, sk, hq,
 def test_flash_backward_kernel_repeats_at_every_width(gen):
     """D = 8, 80, 96 and 256 run runtime-width backward instances. At
     B2 S300 Hq8 Hkv2 their few blocks share each KV head's query heads
-    (bwd_head_split > 1) and sum dk and dv with f32 atomics, so two calls
-    agree within the tolerance, as dq does everywhere; at B4 S1024 H8 the
-    grid is full without sharing, and dk and dv are bitwise repeatable."""
+    (bwd_head_split > 1), at B4 S1024 H8 the grid is full without sharing;
+    dk and dv are bitwise repeatable either way (the shares' slots are
+    summed in order), dq within the tolerance."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for d in (8, 80, 96, 256):
         for b, s, hq, hkv in ((2, 300, 8, 2), (4, 1024, 8, 8)):
@@ -830,6 +868,5 @@ def test_flash_backward_kernel_repeats_at_every_width(gen):
             for a, c, r in zip(first, second, refs):
                 _check(a, r, torch.bfloat16)
                 _check(a, c, torch.bfloat16)
-            if split == 1:
-                assert torch.equal(first[1], second[1])
-                assert torch.equal(first[2], second[2])
+            assert torch.equal(first[1], second[1])
+            assert torch.equal(first[2], second[2])

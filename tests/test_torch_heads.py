@@ -191,21 +191,24 @@ def test_split_plan_at_narrow_heads(d, elem, b, hq, kv, s, lengths):
     (2, 2048, 8, 1, 256, 4),    # Gemma's MQA: 64 key tiles x 4 = 256 blocks
     (1, 200, 8, 1, 256, 8),     # every query head its own block
     (2, 2048, 16, 16, 40, 1),   # enough KV heads already
-    (2, 2048, 8, 1, 64, 1),     # an instance of its own: never split
+    (2, 2048, 8, 1, 64, 8),     # an exact width: 32 blocks x 8 = 256
     (2, 2048, 32, 8, 96, 1),    # Phi-3-mini's width, GQA: 256 blocks already
     (4, 2048, 8, 1, 80, 4),     # Phi-2's width runs the tile of 128
     (2, 300, 8, 2, 8, 4),
+    (2, 300, 8, 2, 16, 4),      # exact D16: 12 blocks, every query head its own
+    (4, 1024, 16, 16, 32, 1),   # exact D32 at the training heads: 512 blocks
+    (2, 1024, 16, 4, 128, 4),   # exact D128 GQA: 64 blocks x 4 = 256
+    (2, 1024, 16, 4, 64, 4),    # phase 2's GQA row: 64 blocks x 4 = 256
 ])
 def test_backward_head_split_fills_the_card(b, sk, hq, hkv, d, want):
     """bwd_head_split: the least divisor of Hq / Hkv that gives the bf16
-    backward at least a block per multiprocessor (an H100's 132), only at
-    runtime widths."""
+    backward at least a block per multiprocessor (an H100's 132), or all of
+    them, at every width."""
     sms = 132
     split = flash_mod.bwd_head_split(b, sk, hq, hkv, d, sms)
     assert split == want and (hq // hkv) % split == 0
     blocks = hkv * b * -(-sk // flash_mod.BWD_TILES[d][0])
-    assert blocks * split >= sms or split == hq // hkv \
-        or d in flash_mod.EXACT_HEAD_DIMS
+    assert blocks * split >= sms or split == hq // hkv
 
 
 @pytest.mark.parametrize("d", [12, 264])

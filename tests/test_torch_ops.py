@@ -40,8 +40,8 @@ from ray_tpu_torch.ops.decode_attention import (MERGE_FANIN, TILES,
                                                 split_plan, stage_rows)
 from ray_tpu_torch.ops.flash_attention import (
     BWD_TILES, _FlashAttention, _reference_flash_attention_backward,
-    _reference_flash_attention_lse, flash_attention_backward_cuda,
-    flash_attention_cuda)
+    _reference_flash_attention_lse, bwd_head_split, flash_attention_backward_cuda,
+    flash_attention_cuda, kernel_tile)
 
 TOL = 2e-5
 
@@ -323,19 +323,68 @@ def test_kernel_argtypes_match_the_c_entry_point(kernel):
             assert argtype is ctypes.c_int, decl
 
 
-def _flash_backward_mirror(q, k, v, out, dout, lse, causal):
+def _dq_block_offset():
+    """The bf16 kernel's tile-major dQ layout, read from its source
+    (`dq_block_offset` in flash_attention_bwd.cu): a function of the row
+    r < 64 and column c of a block."""
+    src = (kernels.CSRC / "flash_attention_bwd.cu").read_text()
+    body = re.search(r"constexpr int dq_block_offset\(int r, int c\) \{\s*"
+                     r"return ([^;]+);", src).group(1)
+    return eval("lambda r, c: " + " ".join(body.split()).replace(" / ", " // "))
+
+
+def _dq_accum_index(b, hq, rows, d):
+    """Index into the flat tile-major dQ accumulator (B Hq rows d floats:
+    for each 64 rows, blocks of 64 columns, the last d - 64 cb wide) of
+    each (b, h, row, column)."""
+    off = _dq_block_offset()
+    bi, h, i, c = np.meshgrid(np.arange(b), np.arange(hq), np.arange(rows),
+                              np.arange(d), indexing="ij")
+    idx = ((bi * hq + h) * rows + i - i % 64) * d + (c // 64) * 4096 \
+        + off(i % 64, c % 64)
+    assert sorted(idx.ravel().tolist()) == list(range(b * hq * rows * d))
+    return torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize("w", [8, 16, 32, 40, 64])
+def test_dq_accumulator_layout_is_a_block_permutation(w):
+    """The first W columns of a block of the tile-major dQ accumulator are a
+    permutation of its first 64 W floats (so a block cut at the head dim
+    is one contiguous span), in the order a warpgroup's wgmma accumulator
+    holds it (pair p of thread tid at 256 p + 2 tid), and 8 columns from a
+    multiple of 8 lie in 8 consecutive floats (the convert's two 16-byte
+    loads)."""
+    off = _dq_block_offset()
+    r, c = np.meshgrid(np.arange(64), np.arange(w), indexing="ij")
+    flat = off(r, c)
+    assert sorted(flat.ravel().tolist()) == list(range(64 * w))
+    for tid in range(128):  # warp tid // 32, lane 4 g + t
+        wp, g, t = tid // 32, tid % 32 // 4, tid % 4
+        for reg in range(w // 2):  # 4 j + 2 hh + e
+            j, hh, e = reg // 4, reg // 2 % 2, reg % 2
+            row, col = 16 * wp + g + 8 * hh, 8 * j + 2 * t + e
+            assert off(row, col) == reg // 2 * 256 + 2 * tid + e
+    starts = flat[:, ::8]
+    assert np.array_equal(flat.reshape(64, w // 8, 8) - starts[..., None],
+                          np.broadcast_to(np.arange(8), (64, w // 8, 8)))
+
+
+def _flash_backward_mirror(q, k, v, out, dout, lse, causal, hsplit=1):
     """The bf16 backward kernel's schedule in plain torch: one block per
-    (key tile, KV head, batch) walks the KV head's query heads and, for
-    each, the query tiles from the first that sees its first key; per tile
-    pair S^T, P^T = exp2(S^T scale log2 e - lse log2 e), dP^T and dS^T (P
-    and dS rounded to q's dtype as the kernel's operands are), dV and dK
-    summed in the block, dQ summed across blocks in an f32 accumulator of
-    padded rows; dq, dk, dv cast once. Rows and keys past the tensors are
-    zeros, as TMA fills them; rows past Sq or without a visible key have
-    lse +inf."""
+    (share of a KV head's query heads, KV head, batch, key tile) walks its
+    share's hsplit-th of the query heads and, for each, the query tiles
+    from the first that sees its first key; per tile pair S^T,
+    P^T = exp2(S^T scale log2 e - lse log2 e), dP^T and dS^T (P and dS
+    rounded to q's dtype as the kernel's operands are), dV and dK summed in
+    the block and written to its share's slot, the slots summed in order;
+    dQ summed across blocks into the tile-major f32 accumulator
+    (`_dq_accum_index`) of padded rows and read back out of it; dq, dk, dv
+    cast once. Rows and keys past the tensors are zeros, as TMA fills them;
+    rows past Sq or without a visible key have lse +inf."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep, off, scale = hq // hkv, sk - sq, d ** -0.5
+    rep_blk = rep // hsplit
     block_k, block_q = BWD_TILES[d]
     rows = -(-sq // block_q) * block_q
     log2e = float(np.log2(np.e))
@@ -354,16 +403,18 @@ def _flash_backward_mirror(q, k, v, out, dout, lse, causal):
                              out.float()).transpose(1, 2), rows).transpose(1, 2)
     lse2 = torch.where(torch.isfinite(lse), lse * log2e, float("inf"))
     lse2 = pad(lse2.transpose(1, 2), rows, float("inf")).transpose(1, 2)
-    dq_acc = torch.zeros(b, hq, rows, d)
-    dk, dv = torch.zeros(b, sk, hkv, d), torch.zeros(b, sk, hkv, d)
-    for bi, hk, k0 in itertools.product(range(b), range(hkv),
-                                        range(0, sk, block_k)):
+    acc_index = _dq_accum_index(b, hq, rows, d)
+    dq_acc = torch.zeros(b * hq * rows * d)
+    slots = torch.zeros(hsplit, 2, b, sk, hkv, d)
+    for share, bi, hk, k0 in itertools.product(
+            range(hsplit), range(b), range(hkv), range(0, sk, block_k)):
         kt, vt = kp[bi, k0:k0 + block_k, hk], vp[bi, k0:k0 + block_k, hk]
         key = torch.arange(k0, k0 + block_k)[:, None]
         dk_t, dv_t = torch.zeros(block_k, d), torch.zeros(block_k, d)
         first = max(0, k0 - off) // block_q * block_q if causal else 0
-        for h, q0 in itertools.product(range(hk * rep, (hk + 1) * rep),
-                                       range(first, rows, block_q)):
+        heads = range(hk * rep + share * rep_blk,
+                      hk * rep + (share + 1) * rep_blk)
+        for h, q0 in itertools.product(heads, range(first, rows, block_q)):
             tile = slice(q0, q0 + block_q)
             qt, dot = qp[bi, tile, h], dop[bi, tile, h]
             hidden = (key >= sk).expand(block_k, block_q)
@@ -375,12 +426,16 @@ def _flash_backward_mirror(q, k, v, out, dout, lse, causal):
             p_t, ds_t = rounded(p_t), rounded(ds_t)
             dv_t += p_t @ dot
             dk_t += ds_t @ qt
-            dq_acc[bi, h, tile] += ds_t.T @ kt
+            dq_acc.index_add_(0, acc_index[bi, h, tile].reshape(-1),
+                              (ds_t.T @ kt).reshape(-1))
         n = min(block_k, sk - k0)
-        dk[bi, k0:k0 + n, hk] = dk_t[:n] * scale
-        dv[bi, k0:k0 + n, hk] = dv_t[:n]
-    dq = (dq_acc[:, :, :sq] * scale).transpose(1, 2)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+        slots[share, 0, bi, k0:k0 + n, hk] = dk_t[:n] * scale
+        slots[share, 1, bi, k0:k0 + n, hk] = dv_t[:n]
+    dkv = slots[0].clone()
+    for share in range(1, hsplit):  # the convert's fixed order
+        dkv += slots[share]
+    dq = (dq_acc[acc_index[:, :, :sq]] * scale).transpose(1, 2)
+    return dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype)
 
 
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
@@ -389,18 +444,22 @@ def _flash_backward_mirror(q, k, v, out, dout, lse, causal):
     (2, 129, 129, 2, 1, 64, True),     # ragged: one key and one row past a tile
     (1, 60, 255, 2, 2, 64, False),     # ragged Sk = 255
     (1, 150, 150, 4, 1, 128, True),    # D=128: 64-row query tiles, rep 4
+    (1, 100, 140, 4, 2, 40, True),     # runtime width in the tile of 64
 ])
 def test_flash_backward_schedule_matches_jax(b, sq, sk, hq, hkv, d, causal):
-    """The kernel's block schedule (tiles from BWD_TILES), mirrored in plain
-    torch, equals jax.vjp of `_xla_attention` and the plain backward in f32
-    within 1e-5."""
+    """The kernel's block schedule (tiles from BWD_TILES, the head split
+    bwd_head_split picks for an H100's 132 multiprocessors, > 1 at the
+    GQA cases), mirrored in plain torch, equals jax.vjp of `_xla_attention`
+    and the plain backward in f32 within 1e-5."""
     rng = np.random.RandomState(10)
     q, dout = _randn(rng, b, sq, hq, d), _randn(rng, b, sq, hq, d)
     k, v = _randn(rng, b, sk, hkv, d), _randn(rng, b, sk, hkv, d)
     _, ref = _jax_attention_vjp(q, k, v, dout, causal)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
     out, lse = _reference_flash_attention_lse(tq, tk, tv, causal)
-    mirror = _flash_backward_mirror(tq, tk, tv, out, tdo, lse, causal)
+    hsplit = bwd_head_split(b, sk, hq, hkv, d, 132)
+    assert (hsplit > 1) == (hq > hkv)
+    mirror = _flash_backward_mirror(tq, tk, tv, out, tdo, lse, causal, hsplit)
     plain = _reference_flash_attention_backward(tq, tk, tv, out, tdo, lse,
                                                 causal)
     for g, p, r in zip(mirror, plain, ref):
@@ -422,6 +481,134 @@ def test_flash_backward_schedule_rows_without_keys():
     assert torch.all(mirror[0][:, :100] == 0)
     for g, p in zip(mirror, plain):
         assert torch.isfinite(g).all()
+        _close(g, p, tol=1e-5)
+
+
+def _flash_backward_f32_mirror(q, k, v, out, dout, lse, causal):
+    """The f32 backward kernel's tiling in plain torch (flash_attention_bwd.cu,
+    f32 path): 32-row query tiles and key tiles of 32 keys (16 at the tile
+    of 256); KV blocks (key tile, KV head, batch) whose groups (4 at tiles
+    up to 64, 2 at 128, 1 at 256) take the block's (query head, query tile)
+    items in turn, group g the items g, g + G, ..., and Q blocks (query tile,
+    query head, batch) whose groups take its key tiles the same way; each
+    recomputes P and dS of its tile pairs; the groups' sums are added in
+    group order; no sum crosses blocks."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep, off, scale = hq // hkv, sk - sq, d ** -0.5
+    dt = kernel_tile(d)
+    kk, rows = (16 if dt == 256 else 32), 32
+    groups = 4 if dt <= 64 else 2 if dt == 128 else 1
+    nq, nk = -(-sq // rows), -(-sk // kk)
+
+    def pad(t, n):  # along dim 1
+        return torch.cat([t, t.new_zeros(t.shape[0], n - t.shape[1],
+                                          *t.shape[2:])], dim=1)
+
+    qp, dop = pad(q, nq * rows), pad(dout, nq * rows)
+    kp, vp = pad(k, nk * kk), pad(v, nk * kk)
+    delta = torch.einsum("bqhd,bqhd->bhq", dout, out)
+    lse_p = pad(lse.transpose(1, 2), nq * rows).transpose(1, 2)
+    delta_p = pad(delta.transpose(1, 2), nq * rows).transpose(1, 2)
+
+    def pair(bi, h, q0, k0):
+        qt, dot = qp[bi, q0:q0 + rows, h], dop[bi, q0:q0 + rows, h]
+        kt, vt = kp[bi, k0:k0 + kk, h // rep], vp[bi, k0:k0 + kk, h // rep]
+        i = torch.arange(q0, q0 + rows)[:, None]
+        j = torch.arange(k0, k0 + kk)[None]
+        lse_i = lse_p[bi, h, q0:q0 + rows, None]
+        vis = (i < sq) & (j < sk) & torch.isfinite(lse_i)
+        if causal:
+            vis = vis & (j <= i + off)
+        p = torch.where(vis, torch.exp((qt @ kt.T) * scale - lse_i), 0.0)
+        ds = p * (dot @ vt.T - delta_p[bi, h, q0:q0 + rows, None])
+        return p, ds, qt, dot, kt
+
+    def in_group_order(items, step):
+        parts = []
+        for g in range(groups):
+            part = None
+            for item in items[g::groups]:
+                term = step(item)
+                part = term if part is None else tuple(
+                    a + t for a, t in zip(part, term))
+            parts.append(part)
+        total = None
+        for part in parts:
+            if part is not None:
+                total = part if total is None else tuple(
+                    a + t for a, t in zip(total, part))
+        return total
+
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    for kt_i, bi, hk in itertools.product(range(nk), range(b), range(hkv)):
+        k0 = kt_i * kk
+        first = max(0, k0 - off) // rows if causal else 0
+        items = [(h, m) for h in range(hk * rep, (hk + 1) * rep)
+                 for m in range(first, nq)]
+
+        def kv_step(item, k0=k0, bi=bi):
+            p, ds, qt, dot, _ = pair(bi, item[0], item[1] * rows, k0)
+            return ds.T @ qt, p.T @ dot
+
+        total = in_group_order(items, kv_step)
+        n = min(kk, sk - k0)
+        if total is not None:
+            dk[bi, k0:k0 + n, hk] = total[0][:n] * scale
+            dv[bi, k0:k0 + n, hk] = total[1][:n]
+    for qt_i, bi, h in itertools.product(range(nq), range(b), range(hq)):
+        q0 = qt_i * rows
+        k_end = max(0, min(sk, min(q0 + rows, sq) + off)) if causal else sk
+
+        def q_step(n, q0=q0, bi=bi, h=h):
+            _, ds, _, _, kt = pair(bi, h, q0, n * kk)
+            return (ds @ kt,)
+
+        total = in_group_order(list(range(-(-k_end // kk))), q_step)
+        n = min(rows, sq - q0)
+        if total is not None:
+            dq[bi, q0:q0 + n, h] = total[0][:n] * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
+    (1, 256, 256, 4, 4, 64, True),     # phase 2's f32 row, at its shape
+    (2, 130, 130, 4, 4, 8, True),      # D=8 (the tile of 16), ragged
+    (2, 32, 32, 4, 4, 16, True),       # the dryrun's D=16, one tile pair
+    (1, 70, 150, 4, 2, 16, True),      # GQA, Sq < Sk
+    (1, 100, 100, 8, 1, 64, False),    # MQA rep 8: two groups per head
+])
+def test_flash_backward_f32_tiling_matches_jax(b, sq, sk, hq, hkv, d, causal):
+    """The f32 kernel's tiling (KV and Q blocks, groups taking tiles in
+    turn, sums in group order), mirrored in plain torch, equals jax.vjp of
+    `_xla_attention` and the plain backward within 1e-5."""
+    rng = np.random.RandomState(12)
+    q, dout = _randn(rng, b, sq, hq, d), _randn(rng, b, sq, hq, d)
+    k, v = _randn(rng, b, sk, hkv, d), _randn(rng, b, sk, hkv, d)
+    _, ref = _jax_attention_vjp(q, k, v, dout, causal)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = _reference_flash_attention_lse(tq, tk, tv, causal)
+    mirror = _flash_backward_f32_mirror(tq, tk, tv, out, tdo, lse, causal)
+    plain = _reference_flash_attention_backward(tq, tk, tv, out, tdo, lse,
+                                                causal)
+    for g, p, r in zip(mirror, plain, ref):
+        _close(g, r, tol=1e-5)
+        _close(g, p, tol=1e-5)
+
+
+def test_flash_backward_f32_tiling_rows_without_keys():
+    """Causal Sq > Sk in the f32 tiling: rows without a key get dq = 0 and
+    the rest equals the plain backward."""
+    rng = np.random.RandomState(13)
+    q, dout = _randn(rng, 1, 90, 2, 16), _randn(rng, 1, 90, 2, 16)
+    k, v = _randn(rng, 1, 40, 2, 16), _randn(rng, 1, 40, 2, 16)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = _reference_flash_attention_lse(tq, tk, tv, True)
+    mirror = _flash_backward_f32_mirror(tq, tk, tv, out, tdo, lse, True)
+    plain = _reference_flash_attention_backward(tq, tk, tv, out, tdo, lse,
+                                                True)
+    assert torch.all(mirror[0][:, :50] == 0)
+    for g, p in zip(mirror, plain):
         _close(g, p, tol=1e-5)
 
 

@@ -310,8 +310,10 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
 
 
 def _port_sources() -> list:
+    """The port's modules and the scripts that drive it on the card
+    (chip_smoke.py and the probes)."""
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files.extend(sorted(REPO.glob("chip_*.py")))
     return files
 
 
