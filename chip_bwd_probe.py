@@ -2,7 +2,7 @@
 """Where the flash-attention backward's time goes, on one NVIDIA GPU.
 
     python3 chip_bwd_probe.py
-    python3 chip_bwd_probe.py --rows [--tree DIR]
+    python3 chip_bwd_probe.py --rows [--parent DIR]
 
 from the root of a checkout (builds into build/ray_tpu_torch/probe/).
 
@@ -16,9 +16,11 @@ results are then wrong: timing only), and with a two-stage Q / dO ring.
 
 With --rows, every backward row of PERF.md's kernel table (chip_smoke.py's
 BWD_TABLE), each held to the plain backward and timed like phase 2, one
-JSON line a row, using the ray_tpu_torch of the checkout DIR (default:
-this one) and building only its flash kernels: so two checkouts can be
-timed in turns in one call on one card.
+JSON line a row; with --parent DIR (chip_rows.py) the checkout DIR's two
+flash sources are built too, their ptxas lines printed beside this
+build's, and DIR's backward is held to the same checks and timed in turns
+with this one in one call on one card (both take this checkout's forward's
+output and logsumexp).
 
 It imports nothing of JAX and exits 1 without CUDA.
 """
@@ -26,14 +28,13 @@ It imports nothing of JAX and exits 1 without CUDA.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib
 import json
 import os
 import statistics
 import sys
 
-from chip_decode_probe import _build, _smi, _smoke
+import chip_rows
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PROBE_ROWS = ("backward B4 S1024 H16 D64 bf16 causal",
@@ -52,19 +53,6 @@ VARIANTS = {
 }
 
 
-def _kernel_from(handle, kernels):
-    """A Kernel whose launches go to `handle`'s rt_flash_attention_bwd."""
-    kernel = kernels.Kernel("flash_attention_bwd", "flash_attention_bwd.cu",
-                            "rt_flash_attention_bwd",
-                            kernels.FLASH_ATTENTION_BWD.argtypes)
-    kernel._fn = handle.rt_flash_attention_bwd
-    kernel._fn.argtypes, kernel._fn.restype = kernel.argtypes, ctypes.c_int
-    kernel._err = handle.rt_flash_attention_bwd_error
-    kernel._err.argtypes, kernel._err.restype = [ctypes.c_int], \
-        ctypes.c_char_p
-    return kernel
-
-
 def _inputs(row, gen):
     import torch
 
@@ -80,47 +68,32 @@ def _inputs(row, gen):
     return q, k, v, out, dout, lse, causal
 
 
-def rows(tree: str) -> int:
-    """--rows: every backward row of the table through `tree`'s kernel."""
-    import torch
+def _row(smoke, fa, row, gen, flush, versions) -> dict:
+    """--rows: one backward row, held to the plain backward and timed."""
+    args = _inputs(row, gen)
+    refs = fa._reference_flash_attention_backward(*args)
 
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    smoke = _smoke()
-    from ray_tpu_torch._private import kernels
-    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
-    if not fa.__file__.startswith(tree):
-        raise SystemExit(f"ray_tpu_torch came from {fa.__file__}, not {tree}")
-    for k in (kernels.FLASH_ATTENTION, kernels.FLASH_ATTENTION_BWD):
-        k._load()
-    print(_smi(), flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for name, row in smoke.BWD_TABLE.items():
-        args = _inputs(row, gen)
+    def call():
+        return fa.flash_attention_backward_cuda(*args)
 
-        def call():
-            return fa.flash_attention_backward_cuda(*args)
+    def err():
+        return max(smoke._max_err(g, r, row[6])
+                   for g, r in zip(call(), refs))
 
-        grads, refs = call(), fa._reference_flash_attention_backward(*args)
-        err = max(smoke._max_err(g, r, row[6]) for g, r in zip(grads, refs))
-        print("row " + json.dumps({
-            "tree": tree, "case": name, "max_abs_err": err,
-            "ms": smoke._timed_ms(call, flush)}), flush=True)
-        del args, grads, refs
-    return 0
+    return {**versions.both("max_abs_err", err),
+            **versions.timed(smoke, call, flush)}
 
 
 def probe() -> int:
     import torch
 
     sys.path.insert(0, REPO)
-    smoke = _smoke()
+    smoke = chip_rows.smoke()
     from ray_tpu_torch._private import kernels
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     for k in (kernels.FLASH_ATTENTION, kernels.FLASH_ATTENTION_BWD):
         k._load()
-    print(_smi(), flush=True)
+    print(chip_rows.smi(), flush=True)
     shipped = kernels.FLASH_ATTENTION_BWD
     source = (kernels.CSRC / "flash_attention_bwd.cu").read_text()
     sources = {}
@@ -131,8 +104,8 @@ def probe() -> int:
                 raise SystemExit(f"variant text not in the kernel: {old!r}")
             src = src.replace(old, new)
         sources[f"bwd_variant{i}"] = src
-    libs = _build(sources, kernels)
-    variants = {name: _kernel_from(libs[f"bwd_variant{i}"], kernels)
+    libs = chip_rows.build(sources, kernels)
+    variants = {name: chip_rows.kernel_from(libs[f"bwd_variant{i}"], shipped)
                 for i, name in enumerate(VARIANTS)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -164,12 +137,18 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rows", action="store_true")
-    parser.add_argument("--tree", default=REPO)
+    parser.add_argument("--parent", default=None,
+                        help="with --rows, a checkout whose kernels are "
+                             "timed in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_bwd_probe: CUDA is not available", file=sys.stderr)
         return 1
-    return rows(args.tree) if args.rows else probe()
+    if args.rows:
+        return chip_rows.rows("ray_tpu_torch.ops.flash_attention",
+                              ("FLASH_ATTENTION", "FLASH_ATTENTION_BWD"),
+                              "BWD_TABLE", _row, args.parent)
+    return probe()
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 """Where the decode kernel's time goes, on one NVIDIA GPU.
 
     python3 chip_decode_probe.py [--plans]
-    python3 chip_decode_probe.py --rows [--tree DIR]
+    python3 chip_decode_probe.py --rows [--parent DIR]
 
 from the root of a checkout (builds into build/ray_tpu_torch/probe/).
 
@@ -31,9 +31,9 @@ Phi-3-mini's rows; a small f32 one), it prints:
 
 With --rows, every decode row of PERF.md's kernel table (chip_smoke.py's
 DECODE_TABLE), each held to the plain version and timed like phase 2,
-with the wrapper's host microseconds per call, one JSON line a row, using
-the ray_tpu_torch of the checkout DIR (default: this one) and building
-only its decode kernel: so two checkouts can be timed in turns in one call
+with the wrapper's host microseconds per call, one JSON line a row; with
+--parent DIR (chip_rows.py) the checkout DIR's decode kernel is built too
+and held to the same checks, and the two are timed in turns in one call
 on one card.
 
 It imports nothing of JAX and exits 1 without CUDA.
@@ -44,14 +44,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib
-import importlib.util
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 import numpy as np
+
+import chip_rows
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PROBE_ROWS = [  # (name in chip_smoke.DECODE_TABLE, with the timeline)
@@ -170,72 +170,6 @@ extern "C" int rt_trace_clear(int n) {
 """
 
 
-def _build(sources: dict, kernels) -> dict:
-    """{name: CDLL} of {name: CUDA source}, one nvcc each, all at once."""
-    out_dir = os.path.join(REPO, "build", "ray_tpu_torch", "probe")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, source in sources.items():
-        src = os.path.join(out_dir, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(source)
-        lib = os.path.join(out_dir, f"{name}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I",
-             str(kernels.CSRC), "-o", lib, src], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed on the probe's {name}:\n{out}")
-        libs[name] = ctypes.CDLL(lib)
-    return libs
-
-
-def _kernel_from(handle, kernels):
-    """A Kernel whose launches go to `handle`'s rt_decode_attention."""
-    kernel = kernels.Kernel("decode_attention", "decode_attention.cu",
-                            "rt_decode_attention",
-                            kernels.DECODE_ATTENTION.argtypes)
-    kernel._fn = handle.rt_decode_attention
-    kernel._fn.argtypes, kernel._fn.restype = kernel.argtypes, ctypes.c_int
-    kernel._err = handle.rt_decode_attention_error
-    kernel._err.argtypes, kernel._err.restype = [ctypes.c_int], \
-        ctypes.c_char_p
-    return kernel
-
-
-def _patched(kernels, edits) -> str:
-    src = (kernels.CSRC / "decode_attention.cu").read_text()
-    for anchor, text, where in edits:
-        if anchor not in src:
-            raise SystemExit(f"anchor not in the kernel: {anchor!r}")
-        if where == "before":
-            src = src.replace(anchor, text + anchor)
-        elif where == "after":
-            src = src.replace(anchor, anchor + text)
-        else:  # "inside": after the anchor's first line
-            head, tail = anchor.split("\n", 1)
-            src = src.replace(anchor, f"{head}\n{text}{tail}")
-    return src
-
-
-def _smoke():
-    """chip_smoke.py of this checkout (its decode table and timers)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_probe", os.path.join(REPO, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _smi() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-
-
 def _inputs(row, gen):
     import torch
 
@@ -248,45 +182,30 @@ def _inputs(row, gen):
     return q, k, v, lens
 
 
-def rows(tree: str) -> int:
-    """--rows: every decode row of the table through `tree`'s kernel."""
-    import torch
+def _row(smoke, da, row, gen, flush, versions) -> dict:
+    """--rows: one decode row, held to the plain version and timed."""
+    q, k, v, lens = _inputs(row, gen)
+    ref = da._reference_decode_attention(q, k, v, lens)
 
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    smoke = _smoke()
-    from ray_tpu_torch._private import kernels
-    da = importlib.import_module("ray_tpu_torch.ops.decode_attention")
-    if not da.__file__.startswith(tree):
-        raise SystemExit(f"ray_tpu_torch came from {da.__file__}, not {tree}")
-    kernels.DECODE_ATTENTION._load()
-    print(_smi(), flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for name, row in smoke.DECODE_TABLE.items():
-        q, k, v, lens = _inputs(row, gen)
+    def call():
+        return da.decode_attention_cuda(q, k, v, lens)
 
-        def call():
-            return da.decode_attention_cuda(q, k, v, lens)
-
-        err = smoke._max_err(call(), da._reference_decode_attention(
-            q, k, v, lens), row[5])
-        print("row " + json.dumps({
-            "tree": tree, "case": name, "max_abs_err": err,
-            "ms": smoke._timed_ms(call, flush),
-            "host_us_per_call": smoke._host_us_per_call(call)}), flush=True)
-    return 0
+    return {**versions.both("max_abs_err",
+                            lambda: smoke._max_err(call(), ref, row[5])),
+            **versions.timed(smoke, call, flush),
+            **versions.both("host_us_per_call",
+                            lambda: smoke._host_us_per_call(call))}
 
 
 def probe(plans: bool) -> int:
     import torch
 
     sys.path.insert(0, REPO)
-    smoke = _smoke()
+    smoke = chip_rows.smoke()
     from ray_tpu_torch._private import kernels
     da = importlib.import_module("ray_tpu_torch.ops.decode_attention")
     kernels.DECODE_ATTENTION._load()
-    print(_smi(), flush=True)
+    print(chip_rows.smi(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -307,8 +226,9 @@ def probe(plans: bool) -> int:
                 raise SystemExit(f"variant text not in the kernel: {old!r}")
             src = src.replace(old, new)
         sources[f"decode_variant{i}"] = src
-    libs = _build(sources, kernels)
-    variants = {name: _kernel_from(libs[f"decode_variant{i}"], kernels)
+    libs = chip_rows.build(sources, kernels)
+    variants = {name: chip_rows.kernel_from(libs[f"decode_variant{i}"],
+                                            kernels.DECODE_ATTENTION)
                 for i, name in enumerate(VARIANTS)}
     regs = libs["read_rows"]
     regs.run_read_rows.argtypes = [ctypes.c_void_p] * 4 + \
@@ -378,7 +298,7 @@ def _timeline(name, decode, traced, kernels, da, row, sms, flush):
                          sms)
     n = plan.items * plan.n_splits * N_STAMPS
     shipped = kernels.DECODE_ATTENTION
-    kernels.DECODE_ATTENTION = _kernel_from(traced, kernels)
+    kernels.DECODE_ATTENTION = chip_rows.kernel_from(traced, shipped)
     spans = []
     try:
         for _ in range(6):
@@ -419,14 +339,20 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rows", action="store_true")
-    parser.add_argument("--tree", default=REPO)
+    parser.add_argument("--parent", default=None,
+                        help="with --rows, a checkout whose kernel is "
+                             "timed in turns")
     parser.add_argument("--plans", action="store_true",
                         help="also time the kernel under other split plans")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_decode_probe: CUDA is not available", file=sys.stderr)
         return 1
-    return rows(args.tree) if args.rows else probe(args.plans)
+    if args.rows:
+        return chip_rows.rows("ray_tpu_torch.ops.decode_attention",
+                              ("DECODE_ATTENTION",), "DECODE_TABLE", _row,
+                              args.parent)
+    return probe(args.plans)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,10 @@ from the root of a checkout. Phases, each of which raises on failure
    maximum SM clock); at D = 16 and 32 the exponentials set it. Every
    decode row of PERF.md's kernel table (`DECODE_TABLE`) is among the
    cases, each with the wrapper's host microseconds per call beside the
-   previous design's (`PARENT_HOST_US`).
+   previous design's (`PARENT_HOST_US`); so is every forward row
+   (`FWD_TABLE`: the golden heads file's f32 batches at D = 96 and 256
+   too), each f32 forward called twice more with its logsumexp and held
+   to bitwise equal results.
 3. Golden parity: the tiny float32 model of tests/data/torch_port_golden.npz
    (weights, logits, greedy tokens and one step's loss and gradients of the
    JAX package) through the kernels, TF32 off: logits within 1e-4, greedy
@@ -185,7 +188,9 @@ from the root of a checkout. Phases, each of which raises on failure
    4's serving model; `job logs` shows the GPU node's id, phase 4's lone
    greedy tokens and decode launches of at least 8 layers x the decode
    steps. (c) This process attaches (`init(address=...)`) and a GPU
-   actor decodes a 700-token stream while `top --once` shows the GPU
+   actor (whose runtime env alone sets RT_PROFILER_PREP=1, so that it
+   takes its first profiler session once it has initialised CUDA)
+   decodes a 700-token stream while `top --once` shows the GPU
    node's memory (neither "-" nor 0, at most the actor's own
    max_memory_allocated plus the display's rounding, COMPILE_S "-"),
    `profile --worker ... --seconds 2 --mode torch` persists a trace whose
@@ -195,9 +200,10 @@ from the root of a checkout. Phases, each of which raises on failure
    and engine.host_sync (host syncs within ceil(700/16) + 7), and the
    `dashboard`'s /metrics counts decode-step observations. (d) `stop`
    leaves no process, head.json or /dev/shm segment of the session.
-   (e) On a fresh head with 0 GPUs, a num_gpus=1 task that holds the
-   decode kernel to its plain version at phase 2's serving shape and
-   tolerance stays pending until `Autoscaler` over
+   (e) Beside (a) and (b), from their start (the two clusters share
+   only the card), on a fresh head with 0 GPUs, a num_gpus=1 task that
+   holds the decode kernel to its plain version at phase 2's serving
+   shape and tolerance stays pending until `Autoscaler` over
    `LocalNodeProvider(node_shape={"CPU": 1, "GPU": 1})` launches a node,
    runs there (RT_NODE_ID) on the card, and the idle node is reaped
    within 60 s. Each part's seconds are logged; the phase must take
@@ -602,15 +608,18 @@ def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     ref = _reference_flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     err = _max_err(out, ref, dtype)
+    if dtype == "float32":  # every sum of the f32 path is in a fixed order
+        again = [flash_attention_cuda(q, k, v, causal, with_lse=True)
+                 for _ in range(2)]
+        if not (torch.equal(again[0][0], out)
+                and all(torch.equal(a, b) for a, b in zip(*again))):
+            raise AssertionError(f"{name}: two f32 calls differ")
     sdpa, backends = _sdpa_call(q, k, v, causal)
-    pairs = _visible_pairs(sq, sk, causal)
-    elem = torch.finfo(dt).bits // 8
-    nbytes = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * elem
-    flops = 4 * b * hq * d * pairs
+    flops = 4 * b * hq * d * _visible_pairs(sq, sk, causal)
     ms, library_ms, backend = _timed_in_turns(
         lambda: flash_attention_cuda(q, k, v, causal), lambda: sdpa,
         backends, flush)
-    bound_ms, bound_by = _bound(nbytes, flops, b * hq * pairs, dtype)
+    bound_ms, bound_by = _flash_bound(b, sq, sk, hq, hkv, d, dtype, causal)
     rec = {
         "case": name, "d": d, "max_abs_err": err, "tol": TOL[dtype],
         "ms": ms,
@@ -625,6 +634,16 @@ def _flash_case(name, b, sq, sk, hq, hkv, d, dtype, causal, flush, gen):
     }
     log("flash " + json.dumps(rec))
     return rec
+
+
+def _flash_bound(b, sq, sk, hq, hkv, d, dtype, causal) -> tuple:
+    """The forward's bound (ms, what bounds it): reading q, k and v and
+    writing the output once, 4 B Hq D flops and B Hq exponentials per
+    visible pair."""
+    elem = 4 if dtype == "float32" else 2
+    pairs = _visible_pairs(sq, sk, causal)
+    nbytes = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * elem
+    return _bound(nbytes, 4 * b * hq * d * pairs, b * hq * pairs, dtype)
 
 
 def _visible_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -748,18 +767,9 @@ def _kernel_cases():
     # long context, one item: the most chunks per sequence, both levels of
     # the merge tree
     _decode_row("long context B1 Hq8 KV1 D64 S32768 bf16", flush, gen)
-    flash_main = _flash_case("forward B4 S1024 H16 D64 bf16 causal",
-                             4, 1024, 1024, 16, 16, 64, "bfloat16", True,
-                             flush, gen)
-    for causal in (True, False):
-        _flash_case(f"bench b4 s2048 h8 d128 bf16 causal={causal}", 4, 2048,
-                    2048, 8, 8, 128, "bfloat16", causal, flush, gen)
-    _flash_case("GQA Sq512 < Sk1024 Hq8 Hkv2 d128 bf16 causal", 2, 512, 1024,
-                8, 2, 128, "bfloat16", True, flush, gen)
-    _flash_case("ragged Sq=Sk=1000 h8 d64 bf16 causal", 2, 1000, 1000, 8, 8,
-                64, "bfloat16", True, flush, gen)
-    _flash_case("f32 s256 h4 d64 causal", 1, 256, 256, 4, 4, 64, "float32",
-                True, flush, gen)
+    flash_main = _flash_row(FWD_MAIN, flush, gen)
+    for name in FWD_PHASE2:
+        _flash_row(name, flush, gen)
     bwd_main = _flash_bwd_row(BWD_MAIN, flush, gen)
     for name in BWD_PHASE2:
         _flash_bwd_row(name, flush, gen)
@@ -792,6 +802,29 @@ WIDE_SHAPES = [
     ("f32 B2 S256 H4 D8 causal", 2, 256, 256, 4, 4, 8, "float32"),
     ("runtime width B2 S2048 H16 D40 bf16 causal", 2, 2048, 2048, 16, 16, 40,
      "bfloat16")]
+# The forward rows of PERF.md's kernel table, all timed in phase 2 (and by
+# chip_fwd_probe.py --rows): name -> (b, sq, sk, hq, hkv, d, dtype, causal).
+# The f32 rows at the tiles of 128 and 256 are the golden heads file's
+# training batches at D = 96 and 256 (HEADS_MODELS: B2, 64 tokens).
+FWD_MAIN = "forward B4 S1024 H16 D64 bf16 causal"
+FWD_PHASE2 = {
+    "bench b4 s2048 h8 d128 bf16 causal=True":
+        (4, 2048, 2048, 8, 8, 128, "bfloat16", True),
+    "bench b4 s2048 h8 d128 bf16 causal=False":
+        (4, 2048, 2048, 8, 8, 128, "bfloat16", False),
+    "GQA Sq512 < Sk1024 Hq8 Hkv2 d128 bf16 causal":
+        (2, 512, 1024, 8, 2, 128, "bfloat16", True),
+    "ragged Sq=Sk=1000 h8 d64 bf16 causal":
+        (2, 1000, 1000, 8, 8, 64, "bfloat16", True),
+    "f32 s256 h4 d64 causal": (1, 256, 256, 4, 4, 64, "float32", True),
+    "f32 golden d96 B2 S64 H3 D96 causal": (2, 64, 64, 3, 3, 96, "float32",
+                                            True),
+    "f32 golden d256 B2 S64 H2 D256 causal": (2, 64, 64, 2, 2, 256,
+                                              "float32", True)}
+FWD_TABLE = {
+    FWD_MAIN: (4, 1024, 1024, 16, 16, 64, "bfloat16", True),
+    **FWD_PHASE2,
+    **{f"forward {n}": (*a, True) for n, *a in NARROW_SHAPES + WIDE_SHAPES}}
 # The backward rows of PERF.md's kernel table, all timed in phase 2 but
 # the tp=2 per-rank one (phase 12 (f)), and by chip_bwd_probe.py --rows:
 # name -> (b, sq, sk, hq, hkv, d, dtype, causal).
@@ -817,6 +850,10 @@ BWD_TABLE = {
     **{f"backward {n}": (*a, True) for n, *a in NARROW_SHAPES + WIDE_SHAPES}}
 
 
+def _flash_row(name, flush, gen):
+    return _flash_case(name, *FWD_TABLE[name], flush, gen)
+
+
 def _flash_bwd_row(name, flush, gen):
     return _flash_bwd_case(name, *BWD_TABLE[name], flush, gen)
 
@@ -827,8 +864,8 @@ def _narrow_cases(flush, gen) -> dict:
     decode = [_decode_row(name, flush, gen) for name in (
         "serving heads B8 Hq16 KV16 D32 S1024 bf16",
         "GQA B8 Hq16 KV4 D16 S1024 bf16", "f32 B2 Hq4 KV4 D16 S64")]
-    flash = [_flash_case(f"forward {n}", *a, True, flush, gen)
-             for n, *a in NARROW_SHAPES]
+    flash = [_flash_row(f"forward {n}", flush, gen)
+             for n, *_ in NARROW_SHAPES]
     bwd = [_flash_bwd_row(f"backward {n}", flush, gen)
            for n, *_ in NARROW_SHAPES]
     return {"decode_attention": decode, "flash_attention": flash,
@@ -850,8 +887,8 @@ def _wide_cases(flush, gen) -> dict:
         "Phi-2 B8 Hq32 KV32 D80 S2048 bf16", "GQA B8 Hq16 KV4 D8 S1024 bf16",
         "f32 B2 Hq8 KV1 D256 S512",
         "runtime width B8 Hq16 KV4 D120 S1024 bf16")]
-    flash = [_flash_case(f"forward {n}", *a, True, flush, gen)
-             for n, *a in WIDE_SHAPES]
+    flash = [_flash_row(f"forward {n}", flush, gen)
+             for n, *_ in WIDE_SHAPES]
     bwd = [_flash_bwd_row(f"backward {n}", flush, gen)
            for n, *_ in WIDE_SHAPES]
     return {"decode_attention": decode, "flash_attention": flash,
@@ -4165,14 +4202,14 @@ def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
     whose joined node owns the card serves phase 4's lone prompt through a
     submitted job, and a GPU actor's stream is observed by `top`, `profile
     --mode torch`, `timeline` and the dashboard's /metrics; `stop` leaves
-    nothing behind. Then the autoscaler launches a GPU node for a pending
-    num_gpus=1 task holding the decode kernel to its plain version, and
-    reaps it."""
+    nothing behind. Beside the job, on a second cluster, the autoscaler
+    launches a GPU node for a pending num_gpus=1 task holding the decode
+    kernel to its plain version, and reaps it."""
+    import concurrent.futures
     import tempfile
     import zipfile
 
     import ray_tpu_torch as rt
-    from ray_tpu_torch.autoscaler import Autoscaler, LocalNodeProvider
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="rt_ops_")
@@ -4182,11 +4219,12 @@ def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
     rec: dict = {}
     secs: dict = {}
 
-    # (a) a head without GPUs, and a node that owns the card
-    t0 = time.perf_counter()
     cluster = _OpsCluster(os.path.join(tmp, "session"), env)
-    head = cluster.start_head(num_cpus=2)
-    try:
+
+    def start_and_job() -> str:
+        # (a) a head without GPUs, and a node that owns the card
+        t0 = time.perf_counter()
+        head = cluster.start_head(num_cpus=2)
         cluster.cli("start", "--address", head["address"], "--num-cpus",
                     "2", "--num-gpus", "1")
         with open(os.path.join(cluster.sdir, "nodes.json")) as f:
@@ -4236,6 +4274,18 @@ def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
                                           "decode_launches")}
         rec["job"]["job_s"] = secs["job"]
         log(f"ops job: {json.dumps(rec['job'])}")
+        return gpu_node
+
+    # (a) and (b) drive their cluster through the CLI from a thread while
+    # this process attaches to (e)'s: the two clusters share nothing but
+    # the card, and each part waits mostly on a GPU worker's start-up.
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            first = pool.submit(start_and_job)
+            rec["autoscaler"] = _ops_autoscaler(tmp, env, device, secs)
+        log(f"ops autoscaler: {json.dumps(rec['autoscaler'])}")
+        gpu_node = first.result()
+        head = cluster.head
 
         # (c) a traced GPU actor's stream, seen by top, profile, timeline
         # and the dashboard
@@ -4248,13 +4298,20 @@ def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
             stderr=subprocess.DEVNULL)
         rt.init(address=head["address"])
         try:
-            server = rt.remote(num_gpus=1)(_OpsServer).remote(widths, device)
+            # The profiled actor alone takes its first torch.profiler
+            # session once it has initialised CUDA (the `profiler_prep`
+            # flag in its runtime env), so the capture opens its window
+            # while the stream decodes; no other worker runs one.
+            server = rt.remote(num_gpus=1, runtime_env={"env_vars": {
+                "RT_PROFILER_PREP": "1"}})(_OpsServer).remote(widths, device)
             info = rt.get(server.info.remote(), timeout=600)
             if info["node_id"] != gpu_node:
                 raise AssertionError("the GPU actor is not on the GPU node")
+            secs["actor"] = time.perf_counter() - t0
             rt.get(server.complete.remote(
                 {"prompt": lone[0]["prompt"][:16], "temperature": 0.0,
                  "max_tokens": 4}), timeout=600)  # warm-up
+            secs["warmup"] = time.perf_counter() - t0 - secs["actor"]
             prompt = lone[0]["prompt"][:OPS_STREAM["prompt_len"]]
             ref = server.complete.remote(
                 {"prompt": prompt, "temperature": 0.0, "stream": True,
@@ -4309,6 +4366,11 @@ def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
                                        if n.startswith("engine."))}
             if device == "cuda":
                 rec["profile"] = _ops_profile_window(trace, spans, n_layers)
+            line = prof.split("startup_s:")[1].splitlines()[0]
+            rec["profile_startup_s"] = float(line.split()[0])
+            rec["profile_first_session_s"] = (
+                float(line.split("took")[1].split()[0]) if "took" in line
+                else None)
             deadline = time.monotonic() + 30
             count = 0.0
             while count <= 0 and time.monotonic() < deadline:
@@ -4334,13 +4396,37 @@ def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
             dash.wait(timeout=30)
         secs["observe"] = time.perf_counter() - t0
         log("ops observe: " + json.dumps(
-            {k: rec.get(k) for k in ("top", "profile", "timeline",
-                                     "metrics", "stream")}))
+            {k: rec.get(k) for k in (
+                "top", "profile", "profile_startup_s",
+                "profile_first_session_s", "timeline", "metrics",
+                "stream")}))
     finally:
-        # (d) stop: no process, head.json or segment of the session left
-        secs["stop"] = cluster.stop()
+        if hasattr(cluster, "head"):
+            # (d) stop: no process, head.json or segment of the session
+            # left
+            secs["stop"] = cluster.stop()
 
-    # (e) the autoscaler launches a GPU node for a pending num_gpus=1 task
+    rec["ops_launches"] = (rec["job"]["decode_launches"]
+                           + rec["stream"]["decode_launches"]
+                           + rec["autoscaler"]["decode_launches"])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["seconds"] = secs
+    log(f"phase 14: {rec['phase_s']:.1f} s {json.dumps(secs)}")
+    if rec["phase_s"] > OPS_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 14 took {rec['phase_s']:.1f} s, over "
+                             f"its {OPS_PHASE_LIMIT_S} s")
+    return rec
+
+
+def _ops_autoscaler(tmp: str, env: dict, device: str, secs: dict) -> dict:
+    """Phase 14 (e): on a fresh head with no GPU, a pending num_gpus=1 task
+    holding the decode kernel to its plain version gets an autoscaled GPU
+    node, runs there and the idle node is reaped; `stop` leaves nothing
+    of that session. Returns the task's check with the scale-up and reap
+    seconds; the seconds of the part and of its stop go into `secs`."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import Autoscaler, LocalNodeProvider
+
     t0 = time.perf_counter()
     cluster2 = _OpsCluster(os.path.join(tmp, "session2"), env)
     head2 = cluster2.start_head(num_cpus=1)
@@ -4382,18 +4468,7 @@ def phase_ops(lone, widths: dict = SERVE, device: str = "cuda") -> dict:
     finally:
         secs["stop2"] = cluster2.stop()
     secs["autoscaler"] = time.perf_counter() - t0
-    rec["autoscaler"] = {**check, "scale_up_s": up_s, "reap_s": down_s}
-    log(f"ops autoscaler: {json.dumps(rec['autoscaler'])}")
-    rec["ops_launches"] = (rec["job"]["decode_launches"]
-                           + rec["stream"]["decode_launches"]
-                           + check["decode_launches"])
-    rec["phase_s"] = time.perf_counter() - t_phase
-    rec["seconds"] = secs
-    log(f"phase 14: {rec['phase_s']:.1f} s {json.dumps(secs)}")
-    if rec["phase_s"] > OPS_PHASE_LIMIT_S:
-        raise AssertionError(f"phase 14 took {rec['phase_s']:.1f} s, over "
-                             f"its {OPS_PHASE_LIMIT_S} s")
-    return rec
+    return {**check, "scale_up_s": up_s, "reap_s": down_s}
 
 
 def _instance(mangled: str) -> str:

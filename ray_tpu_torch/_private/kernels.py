@@ -2,7 +2,8 @@
 
 Each kernel is one `.cu` file under `ray_tpu_torch/ops/csrc/` with a plain
 C entry point (helpers shared between them in `common.cuh`, the Hopper
-building blocks of the two flash kernels in `hopper.cuh`). At first use
+building blocks of the two flash kernels in `hopper.cuh` and their f32
+tile loads in `f32_tiles.cuh`). At first use
 it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
 under `build/ray_tpu_torch/` at the root of the checkout, named by a
 hash of its source, the shared headers and the flags, and loaded with

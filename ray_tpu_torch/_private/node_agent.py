@@ -838,7 +838,7 @@ class NodeAgent:
         try:
             rep = await slot.conn.call(
                 "profile", mode=mode, seconds=seconds, hz=a.get("hz"),
-                _timeout=seconds + 30.0)
+                _timeout=telemetry.profile_timeout(seconds, "worker"))
         except Exception as e:
             return {"found": False,
                     "error": f"worker {wid[:12]} died or failed mid-capture "
@@ -895,7 +895,8 @@ class NodeAgent:
         storage.put(path, _json.dumps(doc, default=str).encode())
         meta = {k: doc.get(k) for k in
                 ("name", "path", "archive_path", "mode", "worker_id",
-                 "node_id", "task_id", "actor_id", "pid", "seconds", "hz",
+                 "node_id", "task_id", "actor_id", "pid", "seconds",
+                 "startup_s", "first_session_s", "hz",
                  "samples", "files", "created")}
         meta["stacks"] = len(doc.get("collapsed") or {})
         return {k: v for k, v in meta.items() if v is not None}

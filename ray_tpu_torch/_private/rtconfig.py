@@ -228,6 +228,13 @@ _flag("telemetry_points", int, 240)
 # sampling profiler walks every worker thread's stack this many times per
 # second for the capture window.
 _flag("profile_hz", int, 100)
+# On-demand torch profiling (`ray-tpu-torch profile --mode torch`): a
+# worker's first torch.profiler session pays CUPTI's start-up (8.5-16 s on
+# an H100). Set, each worker takes that session on a background thread once
+# it has initialised CUDA, beside whatever it runs then, so a later capture
+# opens its window at once; unset, the first capture pays it before its
+# window opens (the hops' timeouts allow for it either way).
+_flag("profiler_prep", bool, False)
 # Storage-plane URI captured profiles persist under (any backend);
 # "" = <session_dir>/<session>/profiles.
 _flag("profile_dir", str, "")

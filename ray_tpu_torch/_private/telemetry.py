@@ -278,13 +278,32 @@ _MAX_PROFILE_SAMPLES = 20_000
 def clamp_profile_seconds(seconds) -> float:
     """One capture-window clamp shared by every hop of the profile path
     (controller -> agent -> worker): 0.05s floor, 300s cap, 5s default.
-    The hops' RPC timeout margins (+40s controller, +30s agent) are tuned
-    against these constants — change them here, nowhere else."""
+    The hops' RPC timeouts come from `profile_timeout`, tuned against these
+    constants — change them here, nowhere else."""
     try:
         seconds = float(seconds)
     except (TypeError, ValueError):
         seconds = 5.0  # unset/garbage -> default; explicit 0 clamps to floor
     return min(300.0, max(0.05, seconds))
+
+
+#: Seconds a capture may wait before its window opens: a torch capture
+#: waits for the profiler to go live (a worker's first CUPTI session took
+#: 8.5-16 s on an H100; `TorchProfilerPrep` takes it off the capture path,
+#: and a capture that arrives while it runs waits for it).
+PROFILE_STARTUP_ALLOWANCE_S = 30.0
+#: Each hop's margin beyond the window and the start-up: the worker's
+#: export (agent -> worker), the agent's persist (controller -> agent), the
+#: controller's reply (client -> controller).
+_PROFILE_HOP_MARGIN_S = {"worker": 30.0, "node": 40.0, "client": 60.0}
+
+
+def profile_timeout(seconds: float, hop: str) -> float:
+    """The RPC timeout of one hop of the profile path ("worker": agent ->
+    worker, "node": controller -> agent, "client": CLI -> controller) for
+    a window of `seconds` (already clamped): the window, the start-up
+    allowance and the hop's margin, each outer hop above the inner one."""
+    return seconds + PROFILE_STARTUP_ALLOWANCE_S + _PROFILE_HOP_MARGIN_S[hop]
 
 
 def sample_profile(seconds: float, hz: Optional[int] = None,
@@ -396,11 +415,77 @@ def _flame_events(samples: list, names: dict, period: float) -> list[dict]:
     return events
 
 
-def torch_profile(seconds: float) -> dict:
+def _torch_profiler_activities() -> list:
+    """Host ops, and the CUDA kernels where this process has initialised
+    CUDA (a capture never initialises it)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_initialized():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+class TorchProfilerPrep:
+    """Takes a process's first torch.profiler session off the capture path.
+
+    The first session of a process that has initialised CUDA pays CUPTI's
+    start-up (8.5-16 s for a serving worker on an H100, later sessions
+    about 1 s). A worker holds one of these and calls `poll()` after each
+    item it executes; where the `profiler_prep` flag is set, the first poll
+    that finds CUDA initialised starts one empty session on a daemon thread
+    (beside the worker's work, which it can stall for a moment), else the
+    prep never starts. `torch_profile` takes `lock`, so a capture that
+    arrives during that session waits for it, its reply's `startup_s`
+    counts the wait, and `first_session_s` is the session's length."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.ready = threading.Event()  # set once the session has ended
+        self.first_session_s: Optional[float] = None
+        self._started = False
+
+    def poll(self) -> None:
+        if self._started:
+            return
+        # No torch in this process, or another thread still importing it
+        # (the module is in sys.modules before it has its names): CUDA is
+        # not initialised yet.
+        cuda = getattr(sys.modules.get("torch"), "cuda", None)
+        is_initialized = getattr(cuda, "is_initialized", None)
+        if is_initialized is None or not is_initialized():
+            return
+        self._started = True
+        if not CONFIG.profiler_prep:
+            return
+        threading.Thread(target=self._prepare, daemon=True,
+                         name="rt-profiler-prep").start()
+
+    def _prepare(self) -> None:
+        import torch
+
+        try:
+            with self.lock:
+                t0 = time.perf_counter()
+                with torch.profiler.profile(
+                        activities=_torch_profiler_activities()):
+                    pass
+                self.first_session_s = time.perf_counter() - t0
+        except Exception:
+            pass  # a capture then pays the start-up itself, and reports it
+        finally:
+            self.ready.set()
+
+
+def torch_profile(seconds: float,
+                  prep: Optional[TorchProfilerPrep] = None) -> dict:
     """Capture a torch.profiler window (host ops, and the CUDA kernels'
     device timeline where this process has initialised CUDA) and return
-    its Chrome trace as a zip archive blob. The caller surfaces failures
-    as attributed errors."""
+    its Chrome trace as a zip archive blob. The window opens once the
+    profiler is live: `startup_s` is the time from the call to then (a
+    wait for `prep`'s session included), apart from the window's
+    `seconds`. The caller surfaces failures as attributed errors."""
+    import contextlib
     import io
     import tempfile
     import zipfile
@@ -408,20 +493,24 @@ def torch_profile(seconds: float) -> dict:
     import torch
 
     seconds = max(0.05, float(seconds))
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_initialized():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="rt-torchprof-") as d:
-        with torch.profiler.profile(activities=acts) as prof:
-            time.sleep(seconds)
+        with prep.lock if prep is not None else contextlib.nullcontext():
+            with torch.profiler.profile(
+                    activities=_torch_profiler_activities()) as prof:
+                startup_s = time.perf_counter() - t0
+                time.sleep(seconds)
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         buf = io.BytesIO()
         with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as z:
             z.write(path, "trace.json")
-    return {"mode": "torch", "pid": os.getpid(),
-            "seconds": round(seconds, 3), "files": 1,
-            "archive": buf.getvalue()}
+    rep = {"mode": "torch", "pid": os.getpid(),
+           "seconds": round(seconds, 3), "startup_s": round(startup_s, 3),
+           "files": 1, "archive": buf.getvalue()}
+    if prep is not None and prep.first_session_s is not None:
+        rep["first_session_s"] = round(prep.first_session_s, 3)
+    return rep
 
 
 def default_profile_dir(session_id: str) -> str:

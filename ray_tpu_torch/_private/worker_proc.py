@@ -83,6 +83,10 @@ class WorkerProc:
         chost, cport = os.environ["RT_CONTROLLER"].rsplit(":", 1)
         ahost, aport = os.environ["RT_AGENT"].rsplit(":", 1)
         self.agent_addr = (ahost, int(aport))
+        # The first torch.profiler session's start-up, paid once CUDA is
+        # initialised rather than by the first `profile --mode torch`
+        # (where the `profiler_prep` flag asks for it).
+        self._profiler_prep = _telemetry.TorchProfilerPrep()
         self.worker = Worker(
             mode="worker",
             session_id=self.session,
@@ -356,7 +360,8 @@ class WorkerProc:
                         seconds, int(hz) if hz else None))
             if mode == "torch":
                 return await loop.run_in_executor(
-                    None, lambda: _telemetry.torch_profile(seconds))
+                    None, lambda: _telemetry.torch_profile(
+                        seconds, self._profiler_prep))
             raise rpc.RpcError(f"unknown profile mode {mode!r}")
         raise rpc.RpcError(f"worker: unknown agent method {method}")
 
@@ -517,6 +522,7 @@ class WorkerProc:
                     self._dispatch_actor_task(spec, None)
                 else:
                     self._execute_task(spec)
+                self._profiler_prep.poll()
             except BaseException as e:
                 # A late cancel/timeout SIGINT (KeyboardInterrupt) escaping
                 # the per-task guards must not fell the exec loop — the

@@ -56,19 +56,21 @@
 // - The epilogue normalises O in registers, stages it as bf16 in the
 //   warpgroup's own rows of the Q tile and writes 16-byte stores, masking
 //   rows past Sq.
-// float32 stays on the CUDA cores (16 x 16 threads, scores in shared
-// memory) so the golden check keeps full f32 precision.
+// float32 stays on the CUDA cores in full f32 FMAs, so the golden checks
+// keep f32 precision: 32-row query tiles, groups of 64 threads that take a
+// tile's key tiles in turn, scores and softmax in register tiles, the
+// groups' partials merged in a fixed order (the f32 path below says how).
 //
 // Resources (nvcc 12.9 -Xptxas -v, sm_90a): the bf16 kernel 168 registers
 // at entry (setmaxnreg then gives the consumers 232 and the producer 40),
 // 80 bytes of static shared memory (the mbarriers) and 82,944 (D=64) or
 // 164,864 (D=128) bytes of dynamic shared memory (Q, two K and two V tiles
-// and 1 KB of alignment slack), no spills; the f32 kernel 64 (D=64) or
-// 102 (D=128) registers, no spills. The logsumexp store leaves all of
+// and 1 KB of alignment slack), no spills. The logsumexp store leaves
 // these unchanged and adds no serialised wgmma. The D = 32 and 16
 // instances are written so that the D = 64 and 128 ones compile from the
 // same source as before (every difference is an `if constexpr` on D or a
-// constant equal to the old one there); their resources are in PERF.md.
+// constant equal to the old one there); their resources, and the f32
+// kernel's, are in PERF.md.
 //
 // Head dims. The TPU kernel takes any D; here every multiple of 8 from 8 to
 // 256 runs on a kernel. D = 16, 32, 64 and 128 have their instances (above),
@@ -80,10 +82,10 @@
 // second (part of a swizzle atom; wgmma_probe.cu checks both against a
 // plain product). They are faster than the tile of 128 that any other D
 // from 72 to 128 runs (chip_width_probe.py times both). Any other D runs on a runtime-width instance,
-// flash_attention_wgmma_rt_kernel<DT> (and flash_attention_rt_kernel<f32,
-// DT> on the CUDA cores): the tile DT is the power of two at or above D (16
-// to 256), the zeros TMA (or the masked loads) put past D go through the
-// products, and only D columns are stored. The tile of 256 (Gemma's D =
+// flash_attention_wgmma_rt_kernel<DT>: the tile DT is the power of two at
+// or above D (16 to 256), the zeros TMA puts past D go through the
+// products, and only D columns are stored (in f32 every D runs so, on
+// flash_fwd_f32_kernel<DT> of its tile). The tile of 256 (Gemma's D =
 // 256) takes 64-key K/V tiles: Q is 64 KB, and two stages of 128-key K and
 // V tiles would need 256 KB; with 64-key tiles the block holds 193 KB, the
 // scores are m64n64k16 products and P V two m64n128k16 per k-step. The new
@@ -93,264 +95,333 @@
 
 #include <math.h>
 
-#include "common.cuh"
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
 
-constexpr int kThreads = 256;  // f32 path: 16 x 16 threads over output tiles
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
+// ------------------------------------------------------------ f32 path
+//
+// Full f32 FMAs on the CUDA cores (no TF32, no bf16), so the golden checks
+// keep f32 precision. At the f32 shapes the port runs the products do not
+// bound the call (B1 S256 H4 D64 causal: 0.034 GFLOP, about 0.5 us of the
+// card's 67 TFLOP/s f32 peak); each block's chain of key tiles, its loads
+// and its barriers do. So, as the f32 backward's Q blocks
+// (flash_attention_bwd.cu, f32 path):
+// - one block per 32-row query tile (kF32Rows) of one query head, the tile
+//   with the longest causal rows first; the block is fwd_f32_groups<DT>
+//   groups of 64 threads (4 up to the tile of 128, 2 at 256, where shared
+//   memory bounds them), and group g takes the key tiles g, g + G, ... of
+//   the keys the tile sees, so a block's chain is 1/G of its tiles;
+// - each group has its own two-stage cp.async ring of K and V tiles
+//   (fwd_f32_keys<DT> keys: 32, or 16 at the tiles of 128 and 256, where
+//   4 groups of 32-key stages would not fit), so the next tile's load
+//   overlaps this tile's work;
+// - S (32 rows x the tile's keys) lives in registers, 4 x 4 a thread (4 x
+//   2 at the tiles of 128 and 256): thread t of a group holds rows
+//   t / 8 + 8x and keys t % 8 + 8y, read as float4 along D from
+//   [rows][DT + 4] tiles. Q is
+//   scaled by D^-0.5 log2(e) once, after its load, so the softmax runs in
+//   the exp2 domain; a row's max and sum are shuffles among the 8 threads
+//   that hold it. P goes to P.V through a per-group [32][keys + 8] buffer;
+//   each thread owns O's rows t / 8 + 8x (those of its scores, so the
+//   rescale needs no exchange) and DT / 8 columns;
+// - at the end each group's partial (its running max m, sum l and O)
+//   passes through its own stages, and the block adds them in group order:
+//   no atomics, so the output and the lse are bitwise repeatable.
+// The tile DT is the power of two at or above D (16 to 256); columns past D
+// are zeros in shared memory and are not stored.
 
-using rt::load_vec;
-using rt::store;
-using rt::Vec;
+using namespace f32tile;
 
-template <int D>
-constexpr size_t smem_floats() {
-  // Qs [BQ][D], Ks [BK][D+1], Vs [BK][D], Ss [BQ][BK+1], m/l/alpha [BQ]
-  return (size_t)kBQ * D + (size_t)kBK * (D + 1) + (size_t)kBK * D +
-         (size_t)kBQ * (kBK + 1) + 3 * kBQ;
+template <int DT>
+__host__ __device__ constexpr int fwd_f32_keys() {
+  return DT >= 128 ? 16 : 32;
 }
 
-// The f32 kernel at tile width D and head dim d: d == D for the exact
-// instances; with kRt any multiple of 8 up to D, the columns past d loaded
-// as zeros and never stored.
-template <typename T, int D, bool kRt>
-__device__ __forceinline__ void flash_f32_body(const T* __restrict__ q, const T* __restrict__ k,
-                                               const T* __restrict__ v, T* __restrict__ out,
-                                               float* __restrict__ lse, int Sq, int Sk, int Hq,
-                                               int Hkv, float scale, int causal, const int d) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int VPR = D / VEC;  // 16-byte vectors per row
-  constexpr int NJ = D / 16;    // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * D;
-  float* Vs = Ks + kBK * (D + 1);
-  float* Ss = Vs + kBK * D;
-  float* row_m = Ss + kBQ * (kBK + 1);
-  float* row_l = row_m + kBQ;
-  float* row_a = row_l + kBQ;
+template <int DT>
+__host__ __device__ constexpr int fwd_f32_groups() {
+  return DT <= 128 ? 4 : 2;
+}
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// Floats of a P row.
+template <int DT>
+__host__ __device__ constexpr int fwd_f32_pld() {
+  return fwd_f32_keys<DT>() + 8;
+}
+
+// Shared memory (floats): the block's Q tile, then for each group two
+// stages of K, two of V, and its P. At the end a group's stages hold its
+// partial: O [32][DT], then m [32] and l [32].
+template <int DT>
+struct FwdF32Smem {
+  static constexpr int kQ = kF32Rows * f32_ld<DT>();
+  static constexpr int kKV = fwd_f32_keys<DT>() * f32_ld<DT>();  // one K or V tile
+  static constexpr int kP = kF32Rows * fwd_f32_pld<DT>();
+  static constexpr int kGroup = 4 * kKV + kP;
+  static constexpr int kFloats = kQ + fwd_f32_groups<DT>() * kGroup;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static_assert(4 * kKV >= kF32Rows * (DT + 2), "a group's stages hold its partial");
+};
+
+// A thread's O columns: chunks of W floats (float4, or float2 at the tile
+// of 16), W * 8 apart, the first at (t % 8) * W.
+template <int DT>
+__host__ __device__ constexpr int fwd_f32_chunk() {
+  return DT / 8 < 4 ? DT / 8 : 4;
+}
+
+template <int W>
+__device__ __forceinline__ void load_chunk(float* a, const float* p) {
+  if constexpr (W == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a[0] = v.x; a[1] = v.y;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_chunk(float* p, const float* a) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+}
+
+// Key tile n of KV head hk into a group's stage at st (K there, V two
+// tiles on), by the group's thread t.
+template <int DT>
+__device__ __forceinline__ void load_kv(float* st, const float* __restrict__ k,
+                                        const float* __restrict__ v, int b, int n, int Sk,
+                                        int Hkv, int hk, int d, int t) {
+  constexpr int KK = fwd_f32_keys<DT>();
+  f32_load_tile<DT>(st, k, b, n * KK, KK, Sk, Hkv, hk, d, t, kF32GroupThreads);
+  f32_load_tile<DT>(st + 2 * FwdF32Smem<DT>::kKV, v, b, n * KK, KK, Sk, Hkv, hk, d, t,
+                    kF32GroupThreads);
+}
+
+// The f32 kernel at tile width DT and head dim d (a multiple of 8, at most
+// DT). Block y: query tile nq - 1 - y / (B Hq), head y % Hq, batch
+// y / Hq % B.
+template <int DT>
+__global__ void __launch_bounds__(kF32GroupThreads * fwd_f32_groups<DT>(), 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int B, int Sq, int Sk, int Hq, int Hkv,
+                     float scale_log2, int causal, int d) {
+  using L = FwdF32Smem<DT>;
+  constexpr int G = fwd_f32_groups<DT>();
+  constexpr int KK = fwd_f32_keys<DT>();
+  constexpr int LD = f32_ld<DT>();
+  constexpr int PLD = fwd_f32_pld<DT>();
+  constexpr int NY = KK / 8;  // keys of a thread's score tile
+  constexpr int W = fwd_f32_chunk<DT>();
+  constexpr int TC = DT / 8;  // O columns of a thread
+  extern __shared__ __align__(16) float fwd_smem[];
+  const int g = threadIdx.x / kF32GroupThreads;
+  const int t = threadIdx.x % kF32GroupThreads;
+  const int tr = t / 8, tc = t % 8;
+  float* Qs = fwd_smem;
+  float* group = fwd_smem + L::kQ + g * L::kGroup;
+  float* Ps = group + 4 * L::kKV;
+  const int nq = (Sq + kF32Rows - 1) / kF32Rows;
+  const int y = blockIdx.x;
+  const int h = y % Hq;
+  const int b = y / Hq % B;
   const int hk = h / (Hq / Hkv);
+  const int q0 = (nq - 1 - y / (B * Hq)) * kF32Rows;
   const int off = Sk - Sq;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int k_end = causal ? max(0, min(Sk, min(q0 + kF32Rows, Sq) + off)) : Sk;
+  const int items = (k_end + KK - 1) / KK;
 
-  for (int idx = threadIdx.x; idx < kBQ * VPR; idx += kThreads) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * VEC;
-    const int i = q0 + r;
-    float tmp[VEC];
-    if (i < Sq && (!kRt || c < d)) {
-      load_vec(q + (((size_t)b * Sq + i) * Hq + h) * d + c, tmp);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) tmp[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) Qs[r * D + c + e] = tmp[e] * scale;
+  f32_load_tile<DT>(Qs, q, b, q0, kF32Rows, Sq, Hq, h, d, threadIdx.x, blockDim.x);
+  if (g < items) load_kv<DT>(group, k, v, b, g, Sk, Hkv, hk, d, t);
+  cp_async_commit();
+  cp_async_wait_all();
+  // Scale the Q chunks this thread copied (its own copies are complete).
+  for (int idx = threadIdx.x; idx < kF32Rows * (DT / 4); idx += blockDim.x) {
+    float4* p = reinterpret_cast<float4*>(Qs + (idx / (DT / 4)) * LD + (idx % (DT / 4)) * 4);
+    float4 x = *p;
+    x.x *= scale_log2; x.y *= scale_log2; x.z *= scale_log2; x.w *= scale_log2;
+    *p = x;
   }
-  if (threadIdx.x < kBQ) {
-    row_m[threadIdx.x] = -INFINITY;
-    row_l[threadIdx.x] = 0.f;
-  }
-
-  // Keys this tile can see: all of them, or up to the diagonal of its last
-  // real row.
-  int k_end = Sk;
-  if (causal) {
-    const int last_row = min(q0 + kBQ, Sq) - 1;
-    k_end = max(0, min(Sk, last_row + off + 1));
-  }
-
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   __syncthreads();
 
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    for (int idx = threadIdx.x; idx < kBK * VPR; idx += kThreads) {
-      const int r = idx / VPR;
-      const int c = (idx % VPR) * VEC;
-      const int j = k0 + r;
-      float kt[VEC], vt[VEC];
-      if (j < Sk && (!kRt || c < d)) {
-        const size_t o = (((size_t)b * Sk + j) * Hkv + hk) * d + c;
-        load_vec(k + o, kt);
-        load_vec(v + o, vt);
-      } else {
+  float o[4][TC];
+  float m[4], l[4];  // per row: running max (scaled log2 domain), this thread's sum
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) kt[e] = vt[e] = 0.f;
-      }
+  for (int x = 0; x < 4; ++x) {
+    m[x] = -INFINITY;
+    l[x] = 0.f;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        Ks[r * (D + 1) + c + e] = kt[e];
-        Vs[r * D + c + e] = vt[e];
-      }
-    }
-    __syncthreads();
+    for (int c = 0; c < TC; ++c) o[x][c] = 0.f;
+  }
+  int it = 0;
+  for (int n = g; n < items; n += G, ++it) {
+    const float* Ks = group + (it & 1) * L::kKV;
+    const float* Vs = Ks + 2 * L::kKV;
+    cp_async_wait_all();
+    named_bar_sync(1 + g, kF32GroupThreads);  // this tile in; the last one's P.V done
+    if (n + G < items)
+      load_kv<DT>(group + ((it + 1) & 1) * L::kKV, k, v, b, n + G, Sk, Hkv, hk, d, t);
+    cp_async_commit();
 
-    // Scores for rows ty + 16 i, columns tx + 16 j.
-    float s[4][4];
+    float s[4][NY];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int x = 0; x < 4; ++x)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
+      for (int j = 0; j < NY; ++j) s[x][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < DT; c += 4) {
+      float4 kb[NY];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * D + d];
+      for (int j = 0; j < NY; ++j) kb[j] = *reinterpret_cast<const float4*>(Ks + (tc + 8 * j) * LD + c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+      for (int x = 0; x < 4; ++x) {
+        const float4 qa = *reinterpret_cast<const float4*>(Qs + (tr + 8 * x) * LD + c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qa[i] * kb[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const int kj = k0 + col;
-        const bool visible = kj < Sk && (!causal || kj <= q0 + row + off);
-        Ss[row * (kBK + 1) + col] = visible ? s[i][j] : -INFINITY;
+        for (int j = 0; j < NY; ++j) {
+          s[x][j] = fmaf(qa.x, kb[j].x, s[x][j]);
+          s[x][j] = fmaf(qa.y, kb[j].y, s[x][j]);
+          s[x][j] = fmaf(qa.z, kb[j].z, s[x][j]);
+          s[x][j] = fmaf(qa.w, kb[j].w, s[x][j]);
+        }
       }
     }
-    __syncthreads();
 
-    // Online softmax: four lanes per row.
-    {
-      const int row = threadIdx.x / 4;
-      const int part = threadIdx.x % 4;
-      float* srow = Ss + row * (kBK + 1);
+    // Mask (only on a tile that crosses the Sk edge or the diagonal of the
+    // block's first row), then the online softmax of each row.
+    const int k0 = n * KK;
+    const bool edge = k0 + KK > Sk || (causal && k0 + KK - 1 > q0 + off);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = q0 + tr + 8 * x;
       float mx = -INFINITY;
-      for (int c = part; c < kBK; c += 4) mx = fmaxf(mx, srow[c]);
+#pragma unroll
+      for (int j = 0; j < NY; ++j) {
+        const int kj = k0 + tc + 8 * j;
+        if (edge && (kj >= Sk || (causal && kj > i + off))) s[x][j] = -INFINITY;
+        mx = fmaxf(mx, s[x][j]);
+      }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = row_m[row];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = part; c < kBK; c += 4) {
-        const float p = m_new == -INFINITY ? 0.f : expf(srow[c] - m_new);
-        srow[c] = p;
-        sum += p;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m[x], mx);
+      // A row with no visible key yet keeps max -inf; subtracting 0 then
+      // gives exp2(-inf) = 0 for its scores and its old state alike.
+      const float base = mn == -INFINITY ? 0.f : mn;
+      const float alpha = exp2f(m[x] - base);
+      m[x] = mn;
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < NY; ++j) {
+        const float p = exp2f(s[x][j] - base);
+        ls += p;
+        Ps[(tr + 8 * x) * PLD + tc + 8 * j] = p;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        row_a[row] = alpha;
-        row_l[row] = row_l[row] * alpha + sum;
-        row_m[row] = m_new;
+      l[x] = l[x] * alpha + ls;
+#pragma unroll
+      for (int c = 0; c < TC; ++c) o[x][c] *= alpha;
+    }
+    named_bar_sync(1 + g, kF32GroupThreads);  // P in
+
+    // O += P V: four keys at a time, a float4 of P per row.
+#pragma unroll 2
+    for (int kk = 0; kk < KK; kk += 4) {
+      float pa[4][4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) load_chunk<4>(pa[x], Ps + (tr + 8 * x) * PLD + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int cq = 0; cq < TC / W; ++cq) {
+          float vb[W];
+          load_chunk<W>(vb, Vs + (kk + e) * LD + tc * W + cq * 8 * W);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int w = 0; w < W; ++w) o[x][cq * W + w] = fmaf(pa[x][e], vb[w], o[x][cq * W + w]);
+        }
       }
     }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {  // the row's sum over its 8 threads
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 4);
+  }
 
-    float alpha[4];
+  // Merge: each group's partial into its stages, then summed in group order.
+  cp_async_wait_all();
+  __syncthreads();  // every group's last P.V done: its stages are free
+  float* pm = group + kF32Rows * DT;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) alpha[i] = row_a[ty + 16 * i];
+  for (int x = 0; x < 4; ++x) {
+    const int r = tr + 8 * x;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha[i];
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += p[i] * vv;
-      }
+    for (int cq = 0; cq < TC / W; ++cq)
+      store_chunk<W>(group + r * DT + tc * W + cq * 8 * W, &o[x][cq * W]);
+    if (tc == 0) {
+      pm[r] = m[x];
+      pm[kF32Rows + r] = l[x];
     }
-    __syncthreads();  // the next tile overwrites Ks, Vs and Ss
   }
-
+  __syncthreads();
+  const float* parts = fwd_smem + L::kQ;
+  for (int idx = threadIdx.x; idx < kF32Rows * (DT / 4); idx += blockDim.x) {
+    const int r = idx / (DT / 4);
+    const int c = (idx % (DT / 4)) * 4;
+    if (q0 + r >= Sq || c >= d) continue;
+    float mx = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    const int qi = q0 + row;
-    if (qi >= Sq) continue;
-    const float den = row_l[row];
-    const float inv = den > 0.f ? 1.f / den : 0.f;
-    T* orow = out + (((size_t)b * Sq + qi) * Hq + h) * d;
+    for (int gg = 0; gg < G; ++gg) mx = fmaxf(mx, parts[gg * L::kGroup + kF32Rows * DT + r]);
+    const float base = mx == -INFINITY ? 0.f : mx;
+    float den = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (!kRt || tx + 16 * j < d) store(orow + tx + 16 * j, acc[i][j] * inv);
+    for (int gg = 0; gg < G; ++gg) {
+      const float* part = parts + gg * L::kGroup;
+      const float w = exp2f(part[kF32Rows * DT + r] - base);
+      den = fmaf(part[kF32Rows * DT + kF32Rows + r], w, den);
+      const float4 pv = *reinterpret_cast<const float4*>(part + r * DT + c);
+      acc.x = fmaf(pv.x, w, acc.x);
+      acc.y = fmaf(pv.y, w, acc.y);
+      acc.z = fmaf(pv.z, w, acc.z);
+      acc.w = fmaf(pv.w, w, acc.w);
+    }
+    const float inv = den > 0.f ? 1.f / den : 0.f;  // no visible key: zeros
+    *reinterpret_cast<float4*>(out + (((size_t)b * Sq + q0 + r) * Hq + h) * d + c) =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+    // m is in the scaled log2 domain: the natural-log lse is (m + log2 l) ln 2.
+    if (lse != nullptr && c == 0)
+      lse[((size_t)b * Hq + h) * Sq + q0 + r] =
+          den > 0.f ? (mx + log2f(den)) * 0.6931471805599453f : -INFINITY;
   }
-  if (lse != nullptr && threadIdx.x < kBQ && q0 + threadIdx.x < Sq) {
-    const float den = row_l[threadIdx.x];
-    lse[((size_t)b * Hq + h) * Sq + q0 + threadIdx.x] =
-        den > 0.f ? row_m[threadIdx.x] + logf(den) : -INFINITY;
-  }
 }
 
-// The instances of head dims 16, 32, 64 and 128.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                       float scale, int causal) {
-  flash_f32_body<T, D, false>(q, k, v, out, lse, Sq, Sk, Hq, Hkv, scale, causal, D);
-}
-
-// Runtime-width instances: head dim d (a multiple of 8, at most DP).
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_rt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ out,
-                          float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                          float scale, int causal, int d) {
-  flash_f32_body<T, DP, true>(q, k, v, out, lse, Sq, Sk, Hq, Hkv, scale, causal, d);
-}
-
-// The exact instance of head dim D (d == D), or with kRt the runtime-width
-// instance of tile D at head dim d.
-template <typename T, int D, bool kRt>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                   int d, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
+// Every f32 head dim runs on the instance of its tile DT.
+template <int DT>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int Sq, int Sk, int Hq, int Hkv, int causal, int d,
+                       cudaStream_t stream) {
+  constexpr size_t bytes = FwdF32Smem<DT>::kBytes;
   static bool configured = false;
   if (!configured) {
-    cudaError_t e;
-    if constexpr (kRt)
-      e = cudaFuncSetAttribute(flash_attention_rt_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    else
-      e = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_f32_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  const float scale = 1.0f / sqrtf((float)d);
-  if constexpr (kRt)
-    flash_attention_rt_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv,
-        scale, causal, d);
-  else
-    flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv,
-        scale, causal);
+  const unsigned blocks = (unsigned)((Sq + kF32Rows - 1) / kF32Rows) * Hq * B;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
+  flash_fwd_f32_kernel<DT><<<blocks, kF32GroupThreads * fwd_f32_groups<DT>(), bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, B, Sq, Sk, Hq, Hkv, scale_log2, causal, d);
   return cudaGetLastError();
 }
 
@@ -809,19 +880,12 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
-    switch (D) {  // the exact instances
-      case 16: return (int)launch<float, 16, false>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 32: return (int)launch<float, 32, false>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 64: return (int)launch<float, 64, false>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 128: return (int)launch<float, 128, false>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      default: break;
-    }
     switch (rt_tile(D)) {
-      case 16: return (int)launch<float, 16, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 32: return (int)launch<float, 32, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 64: return (int)launch<float, 64, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      case 128: return (int)launch<float, 128, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
-      default: return (int)launch<float, 256, true>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 16: return (int)launch_f32<16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 32: return (int)launch_f32<32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 64: return (int)launch_f32<64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      case 128: return (int)launch_f32<128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
+      default: return (int)launch_f32<256>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, D, s);
     }
   }
   switch (D) {  // the exact instances

@@ -119,6 +119,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -127,6 +128,7 @@ using bf16 = __nv_bfloat16;
 using rt::load_vec;
 using rt::Vec;
 using namespace hopper;
+using namespace f32tile;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -837,9 +839,6 @@ flash_bwd_convert_rt_kernel(const float* __restrict__ dq_accum, bf16* __restrict
 // each float4 of P, dS, dO, Q or K read from shared memory feeding 4 to 32
 // FMAs. P and dS go through shared memory between the two products.
 
-constexpr int kF32Rows = 32;        // query rows of a tile
-constexpr int kF32GroupThreads = 64;
-
 template <int DT>
 __host__ __device__ constexpr int f32_keys() {
   return DT == 256 ? 16 : 32;  // keys of a tile (dK and dV: 64 registers each)
@@ -850,11 +849,7 @@ __host__ __device__ constexpr int f32_groups() {
   return DT <= 64 ? 4 : DT == 128 ? 2 : 1;  // shared memory bounds the groups
 }
 
-// Floats of a tile row in shared memory, and of a P / dS row.
-template <int DT>
-__host__ __device__ constexpr int f32_ld() {
-  return DT + 4;
-}
+// Floats of a P / dS row.
 template <int DT>
 __host__ __device__ constexpr int f32_sld() {
   return f32_keys<DT>() + 8;
@@ -872,49 +867,6 @@ struct F32Smem {
   static constexpr int kFloats = kPair + f32_groups<DT>() * kGroup;
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows [s0, s0 + rows) of head h of batch b of a [B, S, H, d] f32 tensor
-// into a [rows][DT + 4] tile by `nt` threads (this one `t`), 16 bytes at a
-// time; rows past S and columns past d are zeros.
-template <int DT>
-__device__ __forceinline__ void f32_load_tile(float* dst, const float* __restrict__ src, int b,
-                                              int s0, int rows, int S, int H, int h, int d,
-                                              int t, int nt) {
-  constexpr int kChunks = DT / 4;
-  for (int idx = t; idx < rows * kChunks; idx += nt) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 4;
-    const bool valid = s0 + r < S && c < d;
-    cp_async16(dst + r * f32_ld<DT>() + c,
-               valid ? src + (((size_t)b * S + s0 + r) * H + h) * d + c : src, valid);
-  }
-}
-
-// 32 values of a [B, Hq, Sq] row (lse or Delta) from row i0 (zeros past Sq).
-__device__ __forceinline__ void f32_load_row(float* dst, const float* __restrict__ src,
-                                             size_t base, int i0, int Sq, int t) {
-  if (t >= 0 && t < kF32Rows) {
-    const bool valid = i0 + t < Sq;
-    cp_async4(dst + t, valid ? src + base + i0 + t : src, valid);
-  }
-}
 
 // S = Q K^T and dP = dO V^T of one tile pair (32 rows x KK keys) by a group
 // thread t: rows t / 8 + 8x, keys t % 8 + 8y; then P = exp(scale S - lse)

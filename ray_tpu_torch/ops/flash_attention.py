@@ -37,17 +37,17 @@ import torch
 from ray_tpu_torch._private import kernels
 from ray_tpu_torch._private.kernels import HEAD_DIM_RULE, supported_head_dim
 
-# Head dims with instances of their own: these four in both kernels and
-# both dtypes, and Phi-2's and Phi-3-mini's 80 and 96 in the bf16 forward
+# Head dims with instances of their own: these four in both kernels' bf16
+# paths, and Phi-2's and Phi-3-mini's 80 and 96 in the bf16 forward
 # (faster there than the tile of 128; the backward's were not). Any other D
-# the rule takes runs on the instance of its tile width (kernel_tile) with
-# D as an argument.
+# the rule takes, and every f32 D, runs on the instance of its tile width
+# (kernel_tile) with D as an argument.
 EXACT_HEAD_DIMS = (16, 32, 64, 128)
 EXACT_BF16_FORWARD_HEAD_DIMS = EXACT_HEAD_DIMS + (80, 96)
 
 
 def kernel_tile(d: int) -> int:
-    """The bf16 kernels' tile width (columns of a row in shared memory) for
+    """The flash kernels' tile width (columns of a row in shared memory) for
     head dim d: the power of two at or above it, at least 16 (two 64-column
     panels at D = 80 and 96; flash_attention_bwd.cu, tile_of)."""
     return next(t for t in (16, 32, 64, 128, 256) if t >= d)

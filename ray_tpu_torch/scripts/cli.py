@@ -611,13 +611,17 @@ def cmd_profile(args) -> int:
     profiler over the worker's threads, rendered as collapsed stacks +
     Chrome-trace flame events; torch: a torch.profiler window (host ops,
     and the CUDA kernels where the worker has initialised CUDA) whose
-    Chrome trace is zipped from the worker as trace.json.
+    Chrome trace is zipped from the worker as trace.json, printed with
+    `startup_s`, the wait before its window opened.
     Captures persist through the storage plane under <session>/profiles/
     and are listed by `/api/profiles` / `util.state.list_profiles()`."""
+    from ray_tpu_torch._private import telemetry
+
     address = _resolve_address(args)
-    rep = _rpc_call(address, "profile_worker", timeout=args.seconds + 60,
-                    worker_id=args.worker, seconds=args.seconds,
-                    mode=args.mode)
+    seconds = telemetry.clamp_profile_seconds(args.seconds)
+    rep = _rpc_call(address, "profile_worker",
+                    timeout=telemetry.profile_timeout(seconds, "client"),
+                    worker_id=args.worker, seconds=seconds, mode=args.mode)
     if not rep.get("found"):
         print(f"profile failed: {rep.get('error')}", file=sys.stderr)
         return 1
@@ -625,6 +629,13 @@ def cmd_profile(args) -> int:
     print(f"profiled worker {meta.get('worker_id', '')[:12]} "
           f"({meta['mode']}, {meta.get('seconds')}s, "
           f"{meta.get('samples', meta.get('files', 0))} samples)")
+    if meta.get("startup_s") is not None:
+        # the wait before the window opened (the profiler going live), and
+        # the worker's first profiler session, taken before the capture
+        first = meta.get("first_session_s")
+        print(f"  startup_s: {meta['startup_s']}" + (
+            f" (the worker's first session took {first} s before it)"
+            if first is not None else ""))
     print(f"  persisted: {meta['path']}")
     if meta.get("archive_path"):
         print(f"  trace archive: {meta['archive_path']}")

@@ -363,6 +363,76 @@ def test_flash_backward_f32_is_bitwise_repeatable(gen, b, s, h, d):
         assert torch.equal(a, c)
 
 
+def _f32_forward_and_check(gen, b, sq, sk, hq, hkv, d, causal):
+    """The f32 forward with its logsumexp against the plain version within
+    1e-4, rows without a visible key zeros with lse -inf; returns the
+    inputs and the kernel's (out, lse)."""
+    q = _randn(gen, b, sq, hq, d, dtype=torch.float32)
+    k, v = (_randn(gen, b, sk, hkv, d, dtype=torch.float32)
+            for _ in range(2))
+    before = kernels.FLASH_ATTENTION.launches
+    out, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    assert kernels.FLASH_ATTENTION.launches == before + 1
+    ref_out, ref_lse = _reference_flash_attention_lse(q, k, v, causal)
+    _check(out, ref_out, torch.float32)
+    dead = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] < 0).all())
+    diff = (lse - ref_lse)[~dead].abs()
+    assert diff.numel() == 0 or float(diff.max()) <= 1e-4
+    if causal and sq > sk:
+        assert torch.all(out[:, :sq - sk] == 0)
+        assert bool(dead[:, :, :sq - sk].all())
+    return (q, k, v), (out, lse)
+
+
+# The f32 forward (32-row query tiles whose key tiles groups of 64 threads
+# take in turn) at every tile: D 8 and 16 run the tile of 16, 40 the tile
+# of 64, 96 the tile of 128 (16-key tiles), 256 its own (16-key tiles, 2
+# groups).
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 96, 128, 256])
+def test_flash_f32_forward_matches_plain_at_every_tile(gen, d):
+    _f32_forward_and_check(gen, 2, 300, 300, 4, 2, d, True)
+
+
+F32_FORWARD_CASES = [
+    (2, 1, 1, 2, 2, 64, True),         # one query row, one key
+    (1, 1, 300, 4, 2, 32, True),       # one query row, GQA, Sq < Sk
+    (2, 33, 33, 4, 4, 8, True),        # a 32-row tile and one row
+    (1, 33, 500, 8, 2, 64, True),      # GQA, Sq < Sk
+    (1, 33, 1000, 2, 2, 256, False),
+    (2, 1000, 1000, 2, 1, 40, True),
+    (1, 1000, 1000, 4, 4, 128, True),
+    (1, 1000, 33, 2, 2, 96, False),
+    (1, 100, 40, 2, 2, 96, True),      # Sq > Sk: 60 rows without keys
+    (1, 200, 70, 4, 1, 256, True),     # Sq > Sk, MQA
+    (1, 1000, 33, 4, 4, 16, True),     # Sq > Sk: 967 rows without keys
+    (2, 65, 130, 4, 4, 128, False),
+    (2, 256, 256, 4, 4, 64, True),     # phase 2's f32 row at B2
+    (8, 32, 32, 8, 8, 16, True),       # the dryrun's training heads
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", F32_FORWARD_CASES)
+def test_flash_f32_forward_matches_plain(gen, b, sq, sk, hq, hkv, d, causal):
+    _f32_forward_and_check(gen, b, sq, sk, hq, hkv, d, causal)
+
+
+@pytest.mark.parametrize("b,s,h,d", [
+    (1, 256, 4, 64),   # phase 2's f32 row
+    (2, 256, 4, 8),    # the tile of 16 at D8
+    (8, 32, 8, 16),    # the dryrun's training shape
+    (1, 1000, 2, 256),
+])
+def test_flash_forward_f32_is_bitwise_repeatable(gen, b, s, h, d):
+    """The f32 forward merges its groups' partials in group order (no
+    atomics): two calls on the same inputs give bitwise equal outputs and
+    logsumexps, each within 1e-4 of the plain version."""
+    args, first = _f32_forward_and_check(gen, b, s, s, h, h, d, True)
+    second = flash_attention_cuda(*args, True, with_lse=True)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_backward_gqa_head_split_at_exact_widths(gen, d):
     """Phase 2's GQA row (B2 Hq16 Hkv4 Sq512 < Sk1024, causal) at each

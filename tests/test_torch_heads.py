@@ -15,6 +15,7 @@ of 16). The kernels themselves run on the card: tests/test_torch_cuda.py.
 import ast
 import importlib
 import os
+import re
 
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ from ray_tpu_torch.ops.flash_attention import (
     _reference_flash_attention_backward, _reference_flash_attention_lse,
     flash_attention_backward_cuda, flash_attention_cuda)
 from ray_tpu_torch.parallel import dryrun
+from torch_flash_evidence import assert_flash_parity
 
 # the modules (ray_tpu_torch.ops re-exports their functions by these names)
 decode_mod = importlib.import_module("ray_tpu_torch.ops.decode_attention")
@@ -87,9 +89,20 @@ def test_flash_attention_matches_jax_at_narrow_heads(d, causal, b, sq, sk,
         _randn(rng, b, sk, hkv, d)
     port = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
-    _close(port, jax_flash(jq, jk, jv, causal=causal, block_q=min(sq, 128),
-                           block_k=128, interpret=True))
-    _close(port, _xla_attention(jq, jk, jv, causal=causal))
+    pallas = jax_flash(jq, jk, jv, causal=causal, block_q=min(sq, 128),
+                       block_k=128, interpret=True)
+    xla = _xla_attention(jq, jk, jv, causal=causal)
+
+    def again():
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        return (flash_attention(tq, tk, tv, causal=causal),
+                jax_flash(jq, jk, jv, causal=causal, block_q=min(sq, 128),
+                          block_k=128, interpret=True),
+                _reference_flash_attention_lse(tq, tk, tv, causal)[1])
+
+    # The JAX package's two paths agree first, so a failure after is the
+    # port's; its message carries the evidence (torch_flash_evidence).
+    assert_flash_parity(port, pallas, xla, TOL, again)
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -134,6 +147,73 @@ def _kernel_stage_rows(d: int, elem: int, group: int) -> int:
         (2048 if dt <= 64 else 8192)
     per = budget // (dt * elem)
     return 64 if per >= 64 else 32 if per >= 32 else 16
+
+
+CSRC = os.path.join(REPO, "ray_tpu_torch", "ops", "csrc")
+#: The shared memory a block may opt in to on an H100 (227 KB).
+SMEM_OPT_IN = 232448
+
+
+def _c_expr(expr: str) -> str:
+    """A constexpr expression of the f32 forward's source as Python: the
+    ternaries `a ? b : c` (right-nested), `name<DT>()` calls and
+    sizeof(float)."""
+    expr = re.sub(r"(\w+)<DT>\(\)", r"\1(DT)", expr.strip())
+    expr = expr.replace("sizeof(float)", "4")
+    if "?" not in expr:
+        return expr
+    cond, rest = expr.split("?", 1)
+    yes, no = rest.split(":", 1)
+    return f"(({_c_expr(yes)}) if ({cond.strip()}) else ({_c_expr(no)}))"
+
+
+def _f32_forward_layout(dt: int) -> dict:
+    """flash_attention.cu's f32 path at tile DT, evaluated from its source:
+    the constexpr functions fwd_f32_* and f32_ld (f32_tiles.cuh), the
+    FwdF32Smem fields (floats, kBytes) and the block's threads."""
+    src = open(os.path.join(CSRC, "flash_attention.cu")).read()
+    tiles = open(os.path.join(CSRC, "f32_tiles.cuh")).read()
+    ns = {"kF32Rows": int(re.search(r"constexpr int kF32Rows = (\d+);",
+                                    tiles).group(1)),
+          "kF32GroupThreads": int(re.search(
+              r"constexpr int kF32GroupThreads = (\d+);", tiles).group(1))}
+    fns = re.findall(r"constexpr int (\w+)\(\) \{\s*return ([^;]+);",
+                     src + tiles)
+    for name, body in fns:
+        ns[name] = eval(f"lambda DT: {_c_expr(body)}", ns)
+    smem = src[src.index("struct FwdF32Smem {"):]
+    smem = smem[:smem.index("};")]
+    ns["DT"] = dt
+    out = {}
+    for name, expr in re.findall(
+            r"static constexpr (?:int|size_t) (\w+) = ([^;]+);", smem):
+        out[name] = ns[name] = eval(_c_expr(expr), ns)
+    out["threads"] = ns["kF32GroupThreads"] * ns["fwd_f32_groups"](dt)
+    out["groups"] = ns["fwd_f32_groups"](dt)
+    out["keys"] = ns["fwd_f32_keys"](dt)
+    out["rows"] = ns["kF32Rows"]
+    return out
+
+
+@pytest.mark.parametrize("dt", [16, 32, 64, 128, 256])
+def test_f32_forward_shared_memory_fits_the_card(dt):
+    """The f32 forward's block at every tile (its constants read from the
+    source) opts in to no more shared memory than an H100 gives a block
+    (a launch that asks for more fails only on the card), its threads are
+    whole warps within 1024, its groups' stages hold their partials for
+    the merge (O [32][DT], m and l), and the launch asks for kBytes."""
+    lay = _f32_forward_layout(dt)
+    assert lay["kBytes"] == 4 * lay["kFloats"] <= SMEM_OPT_IN
+    assert lay["threads"] % 32 == 0 and lay["threads"] <= 1024
+    assert 4 * lay["kKV"] >= lay["rows"] * (dt + 2)
+    assert lay["keys"] % 8 == 0 and lay["kKV"] % 4 == 0
+    assert lay["kGroup"] % 4 == 0 and lay["kQ"] % 4 == 0  # float4 alignment
+    # four groups, or as many as shared memory allows
+    more = lay["kQ"] + (lay["groups"] + 1) * lay["kGroup"]
+    assert lay["groups"] == 4 or 4 * more > SMEM_OPT_IN
+    src = open(os.path.join(CSRC, "flash_attention.cu")).read()
+    assert "constexpr size_t bytes = FwdF32Smem<DT>::kBytes;" in src
+    assert f"case {dt}: return (int)launch_f32<{dt}>" in src or dt == 256
 
 
 def _kernel_lanes(d: int, elem: int) -> tuple:

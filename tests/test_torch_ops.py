@@ -42,6 +42,7 @@ from ray_tpu_torch.ops.flash_attention import (
     BWD_TILES, _FlashAttention, _reference_flash_attention_backward,
     _reference_flash_attention_lse, bwd_head_split, flash_attention_backward_cuda,
     flash_attention_cuda, kernel_tile)
+from torch_flash_evidence import assert_flash_parity
 
 TOL = 2e-5
 
@@ -87,12 +88,23 @@ def test_flash_attention_matches_jax(b, sq, sk, hq, hkv, d, causal):
     port = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                            torch.from_numpy(v), causal=causal)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
-    _close(port, jax_flash(jq, jk, jv, causal=causal, block_q=128,
-                           block_k=128, interpret=True))
-    _close(port, _xla_attention(jq, jk, jv, causal=causal))
+    pallas = jax_flash(jq, jk, jv, causal=causal, block_q=128, block_k=128,
+                       interpret=True)
+    xla = _xla_attention(jq, jk, jv, causal=causal)
+
+    def again():
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        return (flash_attention(tq, tk, tv, causal=causal),
+                jax_flash(jq, jk, jv, causal=causal, block_q=128,
+                          block_k=128, interpret=True),
+                _reference_flash_attention_lse(tq, tk, tv, causal)[1])
+
+    # The JAX package's two paths agree first, so a failure after is the
+    # port's; its message carries the evidence (torch_flash_evidence).
+    assert_flash_parity(port, pallas, xla, TOL, again)
     port_dpa = dot_product_attention(torch.from_numpy(q), torch.from_numpy(k),
                                      torch.from_numpy(v), causal=causal)
-    _close(port_dpa, _xla_attention(jq, jk, jv, causal=causal))
+    _close(port_dpa, xla)
 
 
 @pytest.mark.parametrize("sq,sk", [(100, 100), (37, 130), (192, 128)])

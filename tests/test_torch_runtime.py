@@ -13,6 +13,7 @@ import ast
 import os
 import pathlib
 import sys
+import threading
 import time
 
 import numpy as np
@@ -303,6 +304,94 @@ def test_torch_profile_window_is_a_chrome_trace():
     with zipfile.ZipFile(io.BytesIO(rep["archive"])) as z:
         trace = json.loads(z.read("trace.json"))
     assert "traceEvents" in trace
+
+
+# A torch.profiler window's length beyond the capture's `seconds`: the
+# profiler's own stop, not its start-up.
+PROFILE_WINDOW_MARGIN_S = 0.25
+
+
+def _profile_window_s(rep: dict) -> float:
+    import io
+    import json
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(rep["archive"])) as z:
+        trace = json.loads(z.read("trace.json"))
+    window = next(e for e in trace["traceEvents"] if e.get("ph") == "X"
+                  and str(e.get("name", "")).startswith("PyTorch Profiler"))
+    return window["dur"] / 1e6
+
+
+def test_torch_profile_reports_startup_apart_from_its_window():
+    """A capture that arrives while the worker's profiler prep holds the
+    session waits for it: the wait is in `startup_s`, and the window that
+    follows is `seconds` long within the margin (it opens only once the
+    profiler is live)."""
+    from ray_tpu_torch._private import telemetry
+
+    class _SessionRunning:
+        """The prep's lock while its session runs: taking it waits 0.4 s
+        from the moment the capture asks (a timer started before the call
+        could fire before the capture reaches the lock)."""
+
+        def __enter__(self):
+            time.sleep(0.4)
+
+        def __exit__(self, *exc):
+            return False
+
+    prep = telemetry.TorchProfilerPrep()
+    prep.lock = _SessionRunning()
+    rep = telemetry.torch_profile(0.3, prep)
+    assert rep["seconds"] == 0.3 and "first_session_s" not in rep
+    assert rep["startup_s"] >= 0.4
+    assert abs(_profile_window_s(rep) - 0.3) <= PROFILE_WINDOW_MARGIN_S
+    alone = telemetry.torch_profile(0.3)
+    assert 0 <= alone["startup_s"] < 0.4
+    assert abs(_profile_window_s(alone) - 0.3) <= PROFILE_WINDOW_MARGIN_S
+
+
+def test_torch_profiler_prep_starts_when_cuda_is_initialised(monkeypatch):
+    """Where the `profiler_prep` flag is set, the prep's session starts at
+    the first poll that finds CUDA initialised (unset, never), a capture's
+    reply then gives its length, and it never initialises CUDA itself; a
+    poll while another
+    thread of the worker is still importing torch (its module, or its
+    cuda module, without their names yet) does not raise; every hop's
+    timeout counts the start-up allowance, each outer hop above the
+    inner one."""
+    import types
+
+    from ray_tpu_torch._private import telemetry
+
+    prep = telemetry.TorchProfilerPrep()
+    prep.poll()
+    with monkeypatch.context() as m:
+        partial = types.ModuleType("torch")
+        m.setitem(sys.modules, "torch", partial)
+        prep.poll()
+        partial.cuda = types.ModuleType("torch.cuda")
+        prep.poll()
+    assert not prep.ready.wait(0.2) and not torch.cuda.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(telemetry, "_torch_profiler_activities",
+                        lambda: [torch.profiler.ProfilerActivity.CPU])
+    monkeypatch.delenv("RT_PROFILER_PREP", raising=False)
+    off = telemetry.TorchProfilerPrep()
+    off.poll()
+    assert not off.ready.wait(0.2)
+    monkeypatch.setenv("RT_PROFILER_PREP", "1")
+    off.poll()  # decided at its first poll with CUDA initialised
+    assert not off.ready.wait(0.2)
+    prep.poll()
+    assert prep.ready.wait(30) and prep.first_session_s >= 0
+    rep = telemetry.torch_profile(0.05, prep)
+    assert rep["first_session_s"] == round(prep.first_session_s, 3)
+    hops = [telemetry.profile_timeout(2.0, h)
+            for h in ("worker", "node", "client")]
+    assert hops == sorted(hops) and len(set(hops)) == 3
+    assert hops[0] >= 2.0 + telemetry.PROFILE_STARTUP_ALLOWANCE_S
 
 
 # ---- the port stands alone
