@@ -479,12 +479,13 @@ class TorchProfilerPrep:
 
 def torch_profile(seconds: float,
                   prep: Optional[TorchProfilerPrep] = None) -> dict:
-    """Capture a torch.profiler window (host ops, and the CUDA kernels'
-    device timeline where this process has initialised CUDA) and return
-    its Chrome trace as a zip archive blob. The window opens once the
-    profiler is live: `startup_s` is the time from the call to then (a
-    wait for `prep`'s session included), apart from the window's
-    `seconds`. The caller surfaces failures as attributed errors."""
+    """Capture a torch.profiler window (host ops of every thread, and the
+    CUDA kernels' device timeline where this process has initialised
+    CUDA) and return its Chrome trace as a zip archive blob. The window
+    opens once the profiler is live: `startup_s` is the time from the call
+    to then (a wait for `prep`'s session included), apart from the
+    window's `seconds`. The caller surfaces failures as attributed
+    errors."""
     import contextlib
     import io
     import tempfile
@@ -492,12 +493,17 @@ def torch_profile(seconds: float,
 
     import torch
 
+    # every thread's host ops: this runs on an executor thread, the
+    # model's work and its `tracing.device_span`s on others
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
     seconds = max(0.05, float(seconds))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="rt-torchprof-") as d:
         with prep.lock if prep is not None else contextlib.nullcontext():
             with torch.profiler.profile(
-                    activities=_torch_profiler_activities()) as prof:
+                    activities=_torch_profiler_activities(),
+                    experimental_config=every_thread) as prof:
                 startup_s = time.perf_counter() - t0
                 time.sleep(seconds)
         path = os.path.join(d, "trace.json")

@@ -39,7 +39,12 @@ than RT_TRACE_SLOW_S record a root span even when unsampled, and stall
 reports carry the wedged task's trace id so a `ray-tpu stalls` hit links
 straight to its timeline.
 
-Counterpart: ray_tpu/_private/tracing.py (copied).
+Below the request, `device_span(name)` marks the model's layers and the
+engine's device phases in a torch profiler's trace (the kernels' clock),
+and costs one flag read when no profiler records.
+
+Counterpart: ray_tpu/_private/tracing.py (copied; `device_span` is the
+port's own).
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import sys
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from contextvars import ContextVar
 from typing import Any, Optional
 
@@ -427,3 +432,31 @@ def on_rpc(event: str, method: str, dur: float = 0.0) -> None:
 
 def default_trace_dir(session_id: str) -> str:
     return os.path.join(CONFIG.session_dir, session_id, "traces")
+
+
+# ------------------------------------------------------------ device spans
+_NO_SPAN = nullcontext()
+# torch.autograd.profiler, imported at the first span (this module imports
+# no torch of its own)
+_autograd_profiler = None
+
+
+def device_span(name: str):
+    """A context that spans a block of device work on the profiler's clock:
+    while a torch profiler records in this process, a
+    `torch.profiler.record_function(name)`, so the span lies in the same
+    Chrome trace as the kernels it launched (and on the device timeline as
+    a `gpu_user_annotation`); otherwise a shared no-op, after one flag read.
+    Independent of RT_TRACING: the request spans above are the wall
+    clock's, these are the profiler's."""
+    global _autograd_profiler
+    ap = _autograd_profiler
+    if ap is None:
+        import torch.autograd.profiler as ap
+
+        _autograd_profiler = ap
+    if not ap._is_profiler_enabled:
+        return _NO_SPAN
+    import torch
+
+    return torch.profiler.record_function(name)

@@ -47,7 +47,11 @@ reference's; the mechanisms are PyTorch's:
   trace context at submit, and the scheduler records `engine.prefill`,
   `engine.dispatch_chunk` and `engine.host_sync` spans against the oldest
   traced request in flight; each traced host sync is also observed in
-  `DECODE_STEP_SECONDS`. Off, it issues no other device work.
+  `DECODE_STEP_SECONDS`. Off, it issues no other device work. The same
+  three names mark the device work of a prefill, a chunk's dispatch and
+  the host-sync reads in a torch profiler's trace (`tracing.device_span`),
+  beside the kernels: a replica's `profile --mode torch` capture records
+  every thread, the scheduler's included.
 """
 
 from __future__ import annotations
@@ -647,21 +651,23 @@ class ContinuousEngine:
         lb = self._bucket(plen)
         toks = np.zeros((1, lb), np.int64)
         toks[0, :plen] = prompt
-        toks_dev = self._to_device(toks)
-        positions = torch.arange(lb, device=self.device)[None]
-        cache_slice = self.model.new_cache(1, lb)
-        logits = self.model(toks_dev, positions=positions, cache=cache_slice)
-        last = logits[0, plen - 1].to(torch.float32)[None]
         key = stream_key(sampling.seed, request_id)
 
         def col(value, dtype):
             return torch.full((1,), value, dtype=dtype, device=self.device)
 
-        first = _sample(last, col(key, torch.int64), col(0, torch.int64),
-                        col(sampling.temperature, torch.float32),
-                        col(sampling.top_k, torch.int64),
-                        col(sampling.top_p, torch.float32),
-                        self.cfg.vocab_size)[0]
+        with _tracing.device_span("engine.prefill"):
+            toks_dev = self._to_device(toks)
+            positions = torch.arange(lb, device=self.device)[None]
+            cache_slice = self.model.new_cache(1, lb)
+            logits = self.model(toks_dev, positions=positions,
+                                cache=cache_slice)
+            last = logits[0, plen - 1].to(torch.float32)[None]
+            first = _sample(last, col(key, torch.int64), col(0, torch.int64),
+                            col(sampling.temperature, torch.float32),
+                            col(sampling.top_k, torch.int64),
+                            col(sampling.top_p, torch.float32),
+                            self.cfg.vocab_size)[0]
         return cache_slice, key, first
 
     def _prefill_loop(self):
@@ -773,21 +779,23 @@ class ContinuousEngine:
                           device=self.device)
         toks, lens = self._toks_dev, self._lens_dev
         last_pos = self.cfg.max_seq - 1
-        for j in range(n):
-            # Retired slots keep stepping garbage; clamping keeps their
-            # writes inside the cache (active slots never reach max_seq).
-            pos = torch.clamp(lens, max=last_pos)[:, None]
-            logits = self.model(toks[:, None], positions=pos,
-                                cache=self._cache)[:, -1]
-            if greedy:
-                toks = torch.argmax(logits, dim=-1)
-            else:
-                toks = _sample(logits, self._keys_dev, self._steps_dev,
-                               self._temps_dev, self._topks_dev,
-                               self._topps_dev, self.cfg.vocab_size)
-                self._steps_dev += 1
-            out[:, j] = toks
-            lens = lens + 1
+        with _tracing.device_span("engine.dispatch_chunk"):
+            for j in range(n):
+                # Retired slots keep stepping garbage; clamping keeps their
+                # writes inside the cache (active slots never reach
+                # max_seq).
+                pos = torch.clamp(lens, max=last_pos)[:, None]
+                logits = self.model(toks[:, None], positions=pos,
+                                    cache=self._cache)[:, -1]
+                if greedy:
+                    toks = torch.argmax(logits, dim=-1)
+                else:
+                    toks = _sample(logits, self._keys_dev, self._steps_dev,
+                                   self._temps_dev, self._topks_dev,
+                                   self._topps_dev, self.cfg.vocab_size)
+                    self._steps_dev += 1
+                out[:, j] = toks
+                lens = lens + 1
         self._toks_dev, self._lens_dev = toks, lens
         self.decode_steps += n
         return out
@@ -1008,10 +1016,11 @@ class ContinuousEngine:
                             None)
                 t_sync = time.time()
                 try:
-                    first_vals = [(slot, int(c.numpy()[0]))
-                                  for slot, c in firsts]
-                    chunk_vals = [(c.numpy(), p_active, pn)
-                                  for c, p_active, pn, _tag in q]
+                    with _tracing.device_span("engine.host_sync"):
+                        first_vals = [(slot, int(c.numpy()[0]))
+                                      for slot, c in firsts]
+                        chunk_vals = [(c.numpy(), p_active, pn)
+                                      for c, p_active, pn, _tag in q]
                 except Exception as e:
                     for slot, _c in firsts:
                         if self._slots[slot] is not None:

@@ -19,6 +19,14 @@ JAX weights across by renaming alone.
 - `moe_experts > 0` swaps each block's SwiGLU for `MoE`, the reference's
   top-2 dense-dispatch mixture of SwiGLU experts (router in f32, experts
   in the compute dtype; expert weights [E, d, ff] / [E, ff, d]).
+- While a torch profiler records, each layer's work lies in a
+  `tracing.device_span`: `tf.embed`, `tf.block` (its self time the
+  residual adds), `tf.norm`, `tf.cast` (a weight's cast to the compute
+  dtype), `tf.attn.proj`, `tf.attn.rope`, `tf.attn.core`, `tf.mlp.proj`,
+  `tf.mlp.act`, `tf.mlp.router` (MoE), `tf.head`, `tf.loss`. A backward
+  op carries its forward op's sequence number in the trace, so the
+  backward is charged to the same spans; no hook enters the graph, and
+  with no profiler nothing is recorded.
 - `loss_fn(model, tokens)` is the reference's next-token cross entropy.
   Training is autograd through the model; on the card the full-sequence
   attention's gradient is the flash backward kernel. A training step is
@@ -55,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch._private.tracing import device_span
 from ray_tpu_torch.ops import decode_attention, dot_product_attention
 from ray_tpu_torch.parallel.collectives import (all_gather,
                                                 all_gather_invariant, pmax,
@@ -90,15 +99,24 @@ class TransformerConfig:
 def _rope(x, positions, theta: float):
     """Rotary position embeddings over split halves (not interleaved
     pairs). x: [B, S, H, D], positions: [B, S]."""
-    d = x.shape[-1]
-    exps = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
-    freqs = 1.0 / (theta ** exps)
-    angles = positions[..., None].to(torch.float32) * freqs  # [B, S, D/2]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    with device_span("tf.attn.rope"):
+        d = x.shape[-1]
+        exps = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
+        freqs = 1.0 / (theta ** exps)
+        angles = positions[..., None].to(torch.float32) * freqs  # [B, S, D/2]
+        cos = torch.cos(angles)[:, :, None, :]
+        sin = torch.sin(angles)[:, :, None, :]
+        x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        return out.to(x.dtype)
+
+
+def _cast(w, dtype):
+    """A weight in the compute dtype. The cast has a span of its own, so
+    the product that uses it (and the cast's gradient back) are told
+    apart in a profile."""
+    with device_span("tf.cast"):
+        return w.to(dtype)
 
 
 def _param(shape, param_dtype, device, mesh=None, spec=None):
@@ -176,10 +194,12 @@ class RMSNorm(nn.Module):
             torch.ones(dim, dtype=torch.float32, device=device))
 
     def forward(self, x):
-        x32 = x.to(torch.float32)
-        norm = x32 * torch.rsqrt(
-            torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
-        return (norm * _use(self.scale, P(), self.mesh)).to(x.dtype)
+        scale = _use(self.scale, P(), self.mesh)
+        with device_span("tf.norm"):
+            x32 = x.to(torch.float32)
+            norm = x32 * torch.rsqrt(
+                torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
+            return (norm * scale).to(x.dtype)
 
 
 class Attention(nn.Module):
@@ -197,8 +217,9 @@ class Attention(nn.Module):
     def _proj(self, x, w):
         """DenseGeneral over the last axis: x [B, S, d] @ w [d, H, hd]."""
         dt = self.cfg.dtype
-        w = _use(w, _rule(("wq",)), self.mesh)
-        out = torch.matmul(x.to(dt), w.to(dt).reshape(w.shape[0], -1))
+        w = _cast(_use(w, _rule(("wq",)), self.mesh), dt)
+        with device_span("tf.attn.proj"):
+            out = torch.matmul(x.to(dt), w.reshape(w.shape[0], -1))
         return out.reshape(*x.shape[:-1], w.shape[1], w.shape[2])
 
     def forward(self, x, positions, cache=None):
@@ -208,17 +229,20 @@ class Attention(nn.Module):
         k = _rope(self._proj(x, self.wk), positions, cfg.rope_theta)
         v = self._proj(x, self.wv)
         if cache is not None:
-            out = self._cached_attention(q, k, v, positions, cache)
+            with device_span("tf.attn.core"):
+                out = self._cached_attention(q, k, v, positions, cache)
         else:
             if mesh is not None and mesh.size("sp") > 1:
                 # this rank's queries see the keys up to its block's end
                 end = (mesh.index("sp") + 1) * k.shape[1]
                 k = all_gather(k, "sp", mesh, dim=1)[:, :end].contiguous()
                 v = all_gather(v, "sp", mesh, dim=1)[:, :end].contiguous()
-            out = dot_product_attention(q, k, v, causal=True)
-        wo = _use(self.wo, _rule(("wo",)), mesh).to(cfg.dtype)
-        o = torch.matmul(out.to(cfg.dtype).flatten(-2),
-                         wo.reshape(-1, cfg.d_model))
+            with device_span("tf.attn.core"):
+                out = dot_product_attention(q, k, v, causal=True)
+        wo = _cast(_use(self.wo, _rule(("wo",)), mesh), cfg.dtype)
+        with device_span("tf.attn.proj"):
+            o = torch.matmul(out.to(cfg.dtype).flatten(-2),
+                             wo.reshape(-1, cfg.d_model))
         return psum(o, "tp", mesh)
 
     def _cached_attention(self, q, k, v, positions, cache):
@@ -268,11 +292,16 @@ class SwiGLU(nn.Module):
         x = pvary(x, "tp", mesh).to(dt)  # column-parallel in, row-parallel out
 
         def w(name):
-            return _use(getattr(self, name), _rule((name,)), mesh).to(dt)
+            return _cast(_use(getattr(self, name), _rule((name,)), mesh), dt)
 
-        gate = F.silu(torch.matmul(x, w("w_gate")))
-        up = torch.matmul(x, w("w_up"))
-        return psum(torch.matmul(gate * up, w("w_down")), "tp", mesh)
+        with device_span("tf.mlp.proj"):
+            gate = torch.matmul(x, w("w_gate"))
+            up = torch.matmul(x, w("w_up"))
+        with device_span("tf.mlp.act"):
+            h = F.silu(gate) * up
+        with device_span("tf.mlp.proj"):
+            out = torch.matmul(h, w("w_down"))
+        return psum(out, "tp", mesh)
 
 
 class MoE(nn.Module):
@@ -302,23 +331,30 @@ class MoE(nn.Module):
         def w(name):
             return _use(getattr(self, name), _rule(("moe", name)), mesh)
 
-        probs = torch.softmax(x.to(torch.float32) @ w("router"), dim=-1)
-        k = min(2, self.cfg.moe_experts)  # top-1 when there is one expert
-        kth = torch.topk(probs, k, dim=-1).values[..., -1:]
-        gates = torch.where(probs >= kth, probs, 0.0)
-        gates = gates / gates.sum(dim=-1, keepdim=True)  # renormalise top-k
+        router = w("router")
+        with device_span("tf.mlp.router"):
+            probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+            k = min(2, self.cfg.moe_experts)  # top-1 with one expert
+            kth = torch.topk(probs, k, dim=-1).values[..., -1:]
+            gates = torch.where(probs >= kth, probs, 0.0)
+            gates = gates / gates.sum(dim=-1, keepdim=True)  # renormalise
         if mesh is not None:  # this rank's experts
             n_local = self.w_gate.shape[0]
             first = mesh.index("ep") * n_local
             gates = pvary(gates, ("tp", "ep"), mesh)[..., first:first + n_local]
             x = pvary(x, ("tp", "ep"), mesh)
         xc = x.to(dt)
-        gate_h = F.silu(torch.einsum("bsd,edf->ebsf", xc, w("w_gate").to(dt)))
-        up_h = torch.einsum("bsd,edf->ebsf", xc, w("w_up").to(dt))
-        expert_out = torch.einsum("ebsf,efd->ebsd", gate_h * up_h,
-                                  w("w_down").to(dt))
-        return psum(torch.einsum("ebsd,bse->bsd", expert_out, gates.to(dt)),
-                    ("tp", "ep"), mesh)
+        with device_span("tf.mlp.proj"):
+            gate_h = torch.einsum("bsd,edf->ebsf", xc,
+                                  _cast(w("w_gate"), dt))
+            up_h = torch.einsum("bsd,edf->ebsf", xc, _cast(w("w_up"), dt))
+        with device_span("tf.mlp.act"):
+            h = F.silu(gate_h) * up_h
+        with device_span("tf.mlp.proj"):
+            expert_out = torch.einsum("ebsf,efd->ebsd", h,
+                                      _cast(w("w_down"), dt))
+            out = torch.einsum("ebsd,bse->bsd", expert_out, gates.to(dt))
+        return psum(out, ("tp", "ep"), mesh)
 
 
 class Block(nn.Module):
@@ -334,9 +370,10 @@ class Block(nn.Module):
             self.mlp = SwiGLU(cfg, device=device, mesh=mesh)
 
     def forward(self, x, positions, cache=None):
-        x = x + self.attn(self.attn_norm(x), positions, cache=cache)
-        ffn = self.moe if hasattr(self, "moe") else self.mlp
-        return x + ffn(self.mlp_norm(x))
+        with device_span("tf.block"):
+            x = x + self.attn(self.attn_norm(x), positions, cache=cache)
+            ffn = self.moe if hasattr(self, "moe") else self.mlp
+            return x + ffn(self.mlp_norm(x))
 
 
 class Transformer(nn.Module):
@@ -426,23 +463,26 @@ class Transformer(nn.Module):
         updated in place. Under tp, `gather=False` returns this rank's
         vocab block of the logits."""
         cfg, mesh = self.cfg, self.mesh
-        if positions is None:
-            positions = torch.arange(
-                tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        if cache is None:
-            tokens = _seq_shard(tokens, mesh)
-            positions = _seq_shard(positions, mesh)
-        elif mesh is not None and mesh.size("sp") > 1:
+        if cache is not None and mesh is not None and mesh.size("sp") > 1:
             raise ValueError("the slot-cache forward needs sp = 1")
         emb = _use(self.tok_emb, _rule(("tok_emb",)), mesh)
-        x = self._embed(tokens, emb)
+        with device_span("tf.embed"):
+            if positions is None:
+                positions = torch.arange(
+                    tokens.shape[1], device=tokens.device).expand(tokens.shape)
+            if cache is None:
+                tokens = _seq_shard(tokens, mesh)
+                positions = _seq_shard(positions, mesh)
+            x = self._embed(tokens, emb)
         for i, block in enumerate(self.layers):
             x = block(x, positions,
                       cache=None if cache is None else cache[i])
         x = self.final_norm(x)
         # Tied output head (vocab-sharded under tp).
-        logits = torch.matmul(pvary(x, "tp", mesh),
-                              emb.to(cfg.dtype).t()).to(torch.float32)
+        head = _cast(emb, cfg.dtype)
+        with device_span("tf.head"):
+            logits = torch.matmul(pvary(x, "tp", mesh),
+                                  head.t()).to(torch.float32)
         return all_gather_invariant(logits, "tp", mesh, dim=-1) \
             if gather else logits
 
@@ -467,11 +507,13 @@ def loss_fn(model: Transformer, tokens):
     mesh = model.mesh
     if mesh is None:
         logits = model(tokens[:, :-1])
-        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                               tokens[:, 1:].reshape(-1))
+        with device_span("tf.loss"):
+            return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   tokens[:, 1:].reshape(-1))
     logits = model(tokens[:, :-1], gather=False)
-    targets = _seq_shard(tokens[:, 1:], mesh)
-    nll = _vocab_parallel_nll(logits.reshape(-1, logits.shape[-1]),
-                              targets.reshape(-1), mesh)
-    count = tokens[:, 1:].numel() * mesh.size(("dp", "fsdp"))
-    return psum(nll.sum(), DATA_AXES, mesh) / count
+    with device_span("tf.loss"):
+        targets = _seq_shard(tokens[:, 1:], mesh)
+        nll = _vocab_parallel_nll(logits.reshape(-1, logits.shape[-1]),
+                                  targets.reshape(-1), mesh)
+        count = tokens[:, 1:].numel() * mesh.size(("dp", "fsdp"))
+        return psum(nll.sum(), DATA_AXES, mesh) / count
