@@ -37,7 +37,10 @@ from the root of a checkout. Phases, each of which raises on failure
    previous design's (`PARENT_HOST_US`); so is every forward row
    (`FWD_TABLE`: the golden heads file's f32 batches at D = 96 and 256
    too), each f32 forward called twice more with its logsumexp and held
-   to bitwise equal results.
+   to bitwise equal results. The RMSNorm kernels, forward and backward,
+   at the training cell's rows and a narrow width (`NORM_TABLE`), against
+   the plain forward and closed-form backward, the backward twice and
+   bitwise equal, timed beside their byte bounds and the plain versions.
 3. Golden parity: the tiny float32 model of tests/data/torch_port_golden.npz
    (weights, logits, greedy tokens and one step's loss and gradients of the
    JAX package) through the kernels, TF32 off: logits within 1e-4, greedy
@@ -56,7 +59,8 @@ from the root of a checkout. Phases, each of which raises on failure
    torch.optim.Adam(lr=1e-3). The first step's gradients against the same
    model on the plain attention path (relative norm per parameter tensor),
    then 10 timed steps (CUDA events): losses finite and falling, the flash
-   forward and backward kernels launched once per layer per step. One
+   forward and backward kernels launched once per layer per step, the
+   RMSNorm kernels once per norm per step each way. One
    profiled step gives the device's busy share and the shares of device
    time of the two flash kernels and the products. Then the MoE variant
    (4 experts, 2 layers) for 2 steps.
@@ -773,10 +777,82 @@ def _kernel_cases():
     bwd_main = _flash_bwd_row(BWD_MAIN, flush, gen)
     for name in BWD_PHASE2:
         _flash_bwd_row(name, flush, gen)
+    norm = [_norm_case(name, *args, flush, gen)
+            for name, args in NORM_TABLE.items()]
     narrow = _narrow_cases(flush, gen)
     wide = _wide_cases(flush, gen)
     del flush
-    return decode_main, flash_main, bwd_main, narrow, wide
+    return decode_main, flash_main, bwd_main, norm, narrow, wide
+
+
+# The RMSNorm rows of PERF.md's kernel table, timed in phase 2: name ->
+# (shape, dtype). The training cell's rows (B4 S4096 of Phi-3-medium's
+# 5120), and a width of 65 vectors, whose row groups of 96 threads leave
+# 31 idle.
+NORM_TABLE = {
+    "norm training B4 S4096 d5120 bf16": ((4, 4096, 5120), "bfloat16"),
+    "norm narrow 16384 rows d520 bf16": ((16384, 520), "bfloat16"),
+}
+NORM_EPS = 1e-6
+# dscale against the plain backward's, as a relative norm: both sum in f32,
+# the kernel over blocks' partials, the plain version in torch's order.
+NORM_DSCALE_REL_TOL = 1e-5
+
+
+def _norm_case(name, shape, dtype, flush, gen):
+    """The RMSNorm kernels against the plain forward and closed-form
+    backward, the backward as a residual block runs it (adding the
+    residual's gradient dres into dx). Bound: reading x and writing y and
+    r once (forward); reading x, dy, dres and r and writing dx and dscale
+    once (backward); the f32 arithmetic (4 and 11 flops an element) at
+    the f32 peak."""
+    import torch
+
+    from ray_tpu_torch.ops.rms_norm import (_reference_rms_norm,
+                                            _reference_rms_norm_backward,
+                                            rms_norm_backward_cuda,
+                                            rms_norm_cuda)
+
+    dt = getattr(torch, dtype)
+    x = (torch.randn(*shape, generator=gen, device="cuda") * 3).to(dt)
+    scale = torch.randn(shape[-1], generator=gen, device="cuda")
+    dy = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    dres = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    y, r = rms_norm_cuda(x, scale, NORM_EPS, with_r=True)
+    dx, ds = rms_norm_backward_cuda(x, scale, r, dy, dres)
+    ref_y, ref_r = _reference_rms_norm(x, scale, NORM_EPS)
+    ref_dx, ref_ds = _reference_rms_norm_backward(x, scale, ref_r, dy, dres)
+    torch.cuda.synchronize()
+    err = max(_max_err(y, ref_y, dtype), _max_err(dx, ref_dx, dtype))
+    ds_rel = float((ds - ref_ds).norm() / ref_ds.norm())
+    if not ds_rel <= NORM_DSCALE_REL_TOL:
+        raise AssertionError(f"{name}: dscale differs from the plain "
+                             f"backward's by {ds_rel}")
+    again = rms_norm_backward_cuda(x, scale, r, dy, dres)
+    if not (torch.equal(again[0], dx) and torch.equal(again[1], ds)):
+        raise AssertionError(f"{name}: two backward calls differ")
+    n, d = x.numel(), shape[-1]
+    rows, elem = n // d, x.element_size()
+    fwd_bound = _bound(2 * n * elem + 4 * rows + 4 * d, 4 * n, 0, "float32")
+    bwd_bound = _bound(4 * n * elem + 4 * rows + 8 * d, 11 * n, 0, "float32")
+    ms = _timed_ms(lambda: rms_norm_cuda(x, scale, NORM_EPS, with_r=True),
+                   flush)
+    bwd_ms = _timed_ms(
+        lambda: rms_norm_backward_cuda(x, scale, r, dy, dres), flush)
+    rec = {
+        "case": name, "max_abs_err": err, "tol": TOL[dtype],
+        "dscale_rel_err": ds_rel, "ms": ms,
+        "plain_ms": _timed_ms(
+            lambda: _reference_rms_norm(x, scale, NORM_EPS), flush),
+        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+        "share_of_bound": fwd_bound[0] / ms, "bwd_ms": bwd_ms,
+        "bwd_plain_ms": _timed_ms(
+            lambda: _reference_rms_norm_backward(x, scale, ref_r, dy, dres),
+            flush),
+        "bwd_bound_ms": bwd_bound[0], "bwd_share_of_bound":
+            bwd_bound[0] / bwd_ms, "library_ms": None}
+    log("rms_norm " + json.dumps(rec))
+    return rec
 
 
 # Phase 2's flash forward and backward cases at the reference's own head
@@ -1558,7 +1634,7 @@ def phase_wide() -> dict:
     from ray_tpu_torch.llm.openai import OpenAIServer
 
     t_phase = time.perf_counter()
-    rec, launches = {}, {k.name: {} for k in kernels.KERNELS}
+    rec, launches = {}, {k.name: {} for k in kernels.HEAD_DIM_KERNELS}
 
     def add(by_d):
         for name, counts in by_d.items():
@@ -2028,6 +2104,8 @@ def phase_train(kernels) -> dict:
            "losses": losses,
            "flash_launches": counts["flash_attention"],
            "flash_bwd_launches": counts["flash_attention_bwd"],
+           "norm_launches": counts["rms_norm"],
+           "norm_bwd_launches": counts["rms_norm_bwd"],
            "first_step_launches": first_counts,
            "worst_grad_rel_err_vs_plain": [worst_name, rel[worst_name]],
            "grad_rel_err_vs_plain_by_kind": by_kind(rel),
@@ -2044,6 +2122,10 @@ def phase_train(kernels) -> dict:
             counts["flash_attention_bwd"] != want or \
             first_counts["flash_attention_bwd"] != n_layers:
         raise AssertionError(f"flash kernels not launched once per layer "
+                             f"per step: {counts} over {TRAIN_STEPS} steps")
+    norms = (2 * n_layers + 1) * TRAIN_STEPS
+    if counts["rms_norm"] != norms or counts["rms_norm_bwd"] != norms:
+        raise AssertionError(f"RMSNorm kernels not launched once per norm "
                              f"per step: {counts} over {TRAIN_STEPS} steps")
     if not rel[worst_name] <= TRAIN_GRAD_REL_TOL:
         raise AssertionError(f"gradient of {worst_name} differs from the "
@@ -3455,7 +3537,7 @@ def phase_tensor_parallel(lone) -> dict:
                                  "per call")
     t0 = time.perf_counter()
     dryrun = dryrun_ranks(4, device="cuda")
-    launches = {k.name: {} for k in kernels.KERNELS}
+    launches = {k.name: {} for k in kernels.HEAD_DIM_KERNELS}
     for r in dryrun:
         for name, by_d in r["launches"].items():
             for d, n in by_d.items():
@@ -4557,13 +4639,14 @@ def main() -> int:
     log(f"device {kind} | power limit {smi.split(',')[-1].strip()} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | kernel build "
         f"{build_s:.1f} s")
-    for k in kernels.KERNELS:
+    for k in {k.source: k for k in kernels.KERNELS}.values():
         if k.build_log.exists():
             for line in _ptxas_summary(k.build_log.read_text()):
                 log(f"ptxas {k.name}: {line}")
     _decode_smem(kernels)
 
-    decode_rec, flash_rec, bwd_rec, narrow_recs, wide_recs = phase_kernels()
+    decode_rec, flash_rec, bwd_rec, norm_recs, narrow_recs, wide_recs = \
+        phase_kernels()
     phase_golden()
     widths_rec = phase_widths()
     wide_rec = phase_wide()
@@ -4675,6 +4758,15 @@ def main() -> int:
          **per_rank("flash_attention_bwd", tp_rec["kernels"]["flash_bwd"]),
          **narrow_heads("flash_attention_bwd"),
          **wide_heads("flash_attention_bwd")},
+        {**line(kernels.RMS_NORM, norm_recs[0], train_rec["norm_launches"],
+                "none (XLA fuses ray_tpu/models/transformer.py's RMSNorm)"),
+         "narrow": norm_recs[1]},
+        {**line(kernels.RMS_NORM_BWD, {
+            **norm_recs[0], "ms": norm_recs[0]["bwd_ms"],
+            "plain_ms": norm_recs[0]["bwd_plain_ms"],
+            "bound_ms": norm_recs[0]["bwd_bound_ms"]},
+            train_rec["norm_bwd_launches"],
+            "none (the gradient of the RMSNorm)")},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

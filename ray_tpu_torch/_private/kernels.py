@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each kernel is one `.cu` file under `ray_tpu_torch/ops/csrc/` with a plain
-C entry point (helpers shared between them in `common.cuh`, the Hopper
+C entry point (two for the RMSNorm, forward and backward, from one source;
+helpers shared between them in `common.cuh`, the Hopper
 building blocks of the two flash kernels in `hopper.cuh` and their f32
 tile loads in `f32_tiles.cuh`). At first use
 it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
@@ -11,10 +12,10 @@ hash of its source, the shared headers and the flags, and loaded with
 starts one `nvcc` per source at once and waits for all of them.
 
 Every `Kernel` counts its launches in a plain integer, `launches`, so a run
-can show that its main path went through the kernel, and by head dim in
-`launches_by_head_dim` where the wrapper names it. A build failure and a
-non-zero launch status (`cudaGetLastError()` right after the launch) both
-raise; nothing falls back to a plain version.
+can show that its main path went through the kernel, and the attention
+kernels (`HEAD_DIM_KERNELS`) by head dim in `launches_by_head_dim`. A build
+failure and a non-zero launch status (`cudaGetLastError()` right after the
+launch) both raise; nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -91,7 +92,9 @@ class Kernel:
         if lib.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        # two entry points of one source may build it from two threads
+        tmp = lib.with_name(
+            f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -141,6 +144,7 @@ class Kernel:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 DECODE_ATTENTION = Kernel(
     "decode_attention", "decode_attention.cu", "rt_decode_attention",
@@ -159,7 +163,20 @@ FLASH_ATTENTION_BWD = Kernel(
     # stream
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
      _I, _I, _I, _I, _P, _I, _P])
-KERNELS = (DECODE_ATTENTION, FLASH_ATTENTION, FLASH_ATTENTION_BWD)
+RMS_NORM = Kernel(
+    "rms_norm", "rms_norm.cu", "rt_rms_norm",
+    # x, scale, y, rinv (or None), rows, d, eps, dtype, vec_per_thread,
+    # threads_per_row, rows_per_block, stream
+    [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P])
+RMS_NORM_BWD = Kernel(
+    "rms_norm_bwd", "rms_norm.cu", "rt_rms_norm_bwd",
+    # x, dy, dres (or None), scale, rinv, dx, partial, dscale, rows, d,
+    # dtype, vec_per_thread, threads_per_row, rows_per_block, max_blocks,
+    # stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+#: the attention kernels, which also count their launches by head dim
+HEAD_DIM_KERNELS = (DECODE_ATTENTION, FLASH_ATTENTION, FLASH_ATTENTION_BWD)
+KERNELS = (*HEAD_DIM_KERNELS, RMS_NORM, RMS_NORM_BWD)
 # One wgmma product through each narrow-row descriptor of hopper.cuh, for
 # the card's tests only (no model path launches it, so it is not in
 # KERNELS and build_all does not build it).
@@ -172,7 +189,8 @@ WGMMA_PROBE = Kernel(
 def build_all() -> None:
     """Compile every kernel that is not built yet, one nvcc per source, all
     started together; raises KernelBuildError naming the first failure."""
-    procs = [(k, k.start_build()) for k in KERNELS]
+    by_source = {k.source: k for k in KERNELS}.values()
+    procs = [(k, k.start_build()) for k in by_source]
     errors = []
     for k, proc in procs:
         try:
@@ -194,12 +212,12 @@ def launch_counts() -> dict[str, int]:
 
 
 def launch_counts_by_head_dim() -> dict[str, dict[int, int]]:
-    return {k.name: dict(k.launches_by_head_dim) for k in KERNELS}
+    return {k.name: dict(k.launches_by_head_dim) for k in HEAD_DIM_KERNELS}
 
 
-#: The head dims the three kernels take (the JAX package's Pallas kernels
-#: take any D): the wrappers raise a ValueError stating this rule for any
-#: other.
+#: The head dims the three attention kernels take (the JAX package's Pallas
+#: kernels take any D): the wrappers raise a ValueError stating this rule for
+#: any other.
 HEAD_DIM_RULE = "a multiple of 8 from 8 to 256"
 
 

@@ -15,7 +15,9 @@ JAX weights across by renaming alone.
   sequence's own positions. Single-token steps run the decode kernel on
   the card; S > 1 (prefill) is the reference's dense masked attention.
 - Params are f32 by default and cast to `dtype` at use; RMSNorm and RoPE
-  compute in f32 and cast back; dense products are torch.matmul.
+  compute in f32 and cast back; dense products are torch.matmul. RMSNorm
+  is `ops.rms_norm`: one kernel each way on the card (the backward also
+  adds the block's residual gradient), the plain formula on the CPU.
 - `moe_experts > 0` swaps each block's SwiGLU for `MoE`, the reference's
   top-2 dense-dispatch mixture of SwiGLU experts (router in f32, experts
   in the compute dtype; expert weights [E, d, ff] / [E, ff, d]).
@@ -64,7 +66,8 @@ from torch import nn
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch._private.tracing import device_span
-from ray_tpu_torch.ops import decode_attention, dot_product_attention
+from ray_tpu_torch.ops import (decode_attention, dot_product_attention,
+                               rms_norm)
 from ray_tpu_torch.parallel.collectives import (all_gather,
                                                 all_gather_invariant, pmax,
                                                 psum, pvary)
@@ -193,13 +196,12 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(
             torch.ones(dim, dtype=torch.float32, device=device))
 
-    def forward(self, x):
+    def forward(self, x, residual: bool = False):
+        """y, or (x, y) with `residual`: the block adds its branch to that
+        x, so the kernel's backward adds the residual's gradient into dx."""
         scale = _use(self.scale, P(), self.mesh)
         with device_span("tf.norm"):
-            x32 = x.to(torch.float32)
-            norm = x32 * torch.rsqrt(
-                torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
-            return (norm * scale).to(x.dtype)
+            return rms_norm(x, scale, self.eps, residual=residual)
 
 
 class Attention(nn.Module):
@@ -371,9 +373,11 @@ class Block(nn.Module):
 
     def forward(self, x, positions, cache=None):
         with device_span("tf.block"):
-            x = x + self.attn(self.attn_norm(x), positions, cache=cache)
+            x, h = self.attn_norm(x, residual=True)
+            x = x + self.attn(h, positions, cache=cache)
             ffn = self.moe if hasattr(self, "moe") else self.mlp
-            return x + ffn(self.mlp_norm(x))
+            x, h = self.mlp_norm(x, residual=True)
+            return x + ffn(h)
 
 
 class Transformer(nn.Module):

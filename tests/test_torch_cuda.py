@@ -24,6 +24,10 @@ from ray_tpu_torch.ops.flash_attention import (
     _reference_flash_attention, _reference_flash_attention_backward,
     _reference_flash_attention_lse, bwd_head_split, flash_attention,
     flash_attention_backward_cuda, flash_attention_cuda)
+from ray_tpu_torch.ops.rms_norm import (_reference_rms_norm,
+                                        _reference_rms_norm_backward,
+                                        rms_norm, rms_norm_backward_cuda,
+                                        rms_norm_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -940,3 +944,175 @@ def test_flash_backward_kernel_repeats_at_every_width(gen):
                 _check(a, c, torch.bfloat16)
             assert torch.equal(first[1], second[1])
             assert torch.equal(first[2], second[2])
+
+
+# ---- RMSNorm: one kernel each way
+NORM_EPS = 1e-6
+NORM_CASES = [
+    ((4, 4096, 5120), torch.bfloat16),  # the training cell's rows
+    ((32, 3072), torch.bfloat16),       # a served Phi-3-mini decode step
+    ((32, 3072), torch.float32),
+    ((3, 7, 520), torch.bfloat16),      # narrow rows, two to a block
+    ((300, 5120), torch.float32),
+    ((5, 33), torch.float32),           # element loads, a masked tail
+    ((9, 17), torch.bfloat16),
+    ((2, 16384), torch.bfloat16),       # the widest rows
+    ((3, 8192), torch.float32),
+]
+
+
+def _norm_inputs(gen, shape, dtype):
+    x = _randn(gen, *shape, dtype=torch.float32).mul(3).to(dtype)
+    scale = torch.randn(shape[-1], generator=gen, device="cuda")
+    return x, scale, _randn(gen, *shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("shape,dtype", NORM_CASES, ids=str)
+def test_rms_norm_kernels_match_plain(gen, shape, dtype):
+    """y and dx (without and with a residual gradient) within the file's
+    tolerances of the plain versions (on the plain r), r within 2e-6,
+    dscale within 1e-5 of its norm computed in float64 and the same with
+    and without the residual, and y bitwise the same with and without r."""
+    x, scale, dy = _norm_inputs(gen, shape, dtype)
+    dres = _randn(gen, *shape, dtype=dtype)
+    before = (kernels.RMS_NORM.launches, kernels.RMS_NORM_BWD.launches)
+    y, r = rms_norm_cuda(x, scale, NORM_EPS, with_r=True)
+    dx, ds = rms_norm_backward_cuda(x, scale, r, dy)
+    assert (kernels.RMS_NORM.launches, kernels.RMS_NORM_BWD.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref_y, ref_r = _reference_rms_norm(x, scale, NORM_EPS)
+    _check(y, ref_y, dtype)
+    torch.testing.assert_close(r, ref_r, rtol=2e-6, atol=0)
+    assert torch.equal(rms_norm_cuda(x, scale, NORM_EPS), y)
+    ref_dx, _ = _reference_rms_norm_backward(x, scale, ref_r, dy)
+    assert dx.dtype == dtype and ds.dtype == torch.float32
+    _check(dx, ref_dx, dtype)
+    _, ds64 = _reference_rms_norm_backward(x.double(), scale.double(),
+                                           ref_r.double(), dy.double())
+    assert float((ds.double() - ds64).norm() / ds64.norm()) <= 1e-5
+    dx_res, ds_res = rms_norm_backward_cuda(x, scale, r, dy, dres)
+    _check(dx_res, _reference_rms_norm_backward(x, scale, ref_r, dy,
+                                                dres)[0], dtype)
+    assert torch.equal(ds_res, ds)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 4096, 5120), torch.bfloat16), ((300, 5120), torch.float32),
+    ((3, 7, 520), torch.bfloat16), ((5, 33), torch.float32)], ids=str)
+def test_rms_norm_kernels_are_bitwise_repeatable(gen, shape, dtype):
+    """Every sum is in a fixed order: y, r, dx and dscale equal across two
+    calls."""
+    x, scale, dy = _norm_inputs(gen, shape, dtype)
+    first = rms_norm_cuda(x, scale, NORM_EPS, with_r=True)
+    second = rms_norm_cuda(x, scale, NORM_EPS, with_r=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for dres in (None, dy.flip(0)):
+        grads = [rms_norm_backward_cuda(x, scale, first[1], dy, dres)
+                 for _ in range(2)]
+        assert torch.equal(grads[0][0], grads[1][0])
+        assert torch.equal(grads[0][1], grads[1][1])
+
+
+def test_transformer_step_runs_every_norm_through_the_kernels(gen):
+    """A 5-layer Transformer's training step launches the forward kernel
+    11 times (two norms a block and the final one) and the backward
+    kernel 11 times, and autograd launches no add for the residual
+    gradients, which the kernel adds; a no_grad forward launches 11
+    forward kernels and no backward, with f32 weights or bfloat16 ones."""
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig, loss_fn)
+
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=5,
+                            n_heads=4, n_kv_heads=2, d_ff=512, max_seq=128,
+                            dtype=torch.bfloat16)
+    model = Transformer(cfg, device="cuda", seed=0)
+    tokens = torch.randint(0, 512, (2, 65),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels.reset_launch_counts()
+    loss = loss_fn(model, tokens)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss.backward()
+    counts = kernels.launch_counts()
+    assert (counts["rms_norm"], counts["rms_norm_bwd"]) == (11, 11)
+    node = "autograd::engine::evaluate_function: _RMSNormBackward"
+    ran = [[c.name for c in e.cpu_children] for e in prof.events()
+           if e.name == node]
+    assert len(ran) == 11
+    assert not [n for names in ran for n in names if n.startswith("aten::add")]
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+    with torch.no_grad():
+        model(tokens)
+    counts = kernels.launch_counts()
+    assert (counts["rms_norm"], counts["rms_norm_bwd"]) == (22, 11)
+    model.to(torch.bfloat16)  # weights kept in bfloat16, as served
+    with torch.no_grad():
+        model(tokens)
+    assert kernels.launch_counts()["rms_norm"] == 33
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_rms_norm_takes_a_bfloat16_scale(gen, grad):
+    """A model kept in bfloat16 (served weights) hands the norm a bfloat16
+    scale: y equals the f32 scale's (the formula promotes it), and its
+    gradient comes back in bfloat16, as autograd of the formula gives."""
+    x, scale, dy = _norm_inputs(gen, (32, 3072), torch.bfloat16)
+    scale16 = scale.bfloat16().requires_grad_(grad)
+    with torch.set_grad_enabled(grad):
+        y = rms_norm(x, scale16, NORM_EPS)
+    assert torch.equal(y, rms_norm_cuda(x, scale16.detach().float(),
+                                        NORM_EPS))
+    if grad:
+        (ds,) = torch.autograd.grad(y, scale16, dy)
+        _, r = rms_norm_cuda(x, scale16.detach().float(), NORM_EPS,
+                             with_r=True)
+        want = rms_norm_backward_cuda(x, scale16.detach().float(), r, dy)[1]
+        assert ds.dtype == torch.bfloat16 and torch.equal(ds, want.bfloat16())
+
+
+def test_rms_norm_forward_under_cuda_graph_capture(gen):
+    """A CUDA graph captures the no_grad forward (one launch); a replay
+    after new rows are copied into the captured input equals the eager
+    call on them."""
+    x, scale, _ = _norm_inputs(gen, (32, 3072), torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        rms_norm(x, scale, NORM_EPS)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.RMS_NORM.launches
+    with torch.cuda.graph(graph, stream=side), torch.no_grad():
+        y = rms_norm(x, scale, NORM_EPS)
+    assert kernels.RMS_NORM.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, rms_norm_cuda(x, scale, NORM_EPS))
+    x.copy_(_randn(gen, 32, 3072, dtype=torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, rms_norm_cuda(x, scale, NORM_EPS))
+    _check(y, _reference_rms_norm(x, scale, NORM_EPS)[0], torch.bfloat16)
+
+
+def test_rms_norm_wrappers_raise_on_what_the_kernel_does_not_take(gen):
+    x, scale, _ = _norm_inputs(gen, (4, 64), torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        rms_norm(x.half(), scale, NORM_EPS)  # no fallback on the card
+    with pytest.raises(ValueError, match="float32"):
+        rms_norm_cuda(x, scale.bfloat16(), NORM_EPS)
+    with pytest.raises(ValueError, match="contiguous"):
+        rms_norm_cuda(x.t().contiguous().t(), scale, NORM_EPS)
+    # the model's entry point lays strided rows out first
+    assert torch.equal(rms_norm(x.t().contiguous().t(), scale, NORM_EPS),
+                       rms_norm_cuda(x, scale, NORM_EPS))
+    with pytest.raises(ValueError, match="CUDA device"):
+        rms_norm_cuda(x, scale.cpu(), NORM_EPS)
+    with pytest.raises(ValueError, match="32 KiB"):
+        rms_norm_cuda(torch.zeros(2, 8193, device="cuda"),
+                      torch.ones(8193, device="cuda"), NORM_EPS)
+    _, r = rms_norm_cuda(x, scale, NORM_EPS, with_r=True)
+    with pytest.raises(ValueError, match="r must be"):
+        rms_norm_backward_cuda(x, scale, r.double(), x)

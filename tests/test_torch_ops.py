@@ -322,14 +322,18 @@ def _c_entry_points():
                          ids=lambda k: k.name)
 def test_kernel_argtypes_match_the_c_entry_point(kernel):
     """Each Kernel's ctypes argtypes follow its C signature: as many
-    parameters, c_void_p for every pointer and c_int for every int. ctypes
-    passes a pointer given as c_int as 32 bits and cuts it silently, which
+    parameters, c_void_p for every pointer, c_int for every int and c_float
+    for every float. ctypes passes a pointer given as c_int as 32 bits and
+    cuts it silently, and a float given as c_int as its integer part, which
     would only show on the card."""
     params = _c_entry_points()[kernel.symbol]
     assert len(kernel.argtypes) == len(params), params
     for decl, argtype in zip(params, kernel.argtypes):
         if "*" in decl:
             assert argtype is ctypes.c_void_p, decl
+        elif decl.startswith("float "):
+            assert re.fullmatch(r"float \w+", decl), decl
+            assert argtype is ctypes.c_float, decl
         else:
             assert re.fullmatch(r"int \w+", decl), decl
             assert argtype is ctypes.c_int, decl

@@ -102,7 +102,8 @@ def test_http_completion(base):
                                               timeout=30).read())
     assert stats["pid"] != os.getpid()  # the engine lives in the replica
     assert set(stats["kernel_launches"]) == {
-        "decode_attention", "flash_attention", "flash_attention_bwd"}
+        "decode_attention", "flash_attention", "flash_attention_bwd",
+        "rms_norm", "rms_norm_bwd"}
 
 
 def test_http_sse_stream_arrives_incrementally(base):
